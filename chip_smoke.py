@@ -1,4 +1,4 @@
-"""Chip smoke test of the PyTorch/CUDA port: LoopTune's main path on one card.
+"""Chip smoke test of the PyTorch/CUDA port: its main paths on one card.
 
     python3 chip_smoke.py
 
@@ -7,9 +7,13 @@ toolkit and PyTorch; it needs nothing else.  Phases, each printing one JSON
 line with its seconds:
 
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build  — nvcc builds the tiled-matmul kernel from ``src/repro_torch``;
-3. kernel — the kernel against its plain torch version on the card over a
-   sweep of shapes, blocks, grid orders, dtypes and the transposed-B form;
+2. build  — nvcc builds the tiled-matmul and flash-attention kernels from
+   ``src/repro_torch``, in parallel, and reports ptxas' register lines;
+3. kernel — the matmul kernel against its plain torch version on the card
+   over a sweep of shapes, blocks, grid orders, dtypes and transposed B;
+   attention — the flash-attention kernel against its plain version over
+   the JAX kernel tests' shapes, windows, softcaps, bf16 and the model's
+   own shape;
 4. tune   — ``LoopTuner(policy="search", backend="torch")`` tunes the six
    dense contractions of musicgen-large (d_model 2048, d_ff 8192, vocab
    2048) at decode (M=4) and prefill (M=1024); every reward is a timed
@@ -17,12 +21,25 @@ line with its seconds:
 5. serve  — one layer's worth of ``tuned_einsum`` calls (wq/wk/wv, gate,
    up, down, logits) under ``serving(registry)``, decode and prefill,
    checked against ``matmul_ref``;
+   model  — the second path: musicgen-large at full width (48 layers,
+   d_model 2048, bf16, random weights from a seed) served by
+   ``launch/serve.py``'s continuous-batching loop with the six contractions
+   tuned again under the model's dtype: every dense site launches the
+   tiled-matmul kernel and every prefill attention the flash-attention
+   kernel.  Each bf16 record is then held, through ``tuned_einsum`` at the
+   model's shapes, against ``matmul_plain`` at the record's block; the last
+   logits and first decode logits against the same steps with
+   ``registry=None`` (dense on ``torch.matmul``), and one prefill wave and
+   one decode step are traced with ``torch.profiler``;
 6. timing — per contraction: the kernel at its tuned block and at 128^3,
    the plain version, ``torch.matmul`` (the library yardstick only), and
-   the bound (bytes over 3.35 TB/s vs FP32 operations over the FP32 peak).
+   the bound (bytes over 3.35 TB/s vs FP32 operations over the FP32 peak);
+   then flash attention at the model's prefill shape against its plain
+   version, ``scaled_dot_product_attention`` (yardstick only) and its bound.
 
-The kernel launch count is set to 0 before phase 4 and read after phase 5;
-launches made to compare or to time do not count.  Per-case detail goes to
+The kernel launch counts are set to 0 before phase 4 and read after phase
+5, and set to 0 again before the model's tuning and read right after its
+serve run; launches made to compare, trace or time do not count.  Per-case detail goes to
 ``chiprun_out/chip_smoke_cases.jsonl``.  Any failure exits non-zero before
 the last line, which is ``{"ok": true, "device": {...}}``.
 """
@@ -34,6 +51,8 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -43,9 +62,15 @@ D_MODEL, D_FF, VOCAB = 2048, 8192, 2048  # musicgen-large (configs/musicgen_larg
 DECODE_M, PREFILL_M = 4, 4 * 256
 HBM_BYTES_PER_S = 3.35e12
 F32_PEAK = {"pcie": 51e12, "sxm": 67e12}  # FP32 non-tensor FLOP/s
+BF16_PEAK = {"pcie": 756e12, "sxm": 989e12}  # dense bf16 tensor FLOP/s
 SEED = 0
 TUNE_MAX_EVALS = 150    # per search (greedy, then beam), per contraction
 TUNE_BUDGET_S = 30.0    # per search, per contraction
+ATTN_LIMIT = {torch.float32: 3e-5, torch.bfloat16: 3e-2}  # tests/test_kernels.py's
+# the model phase: 8 requests of 256 prompt frames (~5 s of audio at 50 Hz)
+SERVE = dict(requests=8, batch=4, prompt_len=256, gen_len=16, max_len=512)
+MODEL_LIMIT = 5e-2  # tuned vs registry=None logits, bf16 through 48 layers
+FA_SHAPE = (4, 256, 32, 64)  # (B, S, H, D) of the model's prefill attention
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -120,6 +145,67 @@ def phase_kernel(cases_f) -> None:
          failures=failures[:5])
     if failures:
         raise SystemExit(f"{len(failures)} kernel cases outside their limit")
+
+
+def attention_cases() -> list:
+    """(B, S, T, H, HKV, D, causal, window, softcap, bq, bk, dtype)."""
+    cases, blocks = [], [(16, 16), (64, 128), (128, 128), (128, 16)]
+    i = 0
+    for s in (2, 17, 64, 130):          # the JAX sweep: S 2-130, D 8/16/32,
+        for d in (8, 16, 32):           # H 1-4, GQA groups 1-2, causal or not
+            for hq in (1, 2, 4):
+                for g in (1, 2):
+                    hkv = max(1, hq // g)
+                    for causal in (False, True):
+                        bq, bk = blocks[i % len(blocks)]
+                        i += 1
+                        cases.append((2, s, s, hkv * g, hkv, d, causal, None, None,
+                                      bq, bk, torch.float32))
+    for dt in (torch.float32, torch.bfloat16):
+        for window, softcap in ((None, None), (8, None), (None, 20.0), (16, 50.0)):
+            cases.append((1, 48, 48, 4, 2, 16, True, window, softcap, 128, 128, dt))
+        cases += [(2, 20, 45, 2, 2, 8, False, None, None, 128, 128, dt),
+                  (1, 45, 20, 2, 1, 32, True, None, None, 128, 128, dt),
+                  (1, 40, 24, 2, 2, 16, True, 8, None, 128, 16, dt),  # rows see no key
+                  (1, 70, 70, 2, 2, 64, False, None, 20.0, 8, 64, dt)]
+    b, s, h, d = FA_SHAPE
+    cases.append((b, s, s, h, h, d, True, None, None, 128, 128, torch.bfloat16))
+    return cases
+
+
+def phase_attention(cases_f) -> None:
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain, launch_plan)
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    worst, failures = {}, []
+    cases = attention_cases()
+    for (b, s, t, h, hkv, d, causal, window, softcap, bq, bk, dt) in cases:
+        q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+        k = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
+        v = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
+        kw = dict(causal=causal, window=window, softcap=softcap, bq=bq, bk=bk)
+        out = flash_attention(q, k, v, **kw)
+        plain = flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        lim = ATTN_LIMIT[dt]
+        diff = (out.float() - plain.float()).abs()
+        # allclose(rtol=lim, atol=lim), as the JAX kernel tests hold it
+        ratio = (diff / (lim + lim * plain.float().abs())).max().item()
+        case = {"bsthd": [b, s, t, h, hkv, d], "causal": causal, "window": window,
+                "softcap": softcap, "block": [bq, bk], "dtype": str(dt),
+                "plan": launch_plan(s, t, bq, bk), "max_abs_err": diff.max().item(),
+                "limit": lim, "ratio_to_limit": ratio}
+        cases_f.write(json.dumps({"attention": case}) + "\n")
+        key = str(dt).replace("torch.", "")
+        worst[key] = max(worst.get(key, 0.0), case["max_abs_err"])
+        if not ratio <= 1.0:
+            failures.append(case)
+    emit("attention", t0, cases=len(cases), worst_max_abs_err=worst,
+         limits={"float32": 3e-5, "bfloat16": 3e-2}, failures=failures[:5])
+    if failures:
+        raise SystemExit(f"{len(failures)} attention cases outside their limit")
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +312,198 @@ def phase_serve(registry, wts, g) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the model path: musicgen-large at full width, served through both kernels
+# ---------------------------------------------------------------------------
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")  # device rows of a chrome trace
+
+
+def device_times(prof, wall_s: float, path: Path) -> dict:
+    """Device ms by kernel from a profiler trace, and the idle share of the
+    traced window: 1 - (union of the device's busy intervals) / wall.  The
+    union counts overlapping device work once.  The value is not clamped:
+    host and device clocks are aligned by the tracer, so a fully busy window
+    can read slightly below 0.  ``key_averages_device_ms`` is the sum of
+    self device time over the profiler's table rows, kept to compare."""
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    by = {"flash_attention": 0.0, "tiled_matmul": 0.0, "other": 0.0}
+    spans = []
+    for e in events:
+        if e.get("ph") != "X" or str(e.get("cat", "")).lower() not in DEVICE_CATS:
+            continue
+        start, dur = float(e["ts"]), float(e["dur"])
+        spans.append((start, start + dur))
+        name = e.get("name", "")
+        key = ("flash_attention" if "flash_fwd" in name else
+               "tiled_matmul" if "tiled_matmul" in name else "other")
+        by[key] += dur / 1e3
+    table_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                   for e in prof.key_averages()) / 1e3
+    out = {"wall_ms": wall_s * 1e3, "key_averages_device_ms": table_ms}
+    if not spans:
+        return {**out, "device_ms": None}
+    spans.sort()
+    busy_us, (lo, hi) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > hi:
+            busy_us, lo, hi = busy_us + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    busy_ms = (busy_us + hi - lo) / 1e3
+    return {**out, "device_ms": sum(by.values()), "busy_ms": busy_ms,
+            **{f"{k}_ms": v for k, v in by.items()},
+            "idle_share": 1.0 - busy_ms / (wall_s * 1e3)}
+
+
+def record_checks(registry, g) -> list:
+    """Each bf16 record the model serves, through ``tuned_einsum`` at the
+    model's shapes and forms (the logits form with f32 out), against
+    ``matmul_plain`` on the same operands at the record's block."""
+    from repro_torch.core.registry import current_hardware
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.matmul import matmul_plain
+
+    bf16, rows = torch.bfloat16, []
+    for m, seq in ((DECODE_M, 1), (PREFILL_M, PREFILL_M // DECODE_M)):
+        for spec, (k, n), odt in (("bsk,kn->bsn", (D_MODEL, D_MODEL), None),
+                                  ("bsk,kn->bsn", (D_MODEL, D_FF), None),
+                                  ("bsk,kn->bsn", (D_FF, D_MODEL), None),
+                                  ("bsd,vd->bsv", (D_MODEL, VOCAB), torch.float32)):
+            x = torch.randn(DECODE_M, seq, k, generator=g, device="cuda").to(bf16)
+            trans_b = spec.endswith("vd->bsv")
+            w = torch.randn(*((n, k) if trans_b else (k, n)), generator=g,
+                            device="cuda").to(bf16)
+            ops.reset_serving_stats()
+            with ops.serving(registry):
+                out = ops.tuned_einsum(spec, x, w, out_dtype=odt)
+            routed = ops.serving_stats(reset=True)["routed"]
+            block, order = ops._entry_schedule(registry.get(
+                "mm", (m, k, n), "bfloat16", hardware=current_hardware(), exact=True))
+            plain = matmul_plain(x.reshape(m, k), w, bm=block["m"], bk=block["k"],
+                                 bn=block["n"], grid_order=order,
+                                 out_dtype=odt or bf16, trans_b=trans_b)
+            torch.cuda.synchronize()
+            odt = odt or bf16
+            rows.append({"spec": spec, "mkn": [m, k, n], "out": str(odt),
+                         "block": [block["m"], block["k"], block["n"]], "order": order,
+                         "routed": routed, "limit": limit_for(odt),
+                         "rel_err": rel_err(out.reshape(m, n), plain)})
+    return rows
+
+
+def model_agreement(cfg, registry, out_dir: Path) -> dict:
+    """The first wave's prefill last logits and first decode logits, tuned
+    against ``registry=None``; every step traced by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import steps as S
+
+    params = SV.init_model(cfg, SEED, "cuda")
+    make_inputs = SV.input_fn(cfg, "cuda")
+    wave = SV.request_pool(cfg, SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"], SEED)
+    prompts = np.stack([r.prompt for r in wave])
+    outs, traces, tok = {}, {}, None
+    for name, reg in (("tuned", registry), ("plain", None)):
+        prefill = S.make_prefill_step(cfg, SERVE["max_len"], registry=reg)
+        decode = S.make_decode_step(cfg, registry=reg)
+        inputs = make_inputs(prompts)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            last, caches, n = prefill(params, inputs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        traces[f"{name}_prefill"] = device_times(prof, wall, out_dir / "trace.json")
+        if tok is None:
+            tok = torch.argmax(last, -1).cpu().numpy()
+        step_in = make_inputs(tok[:, None])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            _, step, caches = decode(params, step_in, caches, n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        traces[f"{name}_decode"] = device_times(prof, wall, out_dir / "trace.json")
+        outs[name] = (last, step)
+        del caches
+    return {"prefill_last_logits_rel_err": rel_err(outs["tuned"][0], outs["plain"][0]),
+            "decode_logits_rel_err": rel_err(outs["tuned"][1], outs["plain"][1]),
+            "finite": all(bool(torch.isfinite(x).all())
+                          for pair in outs.values() for x in pair),
+            "traces": traces}
+
+
+def phase_model(out_dir: Path) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.core import LoopTuner, matmul_benchmark
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch import serve as SV
+
+    t0 = time.perf_counter()
+    cfg = get_config("musicgen-large")
+    torch.cuda.reset_peak_memory_stats()
+    matmul.launches = flash_attention.launches = 0  # this path starts here
+    tuner = LoopTuner(policy="search", backend="torch", surrogate="off")
+    n = len(CONTRACTIONS)
+    tuner.tune_many([matmul_benchmark(*mkn) for mkn in CONTRACTIONS],
+                    dtypes=["bfloat16"] * n, weights=[1.0] * n,
+                    budget_s=TUNE_BUDGET_S * n, eval_budget=TUNE_MAX_EVALS * n)
+    tune_s, tune_launches = time.perf_counter() - t0, matmul.launches
+    summary = SV.serve_once(cfg, seed=SEED, registry=tuner.registry, device="cuda",
+                            **SERVE)
+    launches = {"tiled_matmul": matmul.launches,
+                "flash_attention": flash_attention.launches}  # ... and ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+    stats = summary["registry"]["serving"]
+    waves = summary["prefill_waves"]
+    records = record_checks(tuner.registry, torch.Generator(device="cuda").manual_seed(SEED))
+    agree = model_agreement(cfg, tuner.registry, out_dir)
+    worst = max(agree["prefill_last_logits_rel_err"], agree["decode_logits_rel_err"])
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab, "dtype": cfg.dtype, "params": cfg.param_count(),
+           **SERVE, "tune_s": tune_s, "tune_launches": tune_launches,
+           "launches": launches, "prefill_waves": waves,
+           "prefill_ms_per_wave": summary["prefill_ms"],
+           "decode_steps": summary["decode_steps"],
+           "decode_tokens": summary["decode_tokens"],
+           "decode_step_p50_ms": summary["decode_step_p50_ms"],
+           "decode_tokens_per_s": summary["decode_tokens_per_s"],
+           "tokens_per_s": summary["tokens_per_s"],
+           "max_memory_allocated": peak_bytes,
+           "hits": stats["hits"], "misses": stats["misses"], "routed": stats["routed"],
+           "tuned_blocks": {"x".join(map(str, mkn)): tuner.registry.get(
+               "mm", mkn, "bfloat16")["block"] for mkn in CONTRACTIONS},
+           "logits_finite": summary["logits_finite"] and agree["finite"],
+           "records": records,
+           "worst_rel_err_vs_registry_none": worst, "limit": MODEL_LIMIT,
+           **{k: agree[k] for k in ("prefill_last_logits_rel_err",
+                                    "decode_logits_rel_err", "traces")}}
+    emit("model", t0, **row)
+    checks = {
+        "every record: kernel vs plain within limit_for, routed once":
+            all(r["rel_err"] <= r["limit"] and r["routed"] == 1 for r in records),
+        "misses == 0": stats["misses"] == 0,
+        "routed == hits > 0": stats["routed"] == stats["hits"] > 0,
+        "flash launches == layers x waves":
+            launches["flash_attention"] == cfg.n_layers * waves > 0,
+        "matmul launches while serving == routed":
+            launches["tiled_matmul"] - tune_launches == stats["routed"],
+        "every logit finite": row["logits_finite"],
+        f"tuned vs registry=None <= {MODEL_LIMIT}": worst <= MODEL_LIMIT,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"model phase failed: {bad}")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing against the bound and the library yardstick
 # ---------------------------------------------------------------------------
 
@@ -292,6 +570,41 @@ def phase_timing(registry, card: str, g) -> list:
     return rows
 
 
+def phase_flash_timing(card: str, g) -> dict:
+    """Flash attention at the model's prefill shape, bf16, causal."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain, launch_plan)
+
+    t0 = time.perf_counter()
+    b, s, h, d = FA_SHAPE
+    flush = torch.empty(64 * 1024 * 1024 // 4 * 2, device="cuda")  # 128 MiB
+    q, k, v = (torch.randn(b, s, h, d, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    out = flash_attention(q, k, v, causal=True)
+    plain = flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    max_abs = (out.float() - plain.float()).abs().max().item()
+    if not max_abs <= 3e-2 + 3e-2 * plain.float().abs().max().item():
+        raise SystemExit(f"flash attention at {FA_SHAPE}: max abs err {max_abs}")
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), flush, 20)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True), flush, 5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA takes (B, H, S, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush, 20)
+    del flush
+    bytes_ms = 4 * b * s * h * d * 2 / HBM_BYTES_PER_S * 1e3     # q, k, v, o once
+    flops = 4 * b * h * d * s * (s + 1) // 2                      # visible pairs only
+    ops_ms = flops / BF16_PEAK["pcie" if "PCIe" in card else "sxm"] * 1e3
+    row = {"bshd": list(FA_SHAPE), "dtype": "bfloat16", "causal": True,
+           "plan": launch_plan(s, s), "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "tflops": flops / ms / 1e9, "max_abs_err": max_abs}
+    emit("timing_flash", t0, **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -309,25 +622,30 @@ def main() -> int:
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    _build.build_all(["matmul"])
-    log = str(_build.BUILD_INFO["matmul"]["log"])
-    emit("build", t0, kernels=["matmul"],
-         nvcc_s=round(float(_build.BUILD_INFO["matmul"]["seconds"]), 3),
-         ptxas=sorted({ln.split(":")[-1].strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln}))
+    names = ["matmul", "flash_attention"]
+    _build.build_all(names)  # one nvcc per source, all at once
+    emit("build", t0, kernels=names,
+         nvcc_s={n: round(float(_build.BUILD_INFO[n]["seconds"]), 3) for n in names},
+         ptxas={n: sorted({ln.split(":")[-1].strip()
+                           for ln in str(_build.BUILD_INFO[n]["log"]).splitlines()
+                           if "registers" in ln or "spill" in ln}) for n in names})
 
     with open(out_dir / "chip_smoke_cases.jsonl", "w") as cases_f:
         phase_kernel(cases_f)
+        phase_attention(cases_f)
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     wts = layer_weights(g)
-    matmul.launches = 0  # the main path starts here
+    matmul.launches = 0  # the first path starts here
     registry, tune_rows = phase_tune(lambda: matmul.launches)
     phase_serve(registry, wts, g)
-    main_path_launches = matmul.launches  # ... and ends here
+    first_path_launches = matmul.launches  # ... and ends here
     del wts
 
+    model = phase_model(out_dir)  # the second path (counts set to 0 and read inside)
+
     rows = phase_timing(registry, card, g)
+    fa = phase_flash_timing(card, g)
     ops_total = sum(2 * r["mkn"][0] * r["mkn"][1] * r["mkn"][2] for r in rows)
     bound_ops = ops_total / F32_PEAK["pcie" if "PCIe" in card else "sxm"] * 1e3
     bound_bytes = sum((r["mkn"][0] * r["mkn"][1] + r["mkn"][1] * r["mkn"][2]
@@ -337,7 +655,9 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:24",
-        "launches": main_path_launches,
+        "launches": first_path_launches + model["launches"]["tiled_matmul"],
+        "launches_by_path": {"tune_serve": first_path_launches,
+                             "model": model["launches"]["tiled_matmul"]},
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # one pass over the six musicgen-large contractions at tuned blocks
         "ms": sum(r["ms"] for r in rows),
@@ -347,6 +667,16 @@ def main() -> int:
         "library_ms": sum(r["library_ms"] for r in rows),
         "shapes": rows,
         "tune": tune_rows,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:27",
+        "launches": model["launches"]["flash_attention"],
+        "launches_by_path": {"tune_serve": 0,
+                             "model": model["launches"]["flash_attention"]},
+        **{k: fa[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "bshd", "dtype", "plan")},
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,0 +1,44 @@
+"""Architecture registry of the port.
+
+``get_config(arch_id)`` resolves the architectures whose layers the port
+runs: musicgen-large (attention + dense MLP).  The JAX package's other
+nine architectures need mixers and FFNs that are not ported yet (ROADMAP.md:
+MoE, Mamba with kernel B4, RWKV-6 with kernel B3, cross-attention) and raise
+``KeyError``.  ``input_specs`` (the dry-run's allocation-free stand-ins)
+comes with the dry-run launcher.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from . import musicgen_large
+from .base import (
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    TRAIN_4K,
+    LayerSpec,
+    ModelConfig,
+    MoEConfig,
+    ShapeCell,
+    shapes_for,
+)
+
+ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (musicgen_large,)}
+
+SHAPES: Dict[str, ShapeCell] = {c.name: c for c in ALL_SHAPES}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP.md, model zoo "
+                       f"and kernels B3/B4); ported: {sorted(ARCHS)}")
+    return ARCHS[arch]
+
+
+__all__ = [
+    "ARCHS", "SHAPES", "ALL_SHAPES", "get_config", "shapes_for", "ModelConfig",
+    "MoEConfig", "LayerSpec", "ShapeCell", "TRAIN_4K", "PREFILL_32K",
+    "DECODE_32K", "LONG_500K",
+]

@@ -2,10 +2,13 @@
 schedules, each with a wrapper that counts its launches and a plain torch
 version beside it (taken for CPU tensors), the registry-backed entry points
 (ops.py) and plain torch oracles (ref.py).  Kernels build at first use."""
+from .flash_attention import flash_attention_plain
 from .matmul import matmul, matmul_plain
 from .ops import (
+    flash_attention,
     get_registry,
     serving,
+    serving_registry,
     serving_stats,
     set_registry,
     tuned_einsum,
@@ -13,10 +16,13 @@ from .ops import (
 )
 
 __all__ = [
+    "flash_attention",
+    "flash_attention_plain",
     "matmul",
     "matmul_plain",
     "get_registry",
     "serving",
+    "serving_registry",
     "serving_stats",
     "set_registry",
     "tuned_einsum",

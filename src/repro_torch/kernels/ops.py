@@ -3,7 +3,8 @@ for block shapes — the tuned schedules become launch blocks here.
 
 ``set_registry(path_or_registry)`` installs a tuned-schedule table (produced
 by :class:`~repro_torch.core.tuner.LoopTuner`); :func:`tuned_matmul` falls
-back to 128^3 blocks when no entry exists.
+back to 128^3 blocks and :func:`flash_attention` to a (128, 128) block when
+no entry exists.
 
 **Tuned serving**: :func:`tuned_einsum` is the model zoo's consume path.
 Inside a :func:`serving` context every matmul-shaped contraction looks its
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.core.registry import ScheduleRegistry, current_hardware
 
+from .flash_attention import flash_attention as _flash_attention
 from .matmul import matmul as _matmul
 
 _REGISTRY: Optional[ScheduleRegistry] = None
@@ -65,6 +67,11 @@ def serving(registry: Union[str, ScheduleRegistry, None]):
         yield registry
     finally:
         _SERVING = prev
+
+
+def serving_registry() -> Optional[ScheduleRegistry]:
+    """The registry of the active :func:`serving` context, or None."""
+    return _SERVING
 
 
 def serving_stats(reset: bool = False) -> Dict[str, Any]:
@@ -190,8 +197,12 @@ def tuned_einsum(spec: str, a: torch.Tensor, b: torch.Tensor, *,
     reg = registry if registry is not None else _SERVING
 
     def _fallback():
-        out = torch.einsum(spec, a, b)
-        return out if out_dtype is None else out.to(out_dtype)
+        if out_dtype is None:
+            return torch.einsum(spec, a, b)
+        # accumulate in the wider of the two types, as jnp.einsum's
+        # preferred_element_type does (bf16 operands, f32 logits)
+        ct = torch.promote_types(a.dtype, out_dtype)
+        return torch.einsum(spec, a.to(ct), b.to(ct)).to(out_dtype)
 
     if reg is None:
         return _fallback()
@@ -228,3 +239,18 @@ def tuned_matmul(a: torch.Tensor, b: torch.Tensor, *,
     block, order = _entry_schedule(entry)
     return _matmul(a, b, bm=block["m"], bk=block["k"], bn=block["n"],
                    grid_order=order, out_dtype=out_dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None, softcap=None) -> torch.Tensor:
+    """Registry-tuned flash attention (block sizes under kernel id 'fa',
+    workload ``(S, T, D)``).  CUDA tensors launch the kernel, CPU tensors
+    run its plain version."""
+    bq, bk = 128, 128
+    if _REGISTRY is not None:
+        entry = _REGISTRY.get("fa", (q.shape[1], k.shape[1], q.shape[-1]))
+        if entry and "block" in entry:
+            bq = int(entry["block"].get("q", bq))
+            bk = int(entry["block"].get("k", bk))
+    return _flash_attention(q, k, v, causal=causal, window=window,
+                            softcap=softcap, bq=bq, bk=bk)

@@ -1,6 +1,9 @@
 """Plain torch oracles for the port's kernels (the allclose targets)."""
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
 
@@ -9,3 +12,32 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor, out_dtype=None) -> torch.Tensor
     cast to ``out_dtype`` (default: A's dtype)."""
     out = torch.matmul(a.float(), b.float())
     return out.to(out_dtype or a.dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  softcap: Optional[float] = None) -> torch.Tensor:
+    """Attention as one f32 softmax over every key: q (B, S, H, D), k and v
+    (B, T, HKV, D); masked scores are -inf and a row with no visible key
+    is 0.  Returns q's dtype."""
+    b, s, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) / math.sqrt(d)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    kv_pos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if window is not None:
+        mask &= kv_pos > q_pos - window
+    scores = torch.where(mask[None, None], scores, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    p = torch.where(torch.isnan(p), 0.0, p)
+    out = torch.einsum("bhst,bthd->bshd", p, v.float())
+    return out.to(q.dtype)

@@ -1,0 +1,272 @@
+"""Model assembly of the port: embeddings -> layers -> LM head.
+
+The JAX package stacks each period position's parameters over
+``n_periods`` and runs ``lax.scan`` over periods; here every layer is one
+:class:`ParamTree` in an ``nn.ModuleList`` (layer ``i`` is period
+``i // len(period)``, position ``i % len(period)``) and the scan is a
+Python loop.  Parameters are read by name as in the JAX pytree
+(``p["attn"]["wq"]``, ``params.get("lm_head")``), and
+``models/convert.py`` carries a JAX pytree across unchanged.
+
+The port runs attention (global and sliding-window) + dense-MLP layers, the
+layers of musicgen-large; MoE, Mamba, RWKV-6 and cross-attention raise
+``NotImplementedError`` (ROADMAP.md).  Sharding annotations (``ashard``) are
+dropped until ``runtime/sharding.py`` is ported.  Entry points:
+
+  * :func:`forward`        — full-sequence logits (prefill)
+  * :func:`decode_step`    — one token against the cache
+  * :func:`init_cache`     — allocate the decode cache
+
+The cache is the JAX layout (one dict per period position, leaves stacked
+``(n_periods, B, buf, HKV, hd)``), and **prefill and decode write into it in
+place**: the caches passed in are the caches returned.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import (
+    ATTN,
+    ATTN_LOCAL,
+    CROSS_ATTN,
+    DENSE,
+    MAMBA,
+    MOE,
+    RWKV6,
+    LayerSpec,
+    ModelConfig,
+)
+
+from . import layers as L
+
+_NOT_PORTED = {
+    MAMBA: "the Mamba mixer is not ported yet (ROADMAP.md, kernel B4 with jamba)",
+    RWKV6: "the RWKV-6 mixer is not ported yet (ROADMAP.md, kernel B3 with rwkv6-7b)",
+    CROSS_ATTN: "cross-attention is not ported yet (ROADMAP.md, model zoo)",
+    MOE: "the MoE FFN is not ported yet (ROADMAP.md, model zoo: moe.py)",
+}
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a layer kind the port cannot run."""
+    for spec in cfg.period:
+        for kind in (spec.mixer, spec.ffn):
+            if kind in _NOT_PORTED:
+                raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
+        if spec.mixer not in (ATTN, ATTN_LOCAL) or spec.ffn != DENSE:
+            raise ValueError(f"unknown layer kind {spec}")
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+class ParamTree(nn.Module):
+    """Named parameters, nested like the JAX pytree's dicts: ``p["wq"]``,
+    ``"lm_head" in p``, ``p.get("lm_head")``.  Serving only, so nothing
+    requires a gradient."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for name, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(name, ParamTree(val))
+            elif isinstance(val, nn.Module):
+                self.add_module(name, val)
+            else:
+                self.register_parameter(name, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def get(self, name: str, default=None):
+        return self[name] if name in self else default
+
+
+def make_params(top: Dict[str, Any], blocks: List[Dict[str, Any]]) -> ParamTree:
+    """The model's parameters from plain dicts of tensors: ``top`` (embed,
+    final_norm[, lm_head]) and one dict per layer, in layer order."""
+    return ParamTree({**top, "blocks": nn.ModuleList(ParamTree(b) for b in blocks)})
+
+
+def _block_init(generator, spec: LayerSpec, cfg: ModelConfig, device) -> Dict[str, Any]:
+    dt = _dtype(cfg)
+    d = cfg.d_model
+    p: Dict[str, Any] = {"norm_attn": torch.ones(d, dtype=dt, device=device),
+                         "norm_ffn": torch.ones(d, dtype=dt, device=device)}
+    if cfg.post_norm:
+        p["post_attn"] = torch.ones(d, dtype=dt, device=device)
+        p["post_ffn"] = torch.ones(d, dtype=dt, device=device)
+    p["attn"] = L.attn_params(generator, cfg, dt, device)
+    p["mlp"] = L.mlp_params(generator, d, cfg.d_ff, dt, device)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
+                device="cuda") -> ParamTree:
+    """Random weights from ``generator`` (which must live on ``device``).
+    The JAX package's initialisers, not its random numbers: parity tests
+    carry JAX weights across with ``models.convert.params_from_jax``."""
+    check_supported(cfg)
+    dt = _dtype(cfg)
+    top: Dict[str, Any] = {
+        "embed": L.embed_params(generator, cfg.vocab, cfg.d_model, dt, device),
+        "final_norm": torch.ones(cfg.d_model, dtype=dt, device=device),
+    }
+    if not cfg.tie_embeddings:
+        top["lm_head"] = L.dense_init(generator, (cfg.vocab, cfg.d_model), dt, device, 1.0)
+    n = len(cfg.period)
+    blocks = [_block_init(generator, cfg.period[i % n], cfg, device)
+              for i in range(cfg.n_layers)]
+    return make_params(top, blocks)
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Parameters :func:`init_params` makes (shapes only, on the meta device)."""
+    return sum(p.numel() for p in init_params(cfg, None, "meta").parameters())
+
+
+# ---------------------------------------------------------------------------
+# Cache
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"
+               ) -> Tuple[Dict[str, torch.Tensor], ...]:
+    """Decode cache: one dict per period position, leaves stacked
+    ``(n_periods, batch, buf, HKV, hd)``; a sliding-window layer keeps
+    ``min(max_len, window)`` slots."""
+    check_supported(cfg)
+    dt = _dtype(cfg)
+    caches = []
+    for spec in cfg.period:
+        win = spec.window if spec.mixer == ATTN_LOCAL else None
+        buf = min(max_len, win) if win else max_len
+        shape = (cfg.n_periods, batch, buf, cfg.n_kv_heads, cfg.head_dim_)
+        caches.append({"k": torch.zeros(shape, dtype=dt, device=device),
+                       "v": torch.zeros(shape, dtype=dt, device=device)})
+    return tuple(caches)
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+
+def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, decode):
+    """Attention on normed input ``h``; writes ``cache`` (one layer's k/v
+    views) in place."""
+    if spec.mixer not in (ATTN, ATTN_LOCAL):
+        raise NotImplementedError(_NOT_PORTED.get(spec.mixer, spec.mixer))
+    q, k, v = L.attn_qkv(p["attn"], cfg, h, positions=positions)
+    window = spec.window if spec.mixer == ATTN_LOCAL else None
+    if not decode:
+        out = L.attention(q, k, v, causal=True, window=window, softcap=cfg.attn_softcap)
+        if cache is not None:
+            buf, s = cache["k"].shape[1], k.shape[1]
+            if buf >= s:
+                cache["k"][:, :s] = k
+                cache["v"][:, :s] = v
+            else:  # windowed cache keeps only the tail
+                cache["k"].copy_(k[:, -buf:])
+                cache["v"].copy_(v[:, -buf:])
+    else:
+        # jax.lax.dynamic_update_slice clamps the start so the update fits
+        at = min(cache_len, cache["k"].shape[1] - 1)
+        cache["k"][:, at:at + 1] = k
+        cache["v"][:, at:at + 1] = v
+        out = L.attention(q, cache["k"], cache["v"], causal=True, q_offset=cache_len,
+                          kv_len=cache_len + 1, window=window,
+                          softcap=cfg.attn_softcap)
+    return L.dense(out.reshape(*h.shape[:2], -1), p["attn"]["wo"])
+
+
+def _apply_ffn(spec, p, cfg, h):
+    if spec.ffn != DENSE:
+        raise NotImplementedError(_NOT_PORTED.get(spec.ffn, spec.ffn))
+    return L.mlp_apply(p["mlp"], h, cfg.act)
+
+
+def _apply_block(spec, p, cfg, x, cache, cache_len, positions, decode):
+    h = L.rms_norm(x, p["norm_attn"])
+    mix = _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, decode)
+    if cfg.post_norm:
+        mix = L.rms_norm(mix, p["post_attn"])
+    if cfg.parallel_block:
+        ff = _apply_ffn(spec, p, cfg, h)
+        return x + mix.to(x.dtype) + ff.to(x.dtype)
+    x = x + mix.to(x.dtype)
+    ff = _apply_ffn(spec, p, cfg, L.rms_norm(x, p["norm_ffn"]))
+    if cfg.post_norm:
+        ff = L.rms_norm(ff, p["post_ffn"])
+    return x + ff.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+
+def _embed_in(params, cfg, batch) -> torch.Tensor:
+    if cfg.frontend == "tokens":
+        scale = math.sqrt(cfg.d_model) if cfg.embed_scale else None
+        return L.embed_apply(params["embed"], batch["tokens"], scale)
+    # audio / stub frontends supply precomputed frame embeddings
+    return batch["embeds"].to(_dtype(cfg))
+
+
+def _run_layers(params, cfg, x, caches, cache_len, positions, decode):
+    n = len(cfg.period)
+    for i, p in enumerate(params["blocks"]):
+        per, pos = divmod(i, n)
+        cache = (None if caches is None
+                 else {name: t[per] for name, t in caches[pos].items()})
+        x = _apply_block(cfg.period[pos], p, cfg, x, cache, cache_len, positions, decode)
+    return x
+
+
+def hidden_states(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                  caches: Optional[Tuple] = None
+                  ) -> Tuple[torch.Tensor, Optional[Tuple], torch.Tensor]:
+    """Full-sequence forward up to the final norm (no logits).  Returns
+    (hidden (B, S, D), caches, aux_loss); aux_loss is 0 (no MoE layer)."""
+    x = _embed_in(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    x = _run_layers(params, cfg, x, caches, 0, positions, decode=False)
+    x = L.rms_norm(x, params["final_norm"])
+    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            caches: Optional[Tuple] = None
+            ) -> Tuple[torch.Tensor, Optional[Tuple], torch.Tensor]:
+    """Full-sequence forward (prefill when caches are given, written in
+    place).  Returns (logits (B, S, V) f32, caches, aux_loss)."""
+    x, caches, aux = hidden_states(params, cfg, batch, caches)
+    logits = L.logits_apply(params["embed"], x, params.get("lm_head"), cfg.logit_softcap)
+    return logits, caches, aux
+
+
+def decode_step(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+                caches: Tuple, cache_len: int) -> Tuple[torch.Tensor, Tuple]:
+    """One decode step at position ``cache_len`` (the valid cache length);
+    writes the new k/v into ``caches`` in place.  Returns (logits (B, 1, V)
+    f32, caches)."""
+    x = _embed_in(params, cfg, batch)
+    positions = torch.full((1, 1), cache_len, device=x.device)
+    x = _run_layers(params, cfg, x, caches, cache_len, positions, decode=True)
+    x = L.rms_norm(x, params["final_norm"])
+    logits = L.logits_apply(params["embed"], x, params.get("lm_head"), cfg.logit_softcap)
+    return logits, caches

@@ -1,0 +1,180 @@
+"""The port's attention on the CPU against the JAX package's.
+
+``flash_attention_plain`` (what the flash-attention wrapper runs for CPU
+tensors, and what the CUDA kernel is held against on the card) against the
+Pallas kernel in interpret mode and against ``models.layers.attention``;
+the port's ``attention``, ``attention_ref`` and the ``"fa"`` registry
+lookup against theirs.  Inputs come from numpy with a seed.  Tolerances:
+3e-5 in f32 (the JAX kernel tests'), 3e-2 in bf16 (8-bit mantissa; the
+JAX model path also rounds p and the scaled q to bf16).
+"""
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.core import ScheduleRegistry as RRegistry
+from repro.kernels import ops as rops
+from repro.kernels import ref as rref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import layers as RL
+from repro_torch.core import ScheduleRegistry as TRegistry
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.models import layers as TL
+
+TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+
+# (B, S, T, H, HKV, D, causal, window, softcap, dtype)
+CASES = {
+    "self_causal": (2, 37, 37, 4, 4, 16, True, None, None, "float32"),
+    "ragged_s_lt_t": (2, 20, 45, 2, 2, 8, False, None, None, "float32"),
+    "ragged_s_gt_t_causal": (1, 45, 20, 2, 1, 32, True, None, None, "float32"),
+    "gqa_groups2": (2, 48, 48, 4, 2, 16, True, None, None, "float32"),
+    "gqa_groups4_noncausal": (1, 33, 33, 4, 1, 32, False, None, None, "float32"),
+    "window8": (1, 48, 48, 4, 2, 16, True, 8, None, "float32"),
+    "softcap20": (1, 48, 48, 4, 2, 16, True, None, 20.0, "float32"),
+    "window16_softcap50": (1, 48, 48, 4, 2, 16, True, 16, 50.0, "float32"),
+    "two_kv_blocks_d64": (1, 130, 130, 2, 2, 64, True, None, None, "float32"),
+    "bf16": (1, 64, 64, 4, 4, 16, True, None, None, "bfloat16"),
+    "bf16_gqa_window": (2, 40, 40, 4, 2, 32, True, 12, None, "bfloat16"),
+    # rows 31..39 see no key (the window ends before T): every version
+    # gives the mean of v there (T <= bk, so the padded kv range is T)
+    "no_visible_key": (1, 40, 24, 2, 2, 16, True, 8, None, "float32"),
+}
+
+
+def _inputs(b, s, t, h, hkv, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape, dtype=np.float32)
+            for shape in ((b, s, h, d), (b, t, hkv, d), (b, t, hkv, d))]
+    if dtype == "bfloat16":  # both packages see the same rounded values
+        arrs = [a.astype(ml_dtypes.bfloat16) for a in arrs]
+    return arrs
+
+
+def _torch(a):
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _close(out, ref, dtype):
+    tol = TOL[dtype]
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_matches_pallas_kernel_and_model_attention(name):
+    b, s, t, h, hkv, d, causal, window, softcap, dtype = CASES[name]
+    q, k, v = _inputs(b, s, t, h, hkv, d, dtype, seed=len(name))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out = flash_attention_plain(_torch(q), _torch(k), _torch(v), **kw)
+    assert out.shape == (b, s, h, d) and out.dtype == _torch(q).dtype
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    _close(out, pallas_flash(jq, jk, jv, interpret=True, **kw), dtype)
+    _close(out, RL.attention(jq, jk, jv, **kw), dtype)
+    # the wrapper takes the plain version for CPU tensors
+    wrapped = flash_attention(_torch(q), _torch(k), _torch(v), **kw)
+    assert torch.equal(wrapped, out)
+
+
+def test_no_visible_key_rows_are_the_mean_of_v():
+    b, s, t, h, hkv, d, causal, window, softcap, dtype = CASES["no_visible_key"]
+    q, k, v = _inputs(b, s, t, h, hkv, d, dtype, seed=1)
+    out = flash_attention_plain(_torch(q), _torch(k), _torch(v), causal=causal,
+                                window=window)
+    blind = np.arange(s) >= t + window - 1
+    assert blind.sum() == 9
+    np.testing.assert_allclose(out[:, blind].numpy(),
+                               np.broadcast_to(v.mean(axis=1, keepdims=True),
+                                               (b, int(blind.sum()), h, d)),
+                               rtol=1e-6, atol=1e-6)
+    # ... where the one-softmax oracle gives 0
+    ref = tref.attention_ref(_torch(q), _torch(k), _torch(v), causal=causal,
+                             window=window)
+    assert torch.count_nonzero(ref[:, blind]) == 0
+
+
+@pytest.mark.parametrize("bk", [16, 128])
+def test_fa_registry_block_sets_the_padded_kv_range(bk):
+    """The "fa" block reaches the kernel: a row with no visible key is
+    sum(v) / (cdiv(T, bk) * bk), in both packages alike."""
+    b, s, t, h, hkv, d = 1, 40, 24, 2, 2, 16
+    q, k, v = _inputs(b, s, t, h, hkv, d, "float32", seed=2)
+    treg, rreg = TRegistry(), RRegistry()
+    for reg in (treg, rreg):
+        reg.put("fa", (s, t, d), 1.0, [])
+        reg.get("fa", (s, t, d))["block"] = {"q": 16, "k": bk}
+    tops.set_registry(treg)
+    rops.set_registry(rreg)
+    try:
+        out = tops.flash_attention(_torch(q), _torch(k), _torch(v), window=8)
+        ref = rops.flash_attention(*(jnp.asarray(a) for a in (q, k, v)), window=8)
+    finally:
+        tops.set_registry(None)
+        rops.set_registry(None)
+    _close(out, ref, "float32")
+    t_pad = -(-t // min(bk, t)) * min(bk, t)
+    np.testing.assert_allclose(out[0, -1].numpy(), v[0].sum(axis=0) / t_pad,
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["self_causal", "gqa_groups4_noncausal",
+                                  "window16_softcap50", "bf16_gqa_window"])
+def test_attention_ref_matches(name):
+    b, s, t, h, hkv, d, causal, window, softcap, dtype = CASES[name]
+    q, k, v = _inputs(b, s, t, h, hkv, d, dtype, seed=3)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out = tref.attention_ref(_torch(q), _torch(k), _torch(v), **kw)
+    _close(out, rref.attention_ref(*(jnp.asarray(a) for a in (q, k, v)), **kw), dtype)
+
+
+@pytest.mark.parametrize("name", ["self_causal", "gqa_groups2", "window8", "bf16"])
+def test_model_attention_prefill_matches(name):
+    b, s, t, h, hkv, d, causal, window, softcap, dtype = CASES[name]
+    q, k, v = _inputs(b, s, t, h, hkv, d, dtype, seed=4)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out = TL.attention(_torch(q), _torch(k), _torch(v), **kw)
+    _close(out, RL.attention(*(jnp.asarray(a) for a in (q, k, v)), **kw), dtype)
+
+
+@pytest.mark.parametrize("window,softcap", [(None, None), (4, 30.0)])
+@pytest.mark.parametrize("hkv", [4, 2])
+def test_model_attention_decode_matches(window, softcap, hkv):
+    b, t, h, d, pos = 2, 16, 4, 16, 9
+    q, k, v = _inputs(b, 1, t, h, hkv, d, "float32", seed=5)
+    kw = dict(causal=True, q_offset=pos, kv_len=pos + 1, window=window,
+              softcap=softcap)
+    out = TL.attention(_torch(q), _torch(k), _torch(v), **kw)
+    _close(out, RL.attention(*(jnp.asarray(a) for a in (q, k, v)), **kw), "float32")
+
+
+def test_model_attention_refuses_a_query_block_over_a_cache():
+    q, k, v = (torch.zeros(1, n, 2, 16) for n in (4, 8, 8))
+    for kw in (dict(q_offset=3), dict(kv_len=5)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TL.attention(q, k, v, **kw)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k = torch.zeros(1, 4, 4, 16), torch.zeros(1, 6, 2, 16)
+    for d in (12, 128):
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention(torch.zeros(1, 4, 2, d), torch.zeros(1, 4, 2, d),
+                            torch.zeros(1, 4, 2, d))
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros(1, 6, 3, 16), torch.zeros(1, 6, 3, 16))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, torch.zeros(1, 5, 2, 16))
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k, bk=0)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k, softcap=0.0)

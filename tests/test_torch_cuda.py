@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and a model step, on
+the card.
 
 These tests import no JAX, so they run on a host with the card and no JAX:
 
@@ -83,3 +84,73 @@ def test_tuned_einsum_routes_to_the_kernel_on_the_card():
     for out in (y, yt):
         err = (out.reshape(8, 128) - ref).abs().max() / ref.abs().max()
         assert err.item() <= 1e-5
+
+
+# (B, S, T, H, HKV, D, causal, window, softcap, bq, bk)
+FLASH_CASES = [
+    (2, 37, 37, 4, 4, 16, True, None, None, 128, 128),
+    (1, 45, 20, 2, 1, 32, True, None, None, 128, 128),
+    (2, 20, 45, 2, 2, 8, False, None, None, 16, 16),
+    (1, 48, 48, 4, 2, 16, True, 8, None, 128, 128),
+    (1, 48, 48, 4, 2, 16, True, 16, 50.0, 32, 48),
+    (1, 40, 24, 2, 2, 16, True, 8, None, 128, 16),   # rows with no visible key
+    (2, 130, 130, 4, 4, 64, True, None, None, 128, 128),
+    (1, 70, 70, 2, 2, 64, False, None, 20.0, 8, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain_version_on_the_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    dt = getattr(torch, dtype)
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for (b, s, t, h, hkv, d, causal, window, softcap, bq, bk) in FLASH_CASES:
+        q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+        k = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
+        v = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
+        kw = dict(causal=causal, window=window, softcap=softcap, bq=bq, bk=bk)
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        ref = flash_attention_plain(q, k, v, **kw)
+        assert out.dtype == dt and out.shape == ref.shape
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_two_layer_model_step_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import steps as S
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("musicgen-large").smoke(), n_layers=2)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = copy.deepcopy(params).to("cuda")
+    g = torch.Generator().manual_seed(1)
+    embeds = torch.randn(2, 12, cfg.d_model, generator=g)
+    step = torch.randn(2, 1, cfg.d_model, generator=g)
+    prefill, decode = S.make_prefill_step(cfg, 24), S.make_decode_step(cfg)
+
+    want, caches, n = prefill(params, {"embeds": embeds})
+    _, want_step, _ = decode(params, {"embeds": step}, caches, n)
+    before = flash_attention.launches
+    got, caches, n = prefill(on_card, {"embeds": embeds.cuda()})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    _, got_step, _ = decode(on_card, {"embeds": step.cuda()}, caches, n)
+    for g_, w_ in ((got, want), (got_step, want_step)):
+        assert torch.isfinite(g_).all()
+        err = (g_.cpu() - w_).abs().max() / w_.abs().max()
+        assert err.item() <= 1e-4
