@@ -7,13 +7,19 @@ toolkit and PyTorch; it needs nothing else.  Phases, each printing one JSON
 line with its seconds:
 
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build  — nvcc builds the tiled-matmul and flash-attention kernels from
-   ``src/repro_torch``, in parallel, and reports ptxas' register lines;
+2. build  — nvcc builds the tiled-matmul, flash-attention and RWKV-6 scan
+   kernels from ``src/repro_torch`` and a copy of the scan kernel with one
+   term dropped (the mutation check below), in parallel, and reports
+   ptxas' register lines;
 3. kernel — the matmul kernel against its plain torch version on the card
    over a sweep of shapes, blocks, grid orders, dtypes and transposed B;
    attention — the flash-attention kernel against its plain version over
    the JAX kernel tests' shapes, windows, softcaps, bf16 and the model's
    own shape;
+   rwkv_scan — the RWKV-6 chunked-scan kernel against its plain version over
+   the JAX kernel tests' ranges (S 1-70, N 4/8/16, chunks 4/16/64, 1-4
+   streams), N = 64 at chunks 64 and 128, a carried state, bf16 r/k/v and
+   rwkv6-7b's prefill shape;
 4. tune   — ``LoopTuner(policy="search", backend="torch")`` tunes the six
    dense contractions of musicgen-large (d_model 2048, d_ff 8192, vocab
    2048) at decode (M=4) and prefill (M=1024); every reward is a timed
@@ -31,20 +37,37 @@ line with its seconds:
    logits and first decode logits against the same steps with
    ``registry=None`` (dense on ``torch.matmul``), and one prefill wave and
    one decode step are traced with ``torch.profiler``;
+   model_rwkv — the third path: rwkv6-7b at full width (32 layers, d_model
+   4096, bf16, random weights from a seed) served by ``serve_once``: every
+   prefill time-mix launches the scan kernel.  Then the prefill of a
+   384-token prompt (kernel) against the same prompt fed token by token
+   through ``decode_step`` (the plain recurrence, no kernel): last logits
+   and every layer's state and carries; the same check on the same weights
+   widened to f32 (the witness that the bf16 error is the dense products'
+   rounding); and a mutation check: the scan kernel with its u-bonus term
+   dropped, through the same wrapper, must fail both the bf16 check and the
+   rwkv_scan cases;
 6. timing — per contraction: the kernel at its tuned block and at 128^3,
    the plain version, ``torch.matmul`` (the library yardstick only), and
    the bound (bytes over 3.35 TB/s vs FP32 operations over the FP32 peak);
    then flash attention at the model's prefill shape against its plain
-   version, ``scaled_dot_product_attention`` (yardstick only) and its bound.
+   version, ``scaled_dot_product_attention`` (yardstick only) and its bound;
+   then the scan kernel at rwkv6-7b's prefill shape against its plain
+   version and its bound (bytes vs the 4N^2 FLOP a token that any form of
+   the recurrence does; no single PyTorch call computes the recurrence).
 
-The kernel launch counts are set to 0 before phase 4 and read after phase
-5, and set to 0 again before the model's tuning and read right after its
-serve run; launches made to compare, trace or time do not count.  Per-case detail goes to
+All three kernels' launch counts are set to 0 before phase 4 and read after
+phase 5, set to 0 again before the model's tuning and read right after its
+serve run, and set to 0 before rwkv6-7b's serve run and read right after
+it; each path must launch its own kernels and no other.  Launches made to
+compare, trace, check or time do not count.  Per-case detail goes to
 ``chiprun_out/chip_smoke_cases.jsonl``.  Any failure exits non-zero before
 the last line, which is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -71,6 +94,47 @@ ATTN_LIMIT = {torch.float32: 3e-5, torch.bfloat16: 3e-2}  # tests/test_kernels.p
 SERVE = dict(requests=8, batch=4, prompt_len=256, gen_len=16, max_len=512)
 MODEL_LIMIT = 5e-2  # tuned vs registry=None logits, bf16 through 48 layers
 FA_SHAPE = (4, 256, 32, 64)  # (B, S, H, D) of the model's prefill attention
+RWKV_LIMIT = 2e-4  # allclose rtol = atol, tests/test_kernels.py's for the scan
+# rwkv6-7b: 8 requests of 1024 prompt tokens, 2 prefill waves of 8 chunks
+RWKV_SERVE = dict(requests=8, batch=4, prompt_len=1024, gen_len=32, max_len=1056)
+RWKV_SHAPE = (4, 1024, 64, 64)  # (B, S, H, N) of its prefill scan
+RWKV_CHUNK = 128  # models/rwkv6.py time_mix_chunked's
+RECURRENCE_LEN = 384  # prompt of the prefill-vs-recurrence check: 3 chunks
+# max abs diff / max abs over the last logits and every layer's s, xt and xc:
+# about twice the 6.7e-2 read with the correct kernel in bf16 (the mutant
+# reads 0.41).  The error grows with depth (layer 0's state agrees to 2e-6,
+# layer 29's to 4e-2); the same check with the weights widened to f32 (the
+# witness below) tells bf16 rounding of the dense products from the scan
+RECURRENCE_LIMIT = 0.15
+F32_WITNESS_LIMIT = RECURRENCE_LIMIT / 10  # the f32 run must sit far below it
+MUTANT_LINE = "out = fmaf(dg, V[row * NP + m], out);  // the u-bonus term"
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper by name; a wrapper adds one to its ``launches``
+    where it launches its kernel and nowhere else."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.kernels.rwkv6_scan import rwkv6_chunk_scan
+
+    return {"tiled_matmul": matmul, "flash_attention": flash_attention,
+            "rwkv6_scan": rwkv6_chunk_scan}
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def check_path_launches(path: str, launches: dict, used: tuple) -> None:
+    """Every kernel of ``used`` launched on this path, no other kernel did."""
+    bad = {k: n for k, n in launches.items() if (n > 0) != (k in used)}
+    if bad:
+        raise SystemExit(f"{path}: launches {launches}, expected > 0 only for {used}")
 
 
 def emit(phase: str, t0: float, **kw) -> None:
@@ -208,6 +272,85 @@ def phase_attention(cases_f) -> None:
         raise SystemExit(f"{len(failures)} attention cases outside their limit")
 
 
+def rwkv_cases() -> list:
+    """(B, S, H, N, chunk, dtype, with s0)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases, bhs, i = [], [(1, 1), (2, 1), (1, 3), (2, 2)], 0
+    for s in (1, 5, 17, 64, 70):         # the JAX sweep: S 1-70, N 4/8/16,
+        for n in (4, 8, 16):             # chunks 4/16/64, BH 1-4
+            for chunk in (4, 16, 64):
+                b, h = bhs[i % len(bhs)]
+                i += 1
+                cases.append((b, s, h, n, chunk, f32, False))
+    cases += [(2, s, 2, 64, chunk, f32, False)
+              for s in (70, 128, 200, 300) for chunk in (64, 128)]
+    for dt in (f32, bf16):
+        cases += [(2, 200, 2, 64, 128, dt, True), (1, 37, 3, 16, 16, dt, True),
+                  (2, 300, 2, 64, 64, dt, False)]
+    b, s, h, n = RWKV_SHAPE
+    cases += [(b, s, h, n, RWKV_CHUNK, bf16, False), (b, s, h, n, RWKV_CHUNK, bf16, True)]
+    return cases
+
+
+def rwkv_inputs(case, seed: int) -> tuple:
+    """r, k, v, logw, u, s0 as the JAX kernel test draws them: r/k/v
+    0.5 N(0, 1), logw = -exp(N(0, 1) - 2), u 0.3 N(0, 1); s0 0.1 N(0, 1)."""
+    b, s, h, n, _, dt, with_s0 = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    r, k, v = ((0.5 * rand(b, s, h, n)).to(dt) for _ in range(3))
+    logw = -torch.exp(rand(b, s, h, n) - 2.0)
+    u = 0.3 * rand(h, n)
+    return r, k, v, logw, u, (0.1 * rand(b, h, n, n) if with_s0 else None)
+
+
+def rwkv_plain(r, k, v, logw, u, s0, chunk) -> tuple:
+    """The plain version on the kernel's inputs, at the kernel's tile."""
+    from repro_torch.kernels.rwkv6_scan import launch_plan, rwkv6_chunk_scan_plain_heads
+
+    tile = launch_plan(r.shape[1], chunk)["chunk"]
+    return rwkv6_chunk_scan_plain_heads(r, k, v, logw, u, chunk=tile, s0=s0)
+
+
+def rwkv_case_check(i: int, case) -> dict:
+    """Case ``i``: the kernel against its plain version on the same inputs,
+    as allclose(rtol=RWKV_LIMIT, atol=RWKV_LIMIT) on y and the state."""
+    from repro_torch.kernels.rwkv6_scan import launch_plan, rwkv6_chunk_scan
+
+    b, s, h, n, chunk, dt, with_s0 = case
+    r, k, v, logw, u, s0 = rwkv_inputs(case, SEED + i)
+    y, st = rwkv6_chunk_scan(r, k, v, logw, u, chunk=chunk, s0=s0)
+    yp, sp = rwkv_plain(r, k, v, logw, u, s0, chunk)
+    torch.cuda.synchronize()
+    ratio = max(((a - p).abs() / (RWKV_LIMIT + RWKV_LIMIT * p.abs())).max().item()
+                for a, p in ((y, yp), (st, sp)))
+    return {"bshn": [b, s, h, n], "chunk": chunk, "plan": launch_plan(s, chunk),
+            "dtype": str(dt), "s0": with_s0,
+            "max_abs_err": max((y - yp).abs().max().item(), (st - sp).abs().max().item()),
+            "limit": RWKV_LIMIT, "ratio_to_limit": ratio}
+
+
+def phase_rwkv_scan(cases_f) -> None:
+    t0 = time.perf_counter()
+    worst, worst_ratio, failures = {}, 0.0, []
+    cases = rwkv_cases()
+    for i, case in enumerate(cases):
+        row = rwkv_case_check(i, case)
+        cases_f.write(json.dumps({"rwkv_scan": row}) + "\n")
+        key = row["dtype"].replace("torch.", "")
+        worst[key] = max(worst.get(key, 0.0), row["max_abs_err"])
+        worst_ratio = max(worst_ratio, row["ratio_to_limit"])
+        if not row["ratio_to_limit"] <= 1.0:
+            failures.append(row)
+    emit("rwkv_scan", t0, cases=len(cases), worst_max_abs_err=worst,
+         worst_ratio_to_limit=worst_ratio, limit=RWKV_LIMIT, failures=failures[:5])
+    if failures:
+        raise SystemExit(f"{len(failures)} rwkv scan cases outside their limit")
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: tune, then serve
 # ---------------------------------------------------------------------------
@@ -329,7 +472,7 @@ def device_times(prof, wall_s: float, path: Path) -> dict:
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
-    by = {"flash_attention": 0.0, "tiled_matmul": 0.0, "other": 0.0}
+    by = {"flash_attention": 0.0, "tiled_matmul": 0.0, "rwkv6_scan": 0.0, "other": 0.0}
     spans = []
     for e in events:
         if e.get("ph") != "X" or str(e.get("cat", "")).lower() not in DEVICE_CATS:
@@ -338,7 +481,8 @@ def device_times(prof, wall_s: float, path: Path) -> dict:
         spans.append((start, start + dur))
         name = e.get("name", "")
         key = ("flash_attention" if "flash_fwd" in name else
-               "tiled_matmul" if "tiled_matmul" in name else "other")
+               "tiled_matmul" if "tiled_matmul" in name else
+               "rwkv6_scan" if "rwkv6_scan" in name else "other")
         by[key] += dur / 1e3
     table_ms = sum(getattr(e, "self_device_time_total", 0.0)
                    for e in prof.key_averages()) / 1e3
@@ -394,42 +538,56 @@ def record_checks(registry, g) -> list:
     return rows
 
 
-def model_agreement(cfg, registry, out_dir: Path) -> dict:
-    """The first wave's prefill last logits and first decode logits, tuned
-    against ``registry=None``; every step traced by the profiler."""
+def traced_steps(cfg, params, prompts, max_len: int, registry, out_dir: Path,
+                 tok=None) -> tuple:
+    """One prefill wave of ``prompts`` and one decode step of ``tok`` (its
+    own greedy tokens when None), each under ``torch.profiler``.  Returns
+    (last logits, decode logits, the tokens decoded, {"prefill": device
+    times, "decode": device times})."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve as SV
     from repro_torch.models import steps as S
 
-    params = SV.init_model(cfg, SEED, "cuda")
     make_inputs = SV.input_fn(cfg, "cuda")
+    prefill = S.make_prefill_step(cfg, max_len, registry=registry)
+    decode = S.make_decode_step(cfg, registry=registry)
+    inputs = make_inputs(prompts)
+    traces = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        last, caches, n = prefill(params, inputs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    traces["prefill"] = device_times(prof, wall, out_dir / "trace.json")
+    if tok is None:
+        tok = torch.argmax(last, -1).cpu().numpy()
+    step_in = make_inputs(tok[:, None])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        _, step, caches = decode(params, step_in, caches, n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    traces["decode"] = device_times(prof, wall, out_dir / "trace.json")
+    return last, step, tok, traces
+
+
+def model_agreement(cfg, registry, out_dir: Path) -> dict:
+    """The first wave's prefill last logits and first decode logits, tuned
+    against ``registry=None``; every step traced by the profiler."""
+    from repro_torch.launch import serve as SV
+
+    params = SV.init_model(cfg, SEED, "cuda")
     wave = SV.request_pool(cfg, SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"], SEED)
     prompts = np.stack([r.prompt for r in wave])
     outs, traces, tok = {}, {}, None
     for name, reg in (("tuned", registry), ("plain", None)):
-        prefill = S.make_prefill_step(cfg, SERVE["max_len"], registry=reg)
-        decode = S.make_decode_step(cfg, registry=reg)
-        inputs = make_inputs(prompts)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            last, caches, n = prefill(params, inputs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        traces[f"{name}_prefill"] = device_times(prof, wall, out_dir / "trace.json")
-        if tok is None:
-            tok = torch.argmax(last, -1).cpu().numpy()
-        step_in = make_inputs(tok[:, None])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            _, step, caches = decode(params, step_in, caches, n)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        traces[f"{name}_decode"] = device_times(prof, wall, out_dir / "trace.json")
+        last, step, tok, tr = traced_steps(cfg, params, prompts, SERVE["max_len"], reg,
+                                           out_dir, tok)
+        traces[f"{name}_prefill"], traces[f"{name}_decode"] = tr["prefill"], tr["decode"]
         outs[name] = (last, step)
-        del caches
     return {"prefill_last_logits_rel_err": rel_err(outs["tuned"][0], outs["plain"][0]),
             "decode_logits_rel_err": rel_err(outs["tuned"][1], outs["plain"][1]),
             "finite": all(bool(torch.isfinite(x).all())
@@ -440,24 +598,21 @@ def model_agreement(cfg, registry, out_dir: Path) -> dict:
 def phase_model(out_dir: Path) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.core import LoopTuner, matmul_benchmark
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.matmul import matmul
     from repro_torch.launch import serve as SV
 
     t0 = time.perf_counter()
     cfg = get_config("musicgen-large")
     torch.cuda.reset_peak_memory_stats()
-    matmul.launches = flash_attention.launches = 0  # this path starts here
+    reset_launches()  # this path starts here
     tuner = LoopTuner(policy="search", backend="torch", surrogate="off")
     n = len(CONTRACTIONS)
     tuner.tune_many([matmul_benchmark(*mkn) for mkn in CONTRACTIONS],
                     dtypes=["bfloat16"] * n, weights=[1.0] * n,
                     budget_s=TUNE_BUDGET_S * n, eval_budget=TUNE_MAX_EVALS * n)
-    tune_s, tune_launches = time.perf_counter() - t0, matmul.launches
+    tune_s, tune_launches = time.perf_counter() - t0, read_launches()["tiled_matmul"]
     summary = SV.serve_once(cfg, seed=SEED, registry=tuner.registry, device="cuda",
                             **SERVE)
-    launches = {"tiled_matmul": matmul.launches,
-                "flash_attention": flash_attention.launches}  # ... and ends here
+    launches = read_launches()  # ... and ends here
     peak_bytes = torch.cuda.max_memory_allocated()
     stats = summary["registry"]["serving"]
     waves = summary["prefill_waves"]
@@ -494,12 +649,146 @@ def phase_model(out_dir: Path) -> dict:
             launches["flash_attention"] == cfg.n_layers * waves > 0,
         "matmul launches while serving == routed":
             launches["tiled_matmul"] - tune_launches == stats["routed"],
+        "no scan launches": launches["rwkv6_scan"] == 0,
         "every logit finite": row["logits_finite"],
         f"tuned vs registry=None <= {MODEL_LIMIT}": worst <= MODEL_LIMIT,
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise SystemExit(f"model phase failed: {bad}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the rwkv6-7b path: served at full width through the scan kernel
+# ---------------------------------------------------------------------------
+
+
+def recurrence_errors(cfg, params, prompts, want) -> dict:
+    """The prefill of ``prompts`` (the scan kernel) against ``want``, the
+    same prompt fed token by token through ``decode_step``: last logits,
+    and per layer the state ``s`` and the carries ``xt``/``xc``."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import steps as S
+
+    make_inputs = SV.input_fn(cfg, "cuda")
+    last, caches, _ = S.make_prefill_step(cfg, RECURRENCE_LEN)(params, make_inputs(prompts))
+    torch.cuda.synchronize()
+    got = {"logits": last, **caches[0]}
+    errs = {"logits": rel_err(got["logits"], want["logits"])}
+    for name in ("s", "xt", "xc"):
+        per_layer = [rel_err(got[name][i], want[name][i]) for i in range(cfg.n_layers)]
+        errs[f"{name}_worst_layer"] = max(per_layer)
+        if name == "s":
+            errs["s_per_layer"] = per_layer
+    errs["worst"] = max(errs[k] for k in ("logits", "s_worst_layer", "xt_worst_layer",
+                                          "xc_worst_layer"))
+    errs["finite"] = bool(torch.isfinite(last).all())
+    return errs
+
+
+def decode_recurrence(cfg, params, prompts) -> dict:
+    """``prompts`` fed one token at a time through ``decode_step`` from a
+    zero cache: the plain single-token recurrence, no scan kernel."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import steps as S
+    from repro_torch.models import transformer as T
+
+    make_inputs = SV.input_fn(cfg, "cuda")
+    decode = S.make_decode_step(cfg)
+    caches = T.init_cache(cfg, prompts.shape[0], RECURRENCE_LEN, device="cuda")
+    for t in range(prompts.shape[1]):
+        _, logits, caches = decode(params, make_inputs(prompts[:, t:t + 1]), caches, t)
+    torch.cuda.synchronize()
+    return {"logits": logits[:, -1], **caches[0]}
+
+
+def phase_model_rwkv(out_dir: Path, mutant: Path) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rwkv6_scan as RW
+    from repro_torch.launch import serve as SV
+
+    t0 = time.perf_counter()
+    cfg = get_config("rwkv6-7b")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # this path starts here
+    summary = SV.serve_once(cfg, seed=SEED, device="cuda", **RWKV_SERVE)
+    launches = read_launches()  # ... and ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+    waves = summary["prefill_waves"]
+    serve_s = time.perf_counter() - t0
+
+    params = SV.init_model(cfg, SEED, "cuda")
+    wave = SV.request_pool(cfg, RWKV_SERVE["batch"], RWKV_SERVE["prompt_len"], 1, SEED)
+    *_, traces = traced_steps(cfg, params, np.stack([r.prompt for r in wave]),
+                              RWKV_SERVE["max_len"], None, out_dir)
+    t1 = time.perf_counter()
+    prompts = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, (RWKV_SERVE["batch"], RECURRENCE_LEN))
+    want = decode_recurrence(cfg, params, prompts)
+    recurrence_s = time.perf_counter() - t1
+    want_finite = bool(torch.isfinite(want["logits"]).all())
+    errs = recurrence_errors(cfg, params, prompts, want)
+
+    # mutation check: the scan kernel without its u-bonus term, through the
+    # same wrapper, against the same two checks
+    with _build.substitute("rwkv6_scan", mutant, RW._declare):
+        mut = recurrence_errors(cfg, params, prompts, want)
+        mut_cases = [rwkv_case_check(i, c) for i, c in enumerate(rwkv_cases())]
+    del want
+
+    # the witness: the same check on the same weights widened to f32, so the
+    # dense products no longer round to bf16; the scan kernel is unchanged
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = params.float()  # nn.Module.float: leaf by leaf, in place
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    f32 = recurrence_errors(cfg32, params, prompts, decode_recurrence(cfg32, params, prompts))
+    f32["seconds"] = time.perf_counter() - t1
+    del params
+    mut_outside = sum(not c["ratio_to_limit"] <= 1.0 for c in mut_cases)
+    mutation = {"dropped": MUTANT_LINE, "worst_err": mut["worst"],
+                "logits_err": mut["logits"],
+                **{f"{k}_worst_layer_err": mut[f"{k}_worst_layer"] for k in ("s", "xt", "xc")},
+                "rwkv_scan_cases_outside_limit": mut_outside,
+                "rwkv_scan_cases": len(mut_cases),
+                "rwkv_scan_min_ratio_to_limit": min(c["ratio_to_limit"] for c in mut_cases)}
+    worst = errs["worst"]
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.d_model // cfg.rwkv_head_dim, "head_dim": cfg.rwkv_head_dim,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "params": cfg.param_count(), **RWKV_SERVE, "chunk": RWKV_CHUNK,
+           "serve_s": serve_s, "launches": launches, "prefill_waves": waves,
+           "prefill_ms_per_wave": summary["prefill_ms"],
+           "decode_steps": summary["decode_steps"],
+           "decode_tokens": summary["decode_tokens"],
+           "decode_step_p50_ms": summary["decode_step_p50_ms"],
+           "decode_tokens_per_s": summary["decode_tokens_per_s"],
+           "tokens_per_s": summary["tokens_per_s"],
+           "max_memory_allocated": peak_bytes,
+           "logits_finite": summary["logits_finite"] and errs["finite"] and want_finite,
+           "recurrence": {"prompt_len": RECURRENCE_LEN, "decode_s": recurrence_s,
+                          **{k: v for k, v in errs.items() if k != "finite"}},
+           "recurrence_limit": RECURRENCE_LIMIT,
+           "recurrence_f32": {k: v for k, v in f32.items() if k != "finite"},
+           "f32_witness_limit": F32_WITNESS_LIMIT, "traces": traces}
+    emit("model_rwkv", t0, **row)
+    emit("mutation", t0, **mutation)
+    checks = {
+        "scan launches == layers x waves": launches["rwkv6_scan"] == cfg.n_layers * waves > 0,
+        "no matmul or flash launches":
+            launches["tiled_matmul"] == launches["flash_attention"] == 0,
+        "every logit finite": row["logits_finite"] and f32["finite"],
+        f"prefill vs recurrence <= {RECURRENCE_LIMIT}": worst <= RECURRENCE_LIMIT,
+        f"f32 witness <= {F32_WITNESS_LIMIT}": f32["worst"] <= F32_WITNESS_LIMIT,
+        "mutant outside the recurrence limit": mut["worst"] > RECURRENCE_LIMIT,
+        "mutant outside the rwkv_scan limit": mut_outside > 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"model_rwkv phase failed: {bad}")
     return row
 
 
@@ -605,12 +894,53 @@ def phase_flash_timing(card: str, g) -> dict:
     return row
 
 
+def phase_rwkv_timing(card: str) -> dict:
+    """The scan kernel at rwkv6-7b's prefill shape (bf16 r/k/v, f32 logw,
+    a carried state, as the model passes it), against its plain version
+    and its bound."""
+    from repro_torch.kernels.rwkv6_scan import launch_plan, rwkv6_chunk_scan
+
+    t0 = time.perf_counter()
+    b, s, h, n = RWKV_SHAPE
+    case = (b, s, h, n, RWKV_CHUNK, torch.bfloat16, True)
+    r, k, v, logw, u, s0 = rwkv_inputs(case, SEED)
+    flush = torch.empty(64 * 1024 * 1024 // 4 * 2, device="cuda")  # 128 MiB
+    y, st = rwkv6_chunk_scan(r, k, v, logw, u, chunk=RWKV_CHUNK, s0=s0)
+    yp, sp = rwkv_plain(r, k, v, logw, u, s0, RWKV_CHUNK)
+    torch.cuda.synchronize()
+    max_abs = max((y - yp).abs().max().item(), (st - sp).abs().max().item())
+    ms = time_ms(lambda: rwkv6_chunk_scan(r, k, v, logw, u, chunk=RWKV_CHUNK, s0=s0),
+                 flush, 20)
+    plain_ms = time_ms(lambda: rwkv_plain(r, k, v, logw, u, s0, RWKV_CHUNK), flush, 5)
+    del flush
+    plan = launch_plan(s, RWKV_CHUNK)
+    L = plan["chunk"]
+    # bytes: r, k, v (bf16), logw, u, s0 read once; y and the state written once
+    nbytes = b * s * h * n * (3 * 2 + 4 + 4) + h * n * 4 + 2 * b * h * n * n * 4
+    # operations, the least any form of the recurrence does: per token one
+    # read-out r_t S (2N^2) and one rank-1 state update k_t^T v_t (2N^2);
+    # decays, the u-bonus and the intra-chunk products counted as free
+    flops = 4 * b * s * h * n * n
+    # the chunked form at the kernel's tile, with only the strictly lower
+    # triangle of r_dec k_dec^T and of A v: 4LN^2 + 2L(L-1)N a chunk and stream
+    flops_chunked = b * h * plan["n_chunks"] * (4 * L * n * n + 2 * L * (L - 1) * n)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_PEAK["pcie" if "PCIe" in card else "sxm"] * 1e3
+    row = {"bshn": list(RWKV_SHAPE), "dtype": "bfloat16", "chunk": RWKV_CHUNK, "plan": plan,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": nbytes, "flops": flops,
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "flops_chunked": flops_chunked,
+           "chunked_gflops_per_s": flops_chunked / ms / 1e6, "max_abs_err": max_abs}
+    emit("timing_rwkv", t0, **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
-    from repro_torch.kernels.matmul import matmul
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -621,9 +951,17 @@ def main() -> int:
     emit("device", t0, nvidia_smi=smi, name=card, torch=torch.__version__,
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
+    # the mutation check's copy of the scan kernel, with its u-bonus term dropped
+    mutant = ROOT / "build" / "mutant" / "rwkv6_scan_mutant.cu"
+    mutant.parent.mkdir(parents=True, exist_ok=True)
+    src = (_build.CSRC / "rwkv6_scan.cu").read_text()
+    if src.count(MUTANT_LINE) != 1:
+        raise SystemExit(f"mutation: {MUTANT_LINE!r} not found once in rwkv6_scan.cu")
+    mutant.write_text(src.replace(MUTANT_LINE, "(void)dg;  // mutation: u-bonus dropped"))
+
     t0 = time.perf_counter()
-    names = ["matmul", "flash_attention"]
-    _build.build_all(names)  # one nvcc per source, all at once
+    names = ["matmul", "flash_attention", "rwkv6_scan"]
+    _build.build_all(names + [mutant])  # one nvcc per source, all at once
     emit("build", t0, kernels=names,
          nvcc_s={n: round(float(_build.BUILD_INFO[n]["seconds"]), 3) for n in names},
          ptxas={n: sorted({ln.split(":")[-1].strip()
@@ -633,19 +971,34 @@ def main() -> int:
     with open(out_dir / "chip_smoke_cases.jsonl", "w") as cases_f:
         phase_kernel(cases_f)
         phase_attention(cases_f)
+        phase_rwkv_scan(cases_f)
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     wts = layer_weights(g)
-    matmul.launches = 0  # the first path starts here
-    registry, tune_rows = phase_tune(lambda: matmul.launches)
+    reset_launches()  # the first path starts here
+    registry, tune_rows = phase_tune(lambda: read_launches()["tiled_matmul"])
     phase_serve(registry, wts, g)
-    first_path_launches = matmul.launches  # ... and ends here
+    by_path = {"tune_serve": read_launches()}  # ... and ends here
+    check_path_launches("tune_serve", by_path["tune_serve"], ("tiled_matmul",))
     del wts
 
     model = phase_model(out_dir)  # the second path (counts set to 0 and read inside)
+    gc.collect()
+    torch.cuda.empty_cache()  # musicgen's tensors are gone before rwkv6-7b's
+    model_rwkv = phase_model_rwkv(out_dir, mutant)  # the third path, likewise
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["model"], by_path["model_rwkv"] = model["launches"], model_rwkv["launches"]
+    check_path_launches("model", model["launches"], ("tiled_matmul", "flash_attention"))
+    check_path_launches("model_rwkv", model_rwkv["launches"], ("rwkv6_scan",))
+
+    def launches(name: str) -> dict:
+        per = {path: counts[name] for path, counts in by_path.items()}
+        return {"launches": sum(per.values()), "launches_by_path": per}
 
     rows = phase_timing(registry, card, g)
     fa = phase_flash_timing(card, g)
+    rw = phase_rwkv_timing(card)
     ops_total = sum(2 * r["mkn"][0] * r["mkn"][1] * r["mkn"][2] for r in rows)
     bound_ops = ops_total / F32_PEAK["pcie" if "PCIe" in card else "sxm"] * 1e3
     bound_bytes = sum((r["mkn"][0] * r["mkn"][1] + r["mkn"][1] * r["mkn"][2]
@@ -655,9 +1008,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:24",
-        "launches": first_path_launches + model["launches"]["tiled_matmul"],
-        "launches_by_path": {"tune_serve": first_path_launches,
-                             "model": model["launches"]["tiled_matmul"]},
+        **launches("tiled_matmul"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # one pass over the six musicgen-large contractions at tuned blocks
         "ms": sum(r["ms"] for r in rows),
@@ -672,11 +1023,19 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:27",
-        "launches": model["launches"]["flash_attention"],
-        "launches_by_path": {"tune_serve": 0,
-                             "model": model["launches"]["flash_attention"]},
+        **launches("flash_attention"),
         **{k: fa[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "bshd", "dtype", "plan")},
+    }, {
+        "name": "rwkv6_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:27",
+        **launches("rwkv6_scan"),
+        **{k: rw[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "bshn", "dtype", "chunk", "plan")},
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the chunked Finch recurrence",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

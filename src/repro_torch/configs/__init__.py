@@ -1,17 +1,18 @@
 """Architecture registry of the port.
 
 ``get_config(arch_id)`` resolves the architectures whose layers the port
-runs: musicgen-large (attention + dense MLP).  The JAX package's other
-nine architectures need mixers and FFNs that are not ported yet (ROADMAP.md:
-MoE, Mamba with kernel B4, RWKV-6 with kernel B3, cross-attention) and raise
-``KeyError``.  ``input_specs`` (the dry-run's allocation-free stand-ins)
+runs: musicgen-large (attention + dense MLP) and rwkv6-7b (RWKV-6 time-mix
+with kernel B3 + channel-mix).  The JAX package's other eight
+architectures need mixers and FFNs that are not ported yet (ROADMAP.md:
+MoE, Mamba with kernel B4, cross-attention) and raise ``KeyError``.
+``input_specs`` (the dry-run's allocation-free stand-ins)
 comes with the dry-run launcher.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from . import musicgen_large
+from . import musicgen_large, rwkv6_7b
 from .base import (
     ALL_SHAPES,
     DECODE_32K,
@@ -25,7 +26,8 @@ from .base import (
     shapes_for,
 )
 
-ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (musicgen_large,)}
+ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
+                                 for m in (musicgen_large, rwkv6_7b)}
 
 SHAPES: Dict[str, ShapeCell] = {c.name: c for c in ALL_SHAPES}
 
@@ -33,7 +35,7 @@ SHAPES: Dict[str, ShapeCell] = {c.name: c for c in ALL_SHAPES}
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCHS:
         raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP.md, model zoo "
-                       f"and kernels B3/B4); ported: {sorted(ARCHS)}")
+                       f"and kernel B4); ported: {sorted(ARCHS)}")
     return ARCHS[arch]
 
 

@@ -4,9 +4,11 @@ version beside it (taken for CPU tensors), the registry-backed entry points
 (ops.py) and plain torch oracles (ref.py).  Kernels build at first use."""
 from .flash_attention import flash_attention_plain
 from .matmul import matmul, matmul_plain
+from .rwkv6_scan import rwkv6_chunk_scan_plain
 from .ops import (
     flash_attention,
     get_registry,
+    rwkv6_chunk_scan,
     serving,
     serving_registry,
     serving_stats,
@@ -21,6 +23,8 @@ __all__ = [
     "matmul",
     "matmul_plain",
     "get_registry",
+    "rwkv6_chunk_scan",
+    "rwkv6_chunk_scan_plain",
     "serving",
     "serving_registry",
     "serving_stats",

@@ -9,6 +9,7 @@ tests import every module on hosts with no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,7 +18,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -41,45 +42,50 @@ def nvcc() -> str:
                        "with the CUDA toolkit (PATH or CUDA_HOME)")
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+def _source(item: Union[str, Path]) -> Path:
+    return item if isinstance(item, Path) else CSRC / f"{item}.cu"
+
+
+def _lib_path(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the library for this source and
-    these flags exists; returns its path."""
-    out = _lib_path(name)
+def build(item: Union[str, Path]) -> Path:
+    """Compile ``csrc/<item>.cu`` (or the source file ``item``) unless the
+    library for this source and these flags exists; returns its path.
+    ``BUILD_INFO`` is keyed by the source's stem."""
+    src = _source(item)
+    out = _lib_path(src)
     if out.exists():
-        BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": ""})
+        BUILD_INFO.setdefault(src.stem, {"seconds": 0.0, "log": ""})
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC / f"{name}.cu")],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent process loads a whole file
-    BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
-                        "log": proc.stderr}
+    BUILD_INFO[src.stem] = {"seconds": time.perf_counter() - t0,
+                            "log": proc.stderr}
     return out
 
 
-def build_all(names: List[str]) -> None:
+def build_all(items: List[Union[str, Path]]) -> None:
     """Build several sources at once, one ``nvcc`` each, all in parallel."""
     errors: List[BaseException] = []
 
-    def one(n: str) -> None:
+    def one(item: Union[str, Path]) -> None:
         try:
-            build(n)
+            build(item)
         except BaseException as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
 
-    threads = [threading.Thread(target=one, args=(n,)) for n in names]
+    threads = [threading.Thread(target=one, args=(i,)) for i in items]
     for t in threads:
         t.start()
     for t in threads:
@@ -100,3 +106,24 @@ def load(name: str, declare: Optional[Callable[[ctypes.CDLL], None]] = None
                 declare(lib)
             _LIBS[name] = lib
         return lib
+
+
+@contextlib.contextmanager
+def substitute(name: str, src: Path, declare: Callable[[ctypes.CDLL], None]):
+    """Inside the block, ``load(name)`` returns the library built from the
+    source file ``src`` instead of ``csrc/<name>.cu``: a mutation check runs
+    a deliberately broken copy of a kernel through the same wrapper and
+    checks that should catch it."""
+    lib = ctypes.CDLL(str(build(src)))
+    declare(lib)
+    with _LOCK:
+        old = _LIBS.get(name)
+        _LIBS[name] = lib
+    try:
+        yield lib
+    finally:
+        with _LOCK:
+            if old is None:
+                _LIBS.pop(name, None)
+            else:
+                _LIBS[name] = old

@@ -3,8 +3,8 @@ for block shapes — the tuned schedules become launch blocks here.
 
 ``set_registry(path_or_registry)`` installs a tuned-schedule table (produced
 by :class:`~repro_torch.core.tuner.LoopTuner`); :func:`tuned_matmul` falls
-back to 128^3 blocks and :func:`flash_attention` to a (128, 128) block when
-no entry exists.
+back to 128^3 blocks, :func:`flash_attention` to a (128, 128) block and
+:func:`rwkv6_chunk_scan` to the caller's chunk when no entry exists.
 
 **Tuned serving**: :func:`tuned_einsum` is the model zoo's consume path.
 Inside a :func:`serving` context every matmul-shaped contraction looks its
@@ -28,6 +28,7 @@ from repro_torch.core.registry import ScheduleRegistry, current_hardware
 
 from .flash_attention import flash_attention as _flash_attention
 from .matmul import matmul as _matmul
+from .rwkv6_scan import rwkv6_chunk_scan as _rwkv6_chunk_scan
 
 _REGISTRY: Optional[ScheduleRegistry] = None
 
@@ -254,3 +255,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             bk = int(entry["block"].get("k", bk))
     return _flash_attention(q, k, v, causal=causal, window=window,
                             softcap=softcap, bq=bq, bk=bk)
+
+
+def rwkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64,
+                     s0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Registry-tuned RWKV-6 chunked scan over ``(B, S, H, N)`` streams
+    (chunk under kernel id 'rwkv6', block ``"l"``, workload ``(S, N)``).
+    CUDA tensors launch the kernel, CPU tensors run its plain version."""
+    if _REGISTRY is not None:
+        entry = _REGISTRY.get("rwkv6", (r.shape[1], r.shape[3]))
+        if entry and "block" in entry:
+            chunk = int(entry["block"].get("l", chunk))
+    return _rwkv6_chunk_scan(r, k, v, logw, u, chunk=chunk, s0=s0)

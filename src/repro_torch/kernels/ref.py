@@ -41,3 +41,18 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.where(torch.isnan(p), 0.0, p)
     out = torch.einsum("bhst,bthd->bshd", p, v.float())
     return out.to(q.dtype)
+
+
+def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+              u: torch.Tensor) -> tuple:
+    """Token-by-token Finch recurrence from a zero state.  All args f32;
+    r/k/v/logw (BH, S, N); u (BH, N).  Returns (y (BH, S, N), state
+    (BH, N, N))."""
+    bh, s, n = r.shape
+    state = torch.zeros(bh, n, n, dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(s):
+        kv = torch.einsum("bn,bm->bnm", k[:, t], v[:, t])
+        ys.append(torch.einsum("bn,bnm->bm", r[:, t], state + u[:, :, None] * kv))
+        state = state * torch.exp(logw[:, t])[..., None] + kv
+    return torch.stack(ys, dim=1), state

@@ -1,0 +1,187 @@
+"""RWKV-6 chunked scan — the Finch time-mix recurrence, written by hand for Hopper.
+
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t,    y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+
+:func:`rwkv6_chunk_scan` launches the CUDA kernel in ``csrc/rwkv6_scan.cu``
+(see the note there: what it replaces, what bounds it on the card and how
+the chunk loop and the state map onto one CTA per stream).
+:func:`rwkv6_chunk_scan_plain` is the same function in plain torch ops, the
+TPU kernel's chunk loop batched over streams; the wrapper takes it only for
+CPU tensors.
+
+The wrapper takes the model's layout: r, k, v and logw ``(B, S, H, N)``
+with the head dim contiguous (the ``(B, S, D)`` projections viewed as heads,
+read through their strides), u ``(H, N)`` and an optional carried state s0
+``(B, H, N, N)`` f32, which starts at zero when not given, as the TPU
+kernel's does.  It returns y ``(B, S, H, N)`` f32 and the final state
+``(B, H, N, N)`` f32.  The plain version keeps the JAX kernel's signature:
+``(BH, S, N)`` streams and u ``(BH, N)``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from . import _build
+
+MAX_CHUNK = 128  # the kernel's chunk tile (csrc/rwkv6_scan.cu kMaxL)
+HEAD_DIMS = (4, 8, 16, 32, 64)  # the JAX kernel tests' and rwkv6-7b's
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.looptune_rwkv6_scan.argtypes = [p] * 8 + [i] * 5 + [ll] * 12 + [i, p]
+    lib.looptune_rwkv6_scan.restype = i
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("rwkv6_scan", _declare)
+
+
+def launch_plan(s: int, chunk: int = 64) -> dict:
+    """The chunk tile a launch uses for a sequence of ``s`` tokens: the
+    requested chunk clamped to ``s`` (as the TPU wrapper clamps it) and to
+    :data:`MAX_CHUNK`, and the number of chunks the CTA walks."""
+    if s < 1 or chunk < 1:
+        raise ValueError(f"need s >= 1 and chunk >= 1, got {(s, chunk)}")
+    tile = min(chunk, s, MAX_CHUNK)
+    return {"chunk": tile, "n_chunks": -(-s // tile)}
+
+
+def rwkv6_chunk_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64,
+                           s0: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain torch ops, computed as the TPU kernel
+    computes it: r, k, v, logw ``(BH, S, N)`` widened to f32, u ``(BH, N)``,
+    chunks of ``min(chunk, S)`` with the tail zero-padded and masked (k = 0,
+    logw = 0), per chunk the decayed inter-chunk product, the strictly
+    lower-triangular intra-chunk product and the u-bonus diagonal, then the
+    state update.  ``s0 (BH, N, N)``: the state to start from (zeros when
+    None).  Returns (y (BH, S, N) f32, final state (BH, N, N) f32)."""
+    bh, s, n = r.shape
+    chunk = min(chunk, s)
+    pad = -s % chunk
+    r, k, v, lw = (t.float() for t in (r, k, v, logw))
+    if pad:
+        r, k, v, lw = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (r, k, v, lw))
+    valid = (torch.arange(s + pad, device=r.device) < s)[None, :, None]
+    k = torch.where(valid, k, 0.0)
+    lw = torch.where(valid, lw, 0.0)
+    u = u.float()[:, None, :]
+    state = (torch.zeros(bh, n, n, dtype=torch.float32, device=r.device)
+             if s0 is None else s0.float())
+    li = torch.arange(chunk, device=r.device)
+    strict = li[:, None] > li[None, :]
+    ys = []
+    for c0 in range(0, s + pad, chunk):
+        rb, kb, vb, wb = (t[:, c0:c0 + chunk] for t in (r, k, v, lw))
+        cum = torch.cumsum(wb, dim=1)                      # inclusive log-decay
+        cum_ex = cum - wb                                  # exclusive
+        r_dec = rb * torch.exp(cum_ex)
+        y = r_dec @ state                                  # inter-chunk
+        k_dec = kb * torch.exp(-cum)
+        att = torch.where(strict, r_dec @ k_dec.transpose(1, 2), 0.0)
+        diag = (rb * (u * kb)).sum(-1)                     # u-bonus, t == i
+        ys.append(y + att @ vb + diag[..., None] * vb)
+        w_last = cum[:, -1:, :]
+        k_carry = kb * torch.exp(w_last - cum)
+        state = (state * torch.exp(w_last[:, 0, :])[..., None]
+                 + k_carry.transpose(1, 2) @ vb)
+    return torch.cat(ys, dim=1)[:, :s], state
+
+
+def to_streams(x: torch.Tensor) -> torch.Tensor:
+    """``(B, S, H, N)`` -> ``(B*H, S, N)``, the plain version's layout."""
+    b, s, h, n = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, n)
+
+
+def rwkv6_chunk_scan_plain_heads(r, k, v, logw, u, *, chunk: int,
+                                 s0: Optional[torch.Tensor] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`rwkv6_chunk_scan_plain` on the wrapper's layout (``(B, S, H,
+    N)`` streams, u ``(H, N)``, s0 ``(B, H, N, N)``) at exactly ``chunk``:
+    what the wrapper runs for CPU tensors at its tile, and what the kernel
+    is held against on the card."""
+    b, s, h, n = r.shape
+    y, state = rwkv6_chunk_scan_plain(
+        *(to_streams(t) for t in (r, k, v, logw)), u.repeat(b, 1), chunk=chunk,
+        s0=None if s0 is None else s0.reshape(b * h, n, n))
+    return (y.reshape(b, h, s, n).transpose(1, 2).contiguous(),
+            state.reshape(b, h, n, n))
+
+
+def _check(r, k, v, logw, u, s0) -> tuple:
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6_chunk_scan takes (B, S, H, N) r, k, v, logw; "
+                         f"got r {tuple(r.shape)}")
+    b, s, h, n = r.shape
+    if not (k.shape == v.shape == logw.shape == r.shape):
+        raise ValueError(f"r, k, v, logw must share one shape; got {tuple(r.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, {tuple(logw.shape)}")
+    if min(b, s, h) < 1:
+        raise ValueError(f"need non-empty shapes, got {tuple(r.shape)}")
+    if tuple(u.shape) != (h, n):
+        raise ValueError(f"u must be (H, N) = {(h, n)}, got {tuple(u.shape)}")
+    if s0 is not None and tuple(s0.shape) != (b, h, n, n):
+        raise ValueError(f"s0 must be (B, H, N, N) = {(b, h, n, n)}, got "
+                         f"{tuple(s0.shape)}")
+    if not (r.dtype == k.dtype == v.dtype) or r.dtype not in _DTYPES:
+        raise TypeError(f"r, k, v must all be float32 or all bfloat16; got "
+                        f"{r.dtype}, {k.dtype}, {v.dtype}")
+    if logw.dtype != torch.float32:
+        raise TypeError(f"logw must be float32, got {logw.dtype}")
+    if n not in HEAD_DIMS:
+        raise ValueError(f"head dim {n} is not one the kernel takes {HEAD_DIMS}")
+    devices = {t.device for t in (r, k, v, logw, u) + ((s0,) if s0 is not None else ())}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
+    return b, s, h, n
+
+
+def rwkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64,
+                     s0: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked Finch scan over ``(B, S, H, N)`` streams at chunk tile
+    :func:`launch_plan` ``(S, chunk)``.  Returns (y (B, S, H, N) f32, final
+    state (B, H, N, N) f32).
+
+    A CUDA tensor always launches the kernel, on the current stream and
+    without synchronising; a CPU tensor runs :func:`rwkv6_chunk_scan_plain`
+    at the same tile.  Shapes, dtypes and head dims the kernel does not take
+    raise on both.
+    """
+    b, s, h, n = _check(r, k, v, logw, u, s0)
+    tile = launch_plan(s, chunk)["chunk"]
+    if r.device.type == "cpu":
+        return rwkv6_chunk_scan_plain_heads(r, k, v, logw, u, chunk=tile, s0=s0)
+    if r.device.type != "cuda":
+        raise ValueError(f"rwkv6_chunk_scan runs on cuda or cpu tensors, got {r.device}")
+    if not all(t.stride(3) == 1 for t in (r, k, v, logw)):
+        raise ValueError("rwkv6_chunk_scan needs the head dim contiguous")
+    u32 = u.float().contiguous()
+    s0c = None if s0 is None else s0.float().contiguous()
+    y = torch.empty((b, s, h, n), dtype=torch.float32, device=r.device)
+    state = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    with torch.cuda.device(r.device):
+        err = _lib().looptune_rwkv6_scan(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u32.data_ptr(),
+            None if s0c is None else s0c.data_ptr(), y.data_ptr(), state.data_ptr(),
+            b, s, h, n, tile, *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *logw.stride()[:3], int(r.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6 scan launch failed: cudaError {err} "
+                           f"(r {tuple(r.shape)}, chunk {tile})")
+    rwkv6_chunk_scan.launches += 1
+    return y, state
+
+
+#: kernel launches since the count was last set to 0 (the CPU path and the
+#: plain version do not count)
+rwkv6_chunk_scan.launches = 0

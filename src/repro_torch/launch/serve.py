@@ -2,8 +2,9 @@
 
 A request pool feeds a fixed-size decode batch; finished requests are
 retired and their slots refilled, prefill runs per admitted wave (its
-attention is the flash-attention kernel), and every decode step is the
-``serve_step`` of ``models/steps.py``.
+attention is the flash-attention kernel, its RWKV-6 time-mix the
+chunked-scan kernel), and every decode step is the ``serve_step`` of
+``models/steps.py``.
 
 ``--registry PATH`` serves tuned schedules: the prefill/decode step bodies
 run under ``kernels.ops.serving``, so every dense site looks its workload
@@ -15,6 +16,9 @@ the tiled-matmul kernel at the tuned block.  The table comes from
     PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \\
         --full --requests 8 --batch 4 --prompt-len 256 --gen-len 16 \\
         --max-len 512 --registry /path/to/musicgen.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+        --full --requests 8 --batch 4 --prompt-len 1024 --gen-len 32 \\
+        --max-len 1056
 
 Runs on the card; ``--device cpu`` runs the kernels' plain versions.
 """
@@ -186,8 +190,10 @@ def serve_once(
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="musicgen-large")
-    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--arch", default="musicgen-large",
+                    help="a ported architecture: musicgen-large or rwkv6-7b")
+    ap.add_argument("--full", action="store_true",
+                    help="the published widths (default: the smoke config)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -9,17 +9,20 @@ Python loop.  Parameters are read by name as in the JAX pytree
 ``models/convert.py`` carries a JAX pytree across unchanged.
 
 The port runs attention (global and sliding-window) + dense-MLP layers, the
-layers of musicgen-large; MoE, Mamba, RWKV-6 and cross-attention raise
-``NotImplementedError`` (ROADMAP.md).  Sharding annotations (``ashard``) are
-dropped until ``runtime/sharding.py`` is ported.  Entry points:
+layers of musicgen-large, and RWKV-6 time-mix + channel-mix layers, those of
+rwkv6-7b; MoE, Mamba and cross-attention raise ``NotImplementedError``
+(ROADMAP.md).  Sharding annotations (``ashard``) are dropped until
+``runtime/sharding.py`` is ported.  Entry points:
 
   * :func:`forward`        — full-sequence logits (prefill)
   * :func:`decode_step`    — one token against the cache
   * :func:`init_cache`     — allocate the decode cache
 
 The cache is the JAX layout (one dict per period position, leaves stacked
-``(n_periods, B, buf, HKV, hd)``), and **prefill and decode write into it in
-place**: the caches passed in are the caches returned.
+over ``n_periods``: attention ``k``/``v`` ``(n_periods, B, buf, HKV, hd)``,
+RWKV-6 ``s`` ``(n_periods, B, H, N, N)`` f32 and ``xt``/``xc``
+``(n_periods, B, D)``), and **prefill and decode write into it in place**:
+the caches passed in are the caches returned.
 """
 from __future__ import annotations
 
@@ -42,10 +45,10 @@ from repro_torch.configs.base import (
 )
 
 from . import layers as L
+from . import rwkv6 as R
 
 _NOT_PORTED = {
     MAMBA: "the Mamba mixer is not ported yet (ROADMAP.md, kernel B4 with jamba)",
-    RWKV6: "the RWKV-6 mixer is not ported yet (ROADMAP.md, kernel B3 with rwkv6-7b)",
     CROSS_ATTN: "cross-attention is not ported yet (ROADMAP.md, model zoo)",
     MOE: "the MoE FFN is not ported yet (ROADMAP.md, model zoo: moe.py)",
 }
@@ -61,7 +64,7 @@ def check_supported(cfg: ModelConfig) -> None:
         for kind in (spec.mixer, spec.ffn):
             if kind in _NOT_PORTED:
                 raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-        if spec.mixer not in (ATTN, ATTN_LOCAL) or spec.ffn != DENSE:
+        if spec.mixer not in (ATTN, ATTN_LOCAL, RWKV6) or spec.ffn != DENSE:
             raise ValueError(f"unknown layer kind {spec}")
 
 
@@ -109,8 +112,12 @@ def _block_init(generator, spec: LayerSpec, cfg: ModelConfig, device) -> Dict[st
     if cfg.post_norm:
         p["post_attn"] = torch.ones(d, dtype=dt, device=device)
         p["post_ffn"] = torch.ones(d, dtype=dt, device=device)
-    p["attn"] = L.attn_params(generator, cfg, dt, device)
-    p["mlp"] = L.mlp_params(generator, d, cfg.d_ff, dt, device)
+    if spec.mixer == RWKV6:
+        p["rwkv"] = R.rwkv_time_mix_params(generator, d, cfg.rwkv_head_dim, dt, device)
+        p["cmix"] = R.channel_mix_params(generator, d, cfg.d_ff, dt, device)
+    else:
+        p["attn"] = L.attn_params(generator, cfg, dt, device)
+        p["mlp"] = L.mlp_params(generator, d, cfg.d_ff, dt, device)
     return p
 
 
@@ -145,13 +152,26 @@ def count_params(cfg: ModelConfig) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"
                ) -> Tuple[Dict[str, torch.Tensor], ...]:
-    """Decode cache: one dict per period position, leaves stacked
-    ``(n_periods, batch, buf, HKV, hd)``; a sliding-window layer keeps
-    ``min(max_len, window)`` slots."""
+    """Decode cache: one dict per period position, leaves stacked over
+    ``n_periods``.  Attention keeps ``k``/``v`` ``(n_periods, batch, buf,
+    HKV, hd)``, where a sliding-window layer has ``min(max_len, window)``
+    slots; RWKV-6 keeps the f32 state ``s`` ``(n_periods, batch, H, N, N)``
+    and the token-shift carries ``xt`` (time-mix) and ``xc`` (channel-mix)
+    ``(n_periods, batch, D)``."""
     check_supported(cfg)
     dt = _dtype(cfg)
     caches = []
     for spec in cfg.period:
+        if spec.mixer == RWKV6:
+            n = cfg.rwkv_head_dim
+            caches.append({
+                "s": torch.zeros((cfg.n_periods, batch, cfg.d_model // n, n, n),
+                                 dtype=torch.float32, device=device),
+                "xt": torch.zeros((cfg.n_periods, batch, cfg.d_model), dtype=dt,
+                                  device=device),
+                "xc": torch.zeros((cfg.n_periods, batch, cfg.d_model), dtype=dt,
+                                  device=device)})
+            continue
         win = spec.window if spec.mixer == ATTN_LOCAL else None
         buf = min(max_len, win) if win else max_len
         shape = (cfg.n_periods, batch, buf, cfg.n_kv_heads, cfg.head_dim_)
@@ -165,9 +185,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"
 # ---------------------------------------------------------------------------
 
 
+def _apply_rwkv(p, cfg, h, cache, decode):
+    """RWKV-6 time-mix on normed input ``h``; writes ``cache`` (one layer's
+    s/xt views) in place.  Prefill starts from the cache's state and carry,
+    as the reference does (zeros in a fresh cache)."""
+    if decode:
+        out, s2, xt = R.time_mix_decode(p["rwkv"], h, cfg.rwkv_head_dim, cache["s"],
+                                        cache["xt"])
+    else:
+        out, s2, xt = R.time_mix_chunked(
+            p["rwkv"], h, cfg.rwkv_head_dim,
+            state=cache["s"] if cache is not None else None,
+            x_prev=cache["xt"] if cache is not None else None)
+    if cache is not None:
+        cache["s"].copy_(s2)
+        cache["xt"].copy_(xt)
+    return out
+
+
 def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, decode):
-    """Attention on normed input ``h``; writes ``cache`` (one layer's k/v
+    """The mixer on normed input ``h``; writes ``cache`` (one layer's
     views) in place."""
+    if spec.mixer == RWKV6:
+        return _apply_rwkv(p, cfg, h, cache, decode)
     if spec.mixer not in (ATTN, ATTN_LOCAL):
         raise NotImplementedError(_NOT_PORTED.get(spec.mixer, spec.mixer))
     q, k, v = L.attn_qkv(p["attn"], cfg, h, positions=positions)
@@ -193,10 +233,18 @@ def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, decode):
     return L.dense(out.reshape(*h.shape[:2], -1), p["attn"]["wo"])
 
 
-def _apply_ffn(spec, p, cfg, h):
+def _apply_ffn(spec, p, cfg, h, cache, decode):
     if spec.ffn != DENSE:
         raise NotImplementedError(_NOT_PORTED.get(spec.ffn, spec.ffn))
-    return L.mlp_apply(p["mlp"], h, cfg.act)
+    if spec.mixer != RWKV6:
+        return L.mlp_apply(p["mlp"], h, cfg.act)
+    # the channel-mix token shift reads the carry only in decode; prefill
+    # starts from zeros whatever the cache holds, as the reference does
+    xc = cache["xc"] if (cache is not None and decode) else None
+    out, last = R.channel_mix(p["cmix"], h, x_prev=xc)
+    if cache is not None:
+        cache["xc"].copy_(last)
+    return out
 
 
 def _apply_block(spec, p, cfg, x, cache, cache_len, positions, decode):
@@ -205,10 +253,10 @@ def _apply_block(spec, p, cfg, x, cache, cache_len, positions, decode):
     if cfg.post_norm:
         mix = L.rms_norm(mix, p["post_attn"])
     if cfg.parallel_block:
-        ff = _apply_ffn(spec, p, cfg, h)
+        ff = _apply_ffn(spec, p, cfg, h, cache, decode)
         return x + mix.to(x.dtype) + ff.to(x.dtype)
     x = x + mix.to(x.dtype)
-    ff = _apply_ffn(spec, p, cfg, L.rms_norm(x, p["norm_ffn"]))
+    ff = _apply_ffn(spec, p, cfg, L.rms_norm(x, p["norm_ffn"]), cache, decode)
     if cfg.post_norm:
         ff = L.rms_norm(ff, p["post_ffn"])
     return x + ff.to(x.dtype)
@@ -262,8 +310,8 @@ def forward(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def decode_step(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 caches: Tuple, cache_len: int) -> Tuple[torch.Tensor, Tuple]:
     """One decode step at position ``cache_len`` (the valid cache length);
-    writes the new k/v into ``caches`` in place.  Returns (logits (B, 1, V)
-    f32, caches)."""
+    writes the new k/v (or RWKV-6 state and carries) into ``caches`` in
+    place.  Returns (logits (B, 1, V) f32, caches)."""
     x = _embed_in(params, cfg, batch)
     positions = torch.full((1, 1), cache_len, device=x.device)
     x = _run_layers(params, cfg, x, caches, cache_len, positions, decode=True)

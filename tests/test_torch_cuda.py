@@ -1,4 +1,4 @@
-"""The port's CUDA kernels against their plain versions, and a model step, on
+"""The port's CUDA kernels against their plain versions, and model steps, on
 the card.
 
 These tests import no JAX, so they run on a host with the card and no JAX:
@@ -151,6 +151,72 @@ def test_two_layer_model_step_on_the_card():
     assert flash_attention.launches == before + cfg.n_layers
     _, got_step, _ = decode(on_card, {"embeds": step.cuda()}, caches, n)
     for g_, w_ in ((got, want), (got_step, want_step)):
+        assert torch.isfinite(g_).all()
+        err = (g_.cpu() - w_).abs().max() / w_.abs().max()
+        assert err.item() <= 1e-4
+
+
+# (B, S, H, N, chunk)
+RWKV_CASES = [(1, 1, 1, 4, 4), (2, 37, 1, 8, 16), (1, 70, 3, 16, 64), (2, 200, 2, 64, 128),
+              (2, 300, 2, 64, 64), (1, 45, 2, 32, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv_scan_kernel_matches_plain_version_on_the_card(dtype, with_s0):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.rwkv6_scan import (launch_plan, rwkv6_chunk_scan,
+                                                rwkv6_chunk_scan_plain_heads)
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for (b, s, h, n, chunk) in RWKV_CASES:
+        r, k, v = ((0.5 * torch.randn(b, s, h, n, generator=g, device="cuda")).to(dt)
+                   for _ in range(3))
+        logw = -torch.exp(torch.randn(b, s, h, n, generator=g, device="cuda") - 2.0)
+        u = 0.3 * torch.randn(h, n, generator=g, device="cuda")
+        s0 = (0.1 * torch.randn(b, h, n, n, generator=g, device="cuda")
+              if with_s0 else None)
+        before = rwkv6_chunk_scan.launches
+        y, st = rwkv6_chunk_scan(r, k, v, logw, u, chunk=chunk, s0=s0)
+        torch.cuda.synchronize()
+        assert rwkv6_chunk_scan.launches == before + 1
+        want_y, want_s = rwkv6_chunk_scan_plain_heads(
+            r, k, v, logw, u, chunk=launch_plan(s, chunk)["chunk"], s0=s0)
+        # the JAX kernel test's tolerance; bf16 inputs are widened to f32 by both
+        torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(st, want_s, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_two_layer_rwkv_model_step_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_scan import rwkv6_chunk_scan
+    from repro_torch.models import steps as S
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("rwkv6-7b").smoke(), n_layers=2, rwkv_head_dim=16)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = copy.deepcopy(params).to("cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 140), generator=torch.Generator().manual_seed(1))
+    step = torch.randint(0, cfg.vocab, (2, 1), generator=torch.Generator().manual_seed(2))
+    prefill, decode = S.make_prefill_step(cfg, 141), S.make_decode_step(cfg)
+
+    want, caches, n = prefill(params, {"tokens": tokens})
+    _, want_step, want_caches = decode(params, {"tokens": step}, caches, n)
+    before = rwkv6_chunk_scan.launches
+    got, caches, n = prefill(on_card, {"tokens": tokens.cuda()})
+    torch.cuda.synchronize()
+    assert rwkv6_chunk_scan.launches == before + cfg.n_layers
+    _, got_step, caches = decode(on_card, {"tokens": step.cuda()}, caches, n)
+    for g_, w_ in ((got, want), (got_step, want_step), (caches[0]["s"], want_caches[0]["s"])):
         assert torch.isfinite(g_).all()
         err = (g_.cpu() - w_).abs().max() / w_.abs().max()
         assert err.item() <= 1e-4
