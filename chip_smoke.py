@@ -7,19 +7,23 @@ toolkit and PyTorch; it needs nothing else.  Phases, each printing one JSON
 line with its seconds:
 
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build  — nvcc builds the tiled-matmul, flash-attention and RWKV-6 scan
-   kernels from ``src/repro_torch`` and a copy of the scan kernel with one
-   term dropped (the mutation check below), in parallel, and reports
-   ptxas' register lines;
+2. build  — nvcc builds the tiled-matmul, flash-attention, RWKV-6 scan and
+   Mamba scan kernels from ``src/repro_torch`` and a copy of each scan
+   kernel with one term dropped (the mutation checks below), in parallel,
+   and reports ptxas' register lines;
 3. kernel — the matmul kernel against its plain torch version on the card
    over a sweep of shapes, blocks, grid orders, dtypes and transposed B;
    attention — the flash-attention kernel against its plain version over
-   the JAX kernel tests' shapes, windows, softcaps, bf16 and the model's
-   own shape;
+   the JAX kernel tests' shapes, windows, softcaps, bf16, head dim 128 with
+   GQA groups of 4 and the two models' own shapes;
    rwkv_scan — the RWKV-6 chunked-scan kernel against its plain version over
    the JAX kernel tests' ranges (S 1-70, N 4/8/16, chunks 4/16/64, 1-4
    streams), N = 64 at chunks 64 and 128, a carried state, bf16 r/k/v and
    rwkv6-7b's prefill shape;
+   mamba_scan — the Mamba selective-scan kernel against its plain version
+   over the JAX kernel test's ranges (S 1-40, C 8/20/32, N 4/8, chunks
+   4/8/32, blocks 8/16/128), jamba's prefill shapes, f32 and bf16, with and
+   without a carried state, through strided B/C views, ragged S and C;
 4. tune   — ``LoopTuner(policy="search", backend="torch")`` tunes the six
    dense contractions of musicgen-large (d_model 2048, d_ff 8192, vocab
    2048) at decode (M=4) and prefill (M=1024); every reward is a timed
@@ -47,6 +51,19 @@ line with its seconds:
    rounding); and a mutation check: the scan kernel with its u-bonus term
    dropped, through the same wrapper, must fail both the bf16 check and the
    rwkv_scan cases;
+   model_jamba — the fourth path: jamba-v0.1-52b at its published widths
+   cut to two periods (16 layers: d_model 4096, GQA 32/8 at head dim 128,
+   16 experts top-2, bf16, random weights from a seed) served by
+   ``serve_once``: every prefill Mamba mixer launches the selective-scan
+   kernel and every prefill attention the flash kernel.  Then one
+   full-width Mamba layer in f32, prefill (kernel) against the plain
+   token-by-token decode (the sharp check); the 16-layer model, prefill of a
+   384-token prompt against the same prompt through ``decode_step`` (last
+   logits, every Mamba layer's h and conv, the attention k/v), with every
+   token routed to all 16 experts and at MoE capacity 8, where the two
+   paths' expert choices are recorded and compared; and a mutation check:
+   the scan kernel with the decay of each staged tile's first token
+   dropped must fail the sharp check and the mamba_scan cases;
 6. timing — per contraction: the kernel at its tuned block and at 128^3,
    the plain version, ``torch.matmul`` (the library yardstick only), and
    the bound (bytes over 3.35 TB/s vs FP32 operations over the FP32 peak);
@@ -54,12 +71,17 @@ line with its seconds:
    version, ``scaled_dot_product_attention`` (yardstick only) and its bound;
    then the scan kernel at rwkv6-7b's prefill shape against its plain
    version and its bound (bytes vs the 4N^2 FLOP a token that any form of
-   the recurrence does; no single PyTorch call computes the recurrence).
+   the recurrence does; no single PyTorch call computes the recurrence);
+   flash attention also at jamba's prefill shape (head dim 128, GQA 32/8);
+   then the Mamba scan at jamba's prefill shape against its plain version
+   and its bound (bytes, FP32 operations, or the exponentials at the SFU
+   rate and the card's top SM clock, whichever is largest).
 
-All three kernels' launch counts are set to 0 before phase 4 and read after
+All four kernels' launch counts are set to 0 before phase 4 and read after
 phase 5, set to 0 again before the model's tuning and read right after its
-serve run, and set to 0 before rwkv6-7b's serve run and read right after
-it; each path must launch its own kernels and no other.  Launches made to
+serve run, and set to 0 before rwkv6-7b's and jamba's serve runs and read
+right after each; each path must launch its own kernels and no other.
+Launches made to
 compare, trace, check or time do not count.  Per-case detail goes to
 ``chiprun_out/chip_smoke_cases.jsonl``.  Any failure exits non-zero before
 the last line, which is ``{"ok": true, "device": {...}}``.
@@ -108,17 +130,39 @@ RECURRENCE_LEN = 384  # prompt of the prefill-vs-recurrence check: 3 chunks
 RECURRENCE_LIMIT = 0.15
 F32_WITNESS_LIMIT = RECURRENCE_LIMIT / 10  # the f32 run must sit far below it
 MUTANT_LINE = "out = fmaf(dg, V[row * NP + m], out);  // the u-bonus term"
+# jamba-v0.1-52b at two periods: the published widths, 16 of its 32 layers
+# (the 32 need ~103 GB of bf16 weights; 16 hold 52.1 GB on one 80 GB card)
+JAMBA_LAYERS = 16
+JAMBA_SERVE = dict(requests=8, batch=4, prompt_len=1024, gen_len=32, max_len=1056)
+FA_JAMBA_SHAPE = (4, 1024, 32, 8, 128)  # (B, S, H, HKV, D) of its prefill attention
+MAMBA_LIMIT = 2e-4  # allclose rtol = atol, tests/test_kernels.py's for the scan
+MAMBA_SHAPE = (4, 1024, 8192, 16)  # (B, S, C, N) of its prefill scan
+MAMBA_CHUNK, MAMBA_BD = 64, 128  # models/mamba.py mamba_apply's chunk, the ops' bd
+MAMBA_SWEEP = [(64, 32), (64, 64), (64, 256), (16, 128), (32, 128)]  # other "mamba" blocks
+MAMBA_LAYER_LIMIT = 2e-3  # one f32 layer, prefill vs recurrence: tests/test_moe.py's
+# max abs diff / max abs over the last logits, every Mamba layer's h and conv
+# and the attention k/v, bf16 through 16 layers, with every token routed to
+# all 16 experts: about twice the 5.5e-2 read with the correct kernel (the
+# limit started at 0.15, PR 13's; the mutant reads 6.7e-2, so the one-layer
+# f32 check is the sharp one).  At capacity 8 (top-2) bf16 noise flips the
+# experts of 0.5-13 % of the tokens between the two paths, and the caches
+# then differ by up to 1.08 whatever the kernel: only the last logits
+# (2.3e-2) are held to the limit there
+JAMBA_RECURRENCE_LIMIT = 0.11
+MAMBA_MUTANT_LINE = "const float decay = exp2f(dtv * a2[n]);  // e^{dt a_n}"
+SFU_EXP_PER_CLOCK = 16  # exponentials a clock per SM (sm_90's MUFU rate)
 
 
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper by name; a wrapper adds one to its ``launches``
     where it launches its kernel and nowhere else."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.rwkv6_scan import rwkv6_chunk_scan
 
     return {"tiled_matmul": matmul, "flash_attention": flash_attention,
-            "rwkv6_scan": rwkv6_chunk_scan}
+            "rwkv6_scan": rwkv6_chunk_scan, "mamba_scan": mamba_scan}
 
 
 def reset_launches() -> None:
@@ -142,9 +186,9 @@ def emit(phase: str, t0: float, **kw) -> None:
                       **kw}), flush=True)
 
 
-def nvidia_smi_line() -> str:
+def nvidia_smi_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
 
@@ -232,8 +276,14 @@ def attention_cases() -> list:
                   (1, 45, 20, 2, 1, 32, True, None, None, 128, 128, dt),
                   (1, 40, 24, 2, 2, 16, True, 8, None, 128, 16, dt),  # rows see no key
                   (1, 70, 70, 2, 2, 64, False, None, 20.0, 8, 64, dt)]
+    for dt in (torch.float32, torch.bfloat16):  # jamba's head dim and GQA group
+        cases += [(1, 70, 70, 8, 2, 128, True, None, None, 128, 128, dt),
+                  (2, 45, 45, 4, 1, 128, True, None, None, 64, 32, dt),
+                  (1, 33, 50, 4, 1, 128, False, None, None, 16, 16, dt)]
     b, s, h, d = FA_SHAPE
     cases.append((b, s, s, h, h, d, True, None, None, 128, 128, torch.bfloat16))
+    b, s, h, hkv, d = FA_JAMBA_SHAPE
+    cases.append((b, s, s, h, hkv, d, True, None, None, 128, 128, torch.bfloat16))
     return cases
 
 
@@ -349,6 +399,85 @@ def phase_rwkv_scan(cases_f) -> None:
          worst_ratio_to_limit=worst_ratio, limit=RWKV_LIMIT, failures=failures[:5])
     if failures:
         raise SystemExit(f"{len(failures)} rwkv scan cases outside their limit")
+
+
+def mamba_cases() -> list:
+    """(B, S, C, N, chunk, bd, dtype, with h0)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases, blocks, i = [], [(4, 8), (8, 16), (32, 128)], 0
+    for s in (1, 5, 17, 40):            # the JAX sweep: S 1-40, C 8/20/32,
+        for c in (8, 20, 32):           # N 4/8, chunks 4/8/32, bd 8/16/128
+            for n in (4, 8):
+                chunk, bd = blocks[i % len(blocks)]
+                i += 1
+                cases.append((2, s, c, n, chunk, bd, f32, False))
+    for dt in (f32, bf16):              # ragged S, C not a multiple of the CTA
+        cases += [(2, 300, 1000, 16, 64, 256, dt, True), (3, 130, 520, 16, 32, 128, dt, False),
+                  (1, 77, 100, 8, 16, 8, dt, True)]
+    b, s, c, n = MAMBA_SHAPE            # jamba's prefill, and the 384-token check's
+    cases += [(b, s, c, n, MAMBA_CHUNK, MAMBA_BD, bf16, True),
+              (b, s, c, n, MAMBA_CHUNK, MAMBA_BD, bf16, False),
+              (1, RECURRENCE_LEN, c, n, MAMBA_CHUNK, MAMBA_BD, f32, False),
+              (1, RECURRENCE_LEN, c, n, MAMBA_CHUNK, MAMBA_BD, bf16, True)]
+    return cases
+
+
+def mamba_inputs(case, seed: int) -> tuple:
+    """x, dt, a, b, c, h0 in the model's layout: x N(0, 1); dt a small
+    positive step, exp(0.5 N(0, 1) - 3.5) (softplus near the init's 0.01);
+    a = -(1..N) e^{0.1 N(0, 1)} per channel; b and c strided views of one
+    (B, S, 4 + 2N) projection of 0.5 N(0, 1), as ``_ssm_inputs`` makes
+    them; h0 0.1 N(0, 1)."""
+    b, s, c, n, _, _, dt_, with_h0 = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    x = rand(b, s, c).to(dt_)
+    dt = torch.exp(0.5 * rand(b, s, c) - 3.5).to(dt_)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda") * torch.exp(0.1 * rand(c, n))
+    proj = (0.5 * rand(b, s, 4 + 2 * n)).to(dt_)
+    h0 = 0.1 * rand(b, c, n) if with_h0 else None
+    return x, dt, a, proj[..., 4:4 + n], proj[..., 4 + n:], h0
+
+
+def mamba_case_check(i: int, case) -> dict:
+    """Case ``i``: the kernel against its plain version on the same inputs
+    at the kernel's token tile, as allclose(rtol=MAMBA_LIMIT,
+    atol=MAMBA_LIMIT) on y and the state."""
+    from repro_torch.kernels.mamba_scan import launch_plan, mamba_scan, mamba_scan_plain_model
+
+    b, s, c, n, chunk, bd, dt_, with_h0 = case
+    x, dt, a, bm, cm, h0 = mamba_inputs(case, SEED + i)
+    plan = launch_plan(s, c, chunk, bd)
+    y, h = mamba_scan(x, dt, a, bm, cm, chunk=chunk, bd=bd, h0=h0)
+    yp, hp = mamba_scan_plain_model(x, dt, a, bm, cm, chunk=plan["l"], h0=h0)
+    torch.cuda.synchronize()
+    ratio = max(((o - p).abs() / (MAMBA_LIMIT + MAMBA_LIMIT * p.abs())).max().item()
+                for o, p in ((y, yp), (h, hp)))
+    return {"bscn": [b, s, c, n], "block": [chunk, bd], "plan": plan, "dtype": str(dt_),
+            "h0": with_h0,
+            "max_abs_err": max((y - yp).abs().max().item(), (h - hp).abs().max().item()),
+            "limit": MAMBA_LIMIT, "ratio_to_limit": ratio}
+
+
+def phase_mamba_scan(cases_f) -> None:
+    t0 = time.perf_counter()
+    worst, worst_ratio, failures = {}, 0.0, []
+    cases = mamba_cases()
+    for i, case in enumerate(cases):
+        row = mamba_case_check(i, case)
+        cases_f.write(json.dumps({"mamba_scan": row}) + "\n")
+        key = row["dtype"].replace("torch.", "")
+        worst[key] = max(worst.get(key, 0.0), row["max_abs_err"])
+        worst_ratio = max(worst_ratio, row["ratio_to_limit"])
+        if not row["ratio_to_limit"] <= 1.0:
+            failures.append(row)
+    emit("mamba_scan", t0, cases=len(cases), worst_max_abs_err=worst,
+         worst_ratio_to_limit=worst_ratio, limit=MAMBA_LIMIT, failures=failures[:5])
+    if failures:
+        raise SystemExit(f"{len(failures)} mamba scan cases outside their limit")
 
 
 # ---------------------------------------------------------------------------
@@ -472,7 +601,8 @@ def device_times(prof, wall_s: float, path: Path) -> dict:
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
-    by = {"flash_attention": 0.0, "tiled_matmul": 0.0, "rwkv6_scan": 0.0, "other": 0.0}
+    by = {"flash_attention": 0.0, "tiled_matmul": 0.0, "rwkv6_scan": 0.0,
+          "mamba_scan": 0.0, "other": 0.0}
     spans = []
     for e in events:
         if e.get("ph") != "X" or str(e.get("cat", "")).lower() not in DEVICE_CATS:
@@ -482,7 +612,8 @@ def device_times(prof, wall_s: float, path: Path) -> dict:
         name = e.get("name", "")
         key = ("flash_attention" if "flash_fwd" in name else
                "tiled_matmul" if "tiled_matmul" in name else
-               "rwkv6_scan" if "rwkv6_scan" in name else "other")
+               "rwkv6_scan" if "rwkv6_scan" in name else
+               "mamba_scan" if "mamba_scan" in name else "other")
         by[key] += dur / 1e3
     table_ms = sum(getattr(e, "self_device_time_total", 0.0)
                    for e in prof.key_averages()) / 1e3
@@ -665,31 +796,36 @@ def phase_model(out_dir: Path) -> dict:
 
 
 def recurrence_errors(cfg, params, prompts, want) -> dict:
-    """The prefill of ``prompts`` (the scan kernel) against ``want``, the
-    same prompt fed token by token through ``decode_step``: last logits,
-    and per layer the state ``s`` and the carries ``xt``/``xc``."""
+    """The prefill of ``prompts`` (the kernels) against ``want``, the same
+    prompt fed token by token through ``decode_step``: last logits, and for
+    every cache leaf (rwkv6-7b: the state ``s`` and the carries ``xt``/
+    ``xc``; jamba: Mamba ``h`` and ``conv``, attention ``k``/``v``) its
+    worst layer and its error layer by layer."""
     from repro_torch.launch import serve as SV
     from repro_torch.models import steps as S
 
     make_inputs = SV.input_fn(cfg, "cuda")
     last, caches, _ = S.make_prefill_step(cfg, RECURRENCE_LEN)(params, make_inputs(prompts))
     torch.cuda.synchronize()
-    got = {"logits": last, **caches[0]}
-    errs = {"logits": rel_err(got["logits"], want["logits"])}
-    for name in ("s", "xt", "xc"):
-        per_layer = [rel_err(got[name][i], want[name][i]) for i in range(cfg.n_layers)]
-        errs[f"{name}_worst_layer"] = max(per_layer)
-        if name == "s":
-            errs["s_per_layer"] = per_layer
-    errs["worst"] = max(errs[k] for k in ("logits", "s_worst_layer", "xt_worst_layer",
-                                          "xc_worst_layer"))
+    errs = {"logits": rel_err(last, want["logits"])}
+    per_leaf, n = {}, len(cfg.period)
+    for pos, leaves in enumerate(caches):
+        for name, t in leaves.items():
+            for per in range(cfg.n_periods):
+                per_leaf.setdefault(name, []).append(
+                    (per * n + pos, rel_err(t[per], want["caches"][pos][name][per])))
+    for name, rows in per_leaf.items():
+        errs[f"{name}_worst_layer"] = max(e for _, e in rows)
+        errs[f"{name}_per_layer"] = [e for _, e in sorted(rows)]
+    errs["worst"] = max([errs["logits"]] + [errs[f"{k}_worst_layer"] for k in per_leaf])
     errs["finite"] = bool(torch.isfinite(last).all())
     return errs
 
 
 def decode_recurrence(cfg, params, prompts) -> dict:
     """``prompts`` fed one token at a time through ``decode_step`` from a
-    zero cache: the plain single-token recurrence, no scan kernel."""
+    zero cache: the plain single-token recurrence, no scan kernel (and no
+    flash kernel: decode attention is plain)."""
     from repro_torch.launch import serve as SV
     from repro_torch.models import steps as S
     from repro_torch.models import transformer as T
@@ -700,7 +836,7 @@ def decode_recurrence(cfg, params, prompts) -> dict:
     for t in range(prompts.shape[1]):
         _, logits, caches = decode(params, make_inputs(prompts[:, t:t + 1]), caches, t)
     torch.cuda.synchronize()
-    return {"logits": logits[:, -1], **caches[0]}
+    return {"logits": logits[:, -1], "caches": caches}
 
 
 def phase_model_rwkv(out_dir: Path, mutant: Path) -> dict:
@@ -749,7 +885,7 @@ def phase_model_rwkv(out_dir: Path, mutant: Path) -> dict:
     f32["seconds"] = time.perf_counter() - t1
     del params
     mut_outside = sum(not c["ratio_to_limit"] <= 1.0 for c in mut_cases)
-    mutation = {"dropped": MUTANT_LINE, "worst_err": mut["worst"],
+    mutation = {"kernel": "rwkv6_scan", "dropped": MUTANT_LINE, "worst_err": mut["worst"],
                 "logits_err": mut["logits"],
                 **{f"{k}_worst_layer_err": mut[f"{k}_worst_layer"] for k in ("s", "xt", "xc")},
                 "rwkv_scan_cases_outside_limit": mut_outside,
@@ -789,6 +925,181 @@ def phase_model_rwkv(out_dir: Path, mutant: Path) -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise SystemExit(f"model_rwkv phase failed: {bad}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the jamba-v0.1-52b path: two periods at full width, through the Mamba scan
+# ---------------------------------------------------------------------------
+
+
+def mamba_layer_check(cfg) -> dict:
+    """One full-width Mamba layer with f32 weights (seeded), a 384-token
+    prompt of N(0, 1) activations run two ways: ``mamba_apply`` (the scan
+    kernel) and ``mamba_reference`` (the plain token-by-token decode)."""
+    from repro_torch.models import mamba as M
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    p = M.mamba_params(g, cfg.d_model, cfg.ssm_d_state, cfg.ssm_d_conv, cfg.ssm_expand,
+                       torch.float32, "cuda")
+    x = torch.randn(JAMBA_SERVE["batch"], RECURRENCE_LEN, cfg.d_model, generator=g,
+                    device="cuda")
+    with torch.no_grad():
+        out, st = M.mamba_apply(p, x)
+        ref, st_r = M.mamba_reference(p, x)
+    torch.cuda.synchronize()
+    errs = {"out": rel_err(out, ref), "h": rel_err(st.h, st_r.h),
+            "conv": rel_err(st.conv, st_r.conv)}
+    errs["worst"] = max(errs["out"], errs["h"])
+    errs["finite"] = bool(torch.isfinite(out).all())
+    return errs
+
+
+def recorded_routes(fn) -> tuple:
+    """Run ``fn()`` recording the expert choices ``(N, top_k)`` of every MoE
+    router call, in call order.  Returns (the choices, fn's result)."""
+    from repro_torch.models import moe as X
+
+    calls, route = [], X._route
+
+    def recording(p, xt, moe_cfg):
+        out = route(p, xt, moe_cfg)
+        calls.append(out[3])
+        return out
+
+    X._route = recording
+    try:
+        return calls, fn()
+    finally:
+        X._route = route
+
+
+def routing_differs(prefill_calls, decode_calls, n_moe: int, batch: int) -> list:
+    """Per MoE layer, the share of tokens whose set of experts differs
+    between the prefill (one router call a layer over B*S tokens) and the
+    token-by-token decode (one call a layer and step over B tokens)."""
+    out = []
+    for layer in range(n_moe):
+        pre = prefill_calls[layer].sort(dim=-1).values                  # (B*S, K)
+        dec = torch.stack(decode_calls[layer::n_moe])                    # (S, B, K)
+        dec = dec.transpose(0, 1).reshape(-1, pre.shape[-1]).sort(dim=-1).values
+        out.append((pre != dec).any(-1).float().mean().item())
+    return out
+
+
+def phase_model_jamba(out_dir: Path, mutant: Path) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba_scan import _declare as mamba_declare
+    from repro_torch.launch import serve as SV
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # this path starts here
+    summary = SV.serve_once(cfg, seed=SEED, device="cuda", **JAMBA_SERVE)
+    launches = read_launches()  # ... and ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+    waves = summary["prefill_waves"]
+    serve_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = SV.init_model(cfg, SEED, "cuda")
+    wave = SV.request_pool(cfg, JAMBA_SERVE["batch"], JAMBA_SERVE["prompt_len"], 1, SEED)
+    *_, traces = traced_steps(cfg, params, np.stack([r.prompt for r in wave]),
+                              JAMBA_SERVE["max_len"], None, out_dir)
+    layer = mamba_layer_check(cfg)
+
+    # the whole model, prefill vs the token-by-token decode, at MoE capacity
+    # 8 (= n_experts / top_k: no token drops at prefill or at decode), and
+    # with every token routed to all 16 experts at its full softmax weights
+    # (top-k = 16, capacity 1: no drops and no discrete routing choice, so
+    # that bf16 noise cannot flip a token's experts); same weights
+    moe = cfg.moe
+    variants = {
+        "capacity_8": dataclasses.replace(cfg, moe=dataclasses.replace(
+            moe, capacity_factor=8.0)),
+        "dense_routing": dataclasses.replace(cfg, moe=dataclasses.replace(
+            moe, top_k=moe.n_experts, capacity_factor=1.0)),
+    }
+    n_moe = sum(spec.ffn == "moe" for spec in cfg.period) * cfg.n_periods
+    prompts = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, (JAMBA_SERVE["batch"], RECURRENCE_LEN))
+    wants, recurrence, finite = {}, {}, layer["finite"]
+    for name, vcfg in variants.items():
+        t1 = time.perf_counter()
+        dec_calls, wants[name] = recorded_routes(lambda: decode_recurrence(vcfg, params, prompts))
+        decode_s = time.perf_counter() - t1
+        pre_calls, errs = recorded_routes(
+            lambda: recurrence_errors(vcfg, params, prompts, wants[name]))
+        finite = finite and errs.pop("finite") and bool(torch.isfinite(
+            wants[name]["logits"]).all())
+        recurrence[name] = {"decode_s": decode_s, **errs,
+                            "routing_differs_per_moe_layer": routing_differs(
+                                pre_calls, dec_calls, n_moe, JAMBA_SERVE["batch"])}
+
+    # mutation check: the scan kernel with each staged tile's first token
+    # left undecayed, through the same wrapper, against the same checks
+    with _build.substitute("mamba_scan", mutant, mamba_declare):
+        mut_layer = mamba_layer_check(cfg)
+        mut = {name: recurrence_errors(vcfg, params, prompts, wants[name])
+               for name, vcfg in variants.items()}
+        mut_cases = [mamba_case_check(i, c) for i, c in enumerate(mamba_cases())]
+    del wants, params
+    mut_outside = sum(not c["ratio_to_limit"] <= 1.0 for c in mut_cases)
+    mutation = {"kernel": "mamba_scan", "dropped": MAMBA_MUTANT_LINE,
+                "layer_worst_err": mut_layer["worst"], "layer_out_err": mut_layer["out"],
+                "layer_h_err": mut_layer["h"],
+                **{f"{name}_{k}": m[k] for name, m in mut.items()
+                   for k in ("worst", "logits", "h_worst_layer")},
+                "mamba_scan_cases_outside_limit": mut_outside,
+                "mamba_scan_cases": len(mut_cases),
+                "mamba_scan_min_ratio_to_limit": min(c["ratio_to_limit"] for c in mut_cases)}
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "published_layers": 32,
+           "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "experts": moe.n_experts, "top_k": moe.top_k,
+           "capacity_factor": moe.capacity_factor, "d_state": cfg.ssm_d_state,
+           "dtype": cfg.dtype, "params": cfg.param_count(), **JAMBA_SERVE,
+           "serve_s": serve_s, "launches": launches, "prefill_waves": waves,
+           "prefill_ms_per_wave": summary["prefill_ms"],
+           "decode_steps": summary["decode_steps"],
+           "decode_tokens": summary["decode_tokens"],
+           "decode_step_p50_ms": summary["decode_step_p50_ms"],
+           "decode_tokens_per_s": summary["decode_tokens_per_s"],
+           "tokens_per_s": summary["tokens_per_s"],
+           "max_memory_allocated": peak_bytes,
+           "logits_finite": summary["logits_finite"] and finite,
+           "mamba_layer": {k: v for k, v in layer.items() if k != "finite"},
+           "mamba_layer_limit": MAMBA_LAYER_LIMIT,
+           "recurrence_prompt_len": RECURRENCE_LEN, "recurrence": recurrence,
+           "recurrence_limit": JAMBA_RECURRENCE_LIMIT, "traces": traces}
+    emit("model_jamba", t0, **row)
+    emit("mutation", t0, **mutation)
+    n_mamba = sum(spec.mixer == "mamba" for spec in cfg.period) * cfg.n_periods
+    n_attn = sum(spec.mixer == "attn" for spec in cfg.period) * cfg.n_periods
+    dense, cap8 = recurrence["dense_routing"], recurrence["capacity_8"]
+    checks = {
+        "params == 26,053,595,136": row["params"] == 26_053_595_136,
+        "scan launches == Mamba layers x waves":
+            launches["mamba_scan"] == n_mamba * waves == 14 * waves > 0,
+        "flash launches == attention layers x waves":
+            launches["flash_attention"] == n_attn * waves == 2 * waves,
+        "no matmul or rwkv scan launches":
+            launches["tiled_matmul"] == launches["rwkv6_scan"] == 0,
+        "every logit finite": row["logits_finite"],
+        f"one Mamba layer <= {MAMBA_LAYER_LIMIT}": layer["worst"] <= MAMBA_LAYER_LIMIT,
+        f"dense routing: prefill vs recurrence <= {JAMBA_RECURRENCE_LIMIT}":
+            dense["worst"] <= JAMBA_RECURRENCE_LIMIT,
+        f"capacity 8: last logits <= {JAMBA_RECURRENCE_LIMIT}":
+            cap8["logits"] <= JAMBA_RECURRENCE_LIMIT,
+        "mutant outside the one-layer limit": mut_layer["worst"] > MAMBA_LAYER_LIMIT,
+        "mutant outside the mamba_scan limit": mut_outside > 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"model_jamba phase failed: {bad}")
     return row
 
 
@@ -859,39 +1170,50 @@ def phase_timing(registry, card: str, g) -> list:
     return rows
 
 
-def phase_flash_timing(card: str, g) -> dict:
-    """Flash attention at the model's prefill shape, bf16, causal."""
+def flash_timing_row(shape, card: str, g, flush) -> dict:
+    """Flash attention at a model's prefill shape (B, S, H, HKV, D), bf16,
+    causal: the kernel, its plain version, SDPA (yardstick only) and the
+    bound."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain, launch_plan)
 
-    t0 = time.perf_counter()
-    b, s, h, d = FA_SHAPE
-    flush = torch.empty(64 * 1024 * 1024 // 4 * 2, device="cuda")  # 128 MiB
-    q, k, v = (torch.randn(b, s, h, d, generator=g, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
+    b, s, h, hkv, d = shape
+    q = torch.randn(b, s, h, d, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
     out = flash_attention(q, k, v, causal=True)
     plain = flash_attention_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
     max_abs = (out.float() - plain.float()).abs().max().item()
     if not max_abs <= 3e-2 + 3e-2 * plain.float().abs().max().item():
-        raise SystemExit(f"flash attention at {FA_SHAPE}: max abs err {max_abs}")
+        raise SystemExit(f"flash attention at {shape}: max abs err {max_abs}")
     ms = time_ms(lambda: flash_attention(q, k, v, causal=True), flush, 20)
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True), flush, 5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA takes (B, H, S, D)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), flush, 20)
-    del flush
-    bytes_ms = 4 * b * s * h * d * 2 / HBM_BYTES_PER_S * 1e3     # q, k, v, o once
-    flops = 4 * b * h * d * s * (s + 1) // 2                      # visible pairs only
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=hkv != h),
+                         flush, 20)
+    bytes_ms = 2 * b * s * (h + hkv) * d * 2 / HBM_BYTES_PER_S * 1e3  # q, k, v, o once
+    flops = 4 * b * h * d * s * (s + 1) // 2                           # visible pairs only
     ops_ms = flops / BF16_PEAK["pcie" if "PCIe" in card else "sxm"] * 1e3
-    row = {"bshd": list(FA_SHAPE), "dtype": "bfloat16", "causal": True,
-           "plan": launch_plan(s, s), "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-           "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-           "tflops": flops / ms / 1e9, "max_abs_err": max_abs}
-    emit("timing_flash", t0, **row)
-    return row
+    return {"bshkd": list(shape), "dtype": "bfloat16", "causal": True,
+            "plan": launch_plan(s, s), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "tflops": flops / ms / 1e9, "max_abs_err": max_abs}
+
+
+def phase_flash_timing(card: str, g) -> list:
+    """Flash attention at musicgen-large's and jamba's prefill shapes."""
+    t0 = time.perf_counter()
+    flush = torch.empty(64 * 1024 * 1024 // 4 * 2, device="cuda")  # 128 MiB
+    b, s, h, d = FA_SHAPE
+    rows = [flash_timing_row(shape, card, g, flush) for shape in ((b, s, h, h, d),
+                                                                  FA_JAMBA_SHAPE)]
+    del flush
+    emit("timing_flash", t0, shapes=rows)
+    return rows
 
 
 def phase_rwkv_timing(card: str) -> dict:
@@ -936,6 +1258,59 @@ def phase_rwkv_timing(card: str) -> dict:
     return row
 
 
+def phase_mamba_timing(card: str) -> dict:
+    """The Mamba scan at jamba's prefill shape (bf16 x, dt, b, c as strided
+    views, f32 a, a carried state, the model's chunk and block), against
+    its plain version and its bound."""
+    from repro_torch.kernels.mamba_scan import launch_plan, mamba_scan, mamba_scan_plain_model
+
+    t0 = time.perf_counter()
+    b, s, c, n = MAMBA_SHAPE
+    case = (b, s, c, n, MAMBA_CHUNK, MAMBA_BD, torch.bfloat16, True)
+    x, dt, a, bm, cm, h0 = mamba_inputs(case, SEED)
+    plan = launch_plan(s, c, MAMBA_CHUNK, MAMBA_BD)
+    flush = torch.empty(64 * 1024 * 1024 // 4 * 2, device="cuda")  # 128 MiB
+    y, h = mamba_scan(x, dt, a, bm, cm, chunk=MAMBA_CHUNK, bd=MAMBA_BD, h0=h0)
+    yp, hp = mamba_scan_plain_model(x, dt, a, bm, cm, chunk=plan["l"], h0=h0)
+    torch.cuda.synchronize()
+    max_abs = max((y - yp).abs().max().item(), (h - hp).abs().max().item())
+    del yp, hp
+    ms = time_ms(lambda: mamba_scan(x, dt, a, bm, cm, chunk=MAMBA_CHUNK, bd=MAMBA_BD, h0=h0),
+                 flush, 20)
+    plain_ms = time_ms(lambda: mamba_scan_plain_model(x, dt, a, bm, cm, chunk=plan["l"],
+                                                      h0=h0), flush, 5)
+    # the same call at other registry blocks: what a tuned "mamba" block
+    # could move (tokens a tile, channels a CTA)
+    sweep = []
+    for chunk, bd in MAMBA_SWEEP:
+        sweep.append({"block": [chunk, bd], "plan": launch_plan(s, c, chunk, bd),
+                      "ms": time_ms(lambda: mamba_scan(x, dt, a, bm, cm, chunk=chunk, bd=bd,
+                                                       h0=h0), flush, 20)})
+    del flush
+    # bytes: x and dt (bf16) read once, y (f32) written once; b and c (bf16),
+    # a, h0 read once, the state written once
+    nbytes = b * s * c * (2 * 2 + 4) + 2 * b * s * n * 2 + c * n * 4 + 2 * b * c * n * 4
+    # operations per (t, c, n): one exponential e^{dt a} and five FP32 ones
+    # (h <- e h + dtx B: two products and a sum; y += C h: a product and a sum)
+    terms = b * s * c * n
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(nvidia_smi_line("clocks.max.sm").split()[0])
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    fp32_ms = 5 * terms / F32_PEAK["pcie" if "PCIe" in card else "sxm"] * 1e3
+    exp_ms = terms / (SFU_EXP_PER_CLOCK * sms * clock_mhz * 1e6) * 1e3
+    bound_ms = max(bytes_ms, fp32_ms, exp_ms)
+    row = {"bscn": list(MAMBA_SHAPE), "dtype": "bfloat16", "block": [MAMBA_CHUNK, MAMBA_BD],
+           "plan": plan, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": "bytes" if bound_ms == bytes_ms else "operations",
+           "bound_kind": ("bytes" if bound_ms == bytes_ms else
+                          "exponentials" if bound_ms == exp_ms else "fp32"),
+           "bytes_ms": bytes_ms, "fp32_ms": fp32_ms, "exp_ms": exp_ms, "bytes": nbytes,
+           "exponentials": terms, "fp32_ops": 5 * terms, "sms": sms,
+           "max_sm_clock_mhz": clock_mhz, "max_abs_err": max_abs, "block_sweep": sweep}
+    emit("timing_mamba", t0, **row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -951,17 +1326,24 @@ def main() -> int:
     emit("device", t0, nvidia_smi=smi, name=card, torch=torch.__version__,
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
-    # the mutation check's copy of the scan kernel, with its u-bonus term dropped
-    mutant = ROOT / "build" / "mutant" / "rwkv6_scan_mutant.cu"
-    mutant.parent.mkdir(parents=True, exist_ok=True)
-    src = (_build.CSRC / "rwkv6_scan.cu").read_text()
-    if src.count(MUTANT_LINE) != 1:
-        raise SystemExit(f"mutation: {MUTANT_LINE!r} not found once in rwkv6_scan.cu")
-    mutant.write_text(src.replace(MUTANT_LINE, "(void)dg;  // mutation: u-bonus dropped"))
+    # the mutation checks' copies of the scan kernels: the RWKV-6 scan with
+    # its u-bonus term dropped, the Mamba scan with the decay of each staged
+    # tile's first token dropped
+    mutants = {}
+    for name, line, repl in (
+            ("rwkv6_scan", MUTANT_LINE, "(void)dg;  // mutation: u-bonus dropped"),
+            ("mamba_scan", MAMBA_MUTANT_LINE,
+             "const float decay = i == 0 ? 1.f : exp2f(dtv * a2[n]);  // mutation")):
+        mutants[name] = ROOT / "build" / "mutant" / f"{name}_mutant.cu"
+        mutants[name].parent.mkdir(parents=True, exist_ok=True)
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        if src.count(line) != 1:
+            raise SystemExit(f"mutation: {line!r} not found once in {name}.cu")
+        mutants[name].write_text(src.replace(line, repl))
 
     t0 = time.perf_counter()
-    names = ["matmul", "flash_attention", "rwkv6_scan"]
-    _build.build_all(names + [mutant])  # one nvcc per source, all at once
+    names = ["matmul", "flash_attention", "rwkv6_scan", "mamba_scan"]
+    _build.build_all(names + list(mutants.values()))  # one nvcc per source, all at once
     emit("build", t0, kernels=names,
          nvcc_s={n: round(float(_build.BUILD_INFO[n]["seconds"]), 3) for n in names},
          ptxas={n: sorted({ln.split(":")[-1].strip()
@@ -972,6 +1354,7 @@ def main() -> int:
         phase_kernel(cases_f)
         phase_attention(cases_f)
         phase_rwkv_scan(cases_f)
+        phase_mamba_scan(cases_f)
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     wts = layer_weights(g)
@@ -985,12 +1368,18 @@ def main() -> int:
     model = phase_model(out_dir)  # the second path (counts set to 0 and read inside)
     gc.collect()
     torch.cuda.empty_cache()  # musicgen's tensors are gone before rwkv6-7b's
-    model_rwkv = phase_model_rwkv(out_dir, mutant)  # the third path, likewise
+    model_rwkv = phase_model_rwkv(out_dir, mutants["rwkv6_scan"])  # the third path, likewise
+    gc.collect()
+    torch.cuda.empty_cache()  # rwkv6-7b's tensors are gone before jamba's
+    model_jamba = phase_model_jamba(out_dir, mutants["mamba_scan"])  # the fourth path
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["model"], by_path["model_rwkv"] = model["launches"], model_rwkv["launches"]
+    by_path.update(model=model["launches"], model_rwkv=model_rwkv["launches"],
+                   model_jamba=model_jamba["launches"])
     check_path_launches("model", model["launches"], ("tiled_matmul", "flash_attention"))
     check_path_launches("model_rwkv", model_rwkv["launches"], ("rwkv6_scan",))
+    check_path_launches("model_jamba", model_jamba["launches"],
+                        ("mamba_scan", "flash_attention"))
 
     def launches(name: str) -> dict:
         per = {path: counts[name] for path, counts in by_path.items()}
@@ -999,6 +1388,7 @@ def main() -> int:
     rows = phase_timing(registry, card, g)
     fa = phase_flash_timing(card, g)
     rw = phase_rwkv_timing(card)
+    mb = phase_mamba_timing(card)
     ops_total = sum(2 * r["mkn"][0] * r["mkn"][1] * r["mkn"][2] for r in rows)
     bound_ops = ops_total / F32_PEAK["pcie" if "PCIe" in card else "sxm"] * 1e3
     bound_bytes = sum((r["mkn"][0] * r["mkn"][1] + r["mkn"][1] * r["mkn"][2]
@@ -1024,8 +1414,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:27",
         **launches("flash_attention"),
-        **{k: fa[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                              "library_ms", "bshd", "dtype", "plan")},
+        # one pass over musicgen-large's and jamba's prefill shapes
+        "max_abs_err": max(r["max_abs_err"] for r in fa),
+        **{k: sum(r[k] for r in fa) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": ("operations" if sum(r["ops_ms"] for r in fa) >= sum(r["bytes_ms"] for r in fa)
+                     else "bytes"),
+        "shapes": fa,
     }, {
         "name": "rwkv6_scan",
         "route": "cuda",
@@ -1036,6 +1430,17 @@ def main() -> int:
                               "bshn", "dtype", "chunk", "plan")},
         "library_ms": None,
         "library_note": "no single PyTorch call computes the chunked Finch recurrence",
+    }, {
+        "name": "mamba_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:25",
+        **launches("mamba_scan"),
+        **{k: mb[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                              "bound_kind", "bytes_ms", "fp32_ms", "exp_ms", "bscn",
+                              "dtype", "block", "plan")},
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes the selective scan",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

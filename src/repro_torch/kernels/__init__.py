@@ -3,11 +3,13 @@ schedules, each with a wrapper that counts its launches and a plain torch
 version beside it (taken for CPU tensors), the registry-backed entry points
 (ops.py) and plain torch oracles (ref.py).  Kernels build at first use."""
 from .flash_attention import flash_attention_plain
+from .mamba_scan import mamba_scan_plain
 from .matmul import matmul, matmul_plain
 from .rwkv6_scan import rwkv6_chunk_scan_plain
 from .ops import (
     flash_attention,
     get_registry,
+    mamba_scan,
     rwkv6_chunk_scan,
     serving,
     serving_registry,
@@ -23,6 +25,8 @@ __all__ = [
     "matmul",
     "matmul_plain",
     "get_registry",
+    "mamba_scan",
+    "mamba_scan_plain",
     "rwkv6_chunk_scan",
     "rwkv6_chunk_scan_plain",
     "serving",

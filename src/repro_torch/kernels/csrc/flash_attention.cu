@@ -47,8 +47,11 @@
 // product against broadcast rows of v, so it is bound by FP32 issue far
 // above that bound.  Q and K rows are padded to D + 1 floats and P rows to
 // 65 against bank conflicts.  No mma/wgmma, TMA or cp.async pipelining yet.
-// Shared memory (~65 KB at D = 64) is above the 48 KB static limit, so it is
-// dynamic, after cudaFuncSetAttribute.
+// Shared memory (~65 KB at D = 64, 115,456 bytes at D = 128) is above the
+// 48 KB static limit, so it is dynamic, after cudaFuncSetAttribute.  At
+// D = 128 (jamba-v0.1-52b, GQA 32/8) the CTA tile is the same 64 x 64; a
+// thread's output accumulator grows to 8 q rows x 8 columns (64 f32
+// registers, against 32 at D = 64).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -275,6 +278,7 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o, int B,
     case 16: return launch<T, 16>(q, k, v, o, B, a, s);
     case 32: return launch<T, 32>(q, k, v, o, B, a, s);
     case 64: return launch<T, 64>(q, k, v, o, B, a, s);
+    case 128: return launch<T, 128>(q, k, v, o, B, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -298,7 +302,7 @@ int looptune_flash_attention_plan(int S, int T, int bq, int bk, int* out) {
 // cudaGetLastError() (0 on success).  q: (B, S, H, D), k and v: (B, T, HKV, D)
 // through element strides (b, s, h) with the head dim contiguous; o: (B, S,
 // H, D) contiguous.  All of q, k, v, o are f32, or all bf16 (bf16 = 1).
-// D in {8, 16, 32, 64}; H a multiple of HKV.  softcap <= 0 means none.
+// D in {8, 16, 32, 64, 128}; H a multiple of HKV.  softcap <= 0 means none.
 int looptune_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
                              int S, int T, int H, int HKV, int D, long long qsb,
                              long long qss, long long qsh, long long ksb, long long kss,

@@ -22,7 +22,7 @@ from . import _build
 
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (8, 16, 32, 64)  # the JAX kernel tests' and musicgen-large's
+HEAD_DIMS = (8, 16, 32, 64, 128)  # the JAX kernel tests', musicgen-large's, jamba's
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -3,8 +3,9 @@ for block shapes — the tuned schedules become launch blocks here.
 
 ``set_registry(path_or_registry)`` installs a tuned-schedule table (produced
 by :class:`~repro_torch.core.tuner.LoopTuner`); :func:`tuned_matmul` falls
-back to 128^3 blocks, :func:`flash_attention` to a (128, 128) block and
-:func:`rwkv6_chunk_scan` to the caller's chunk when no entry exists.
+back to 128^3 blocks, :func:`flash_attention` to a (128, 128) block, and
+:func:`rwkv6_chunk_scan` and :func:`mamba_scan` to the caller's chunk (and
+channel block) when no entry exists.
 
 **Tuned serving**: :func:`tuned_einsum` is the model zoo's consume path.
 Inside a :func:`serving` context every matmul-shaped contraction looks its
@@ -27,6 +28,7 @@ import torch
 from repro_torch.core.registry import ScheduleRegistry, current_hardware
 
 from .flash_attention import flash_attention as _flash_attention
+from .mamba_scan import mamba_scan as _mamba_scan
 from .matmul import matmul as _matmul
 from .rwkv6_scan import rwkv6_chunk_scan as _rwkv6_chunk_scan
 
@@ -268,3 +270,19 @@ def rwkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if entry and "block" in entry:
             chunk = int(entry["block"].get("l", chunk))
     return _rwkv6_chunk_scan(r, k, v, logw, u, chunk=chunk, s0=s0)
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor, *, chunk: int = 32, bd: int = 128,
+               h0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Registry-tuned Mamba selective scan on the model's tensors: x, dt
+    ``(B, S, C)``, a ``(C, N)`` f32, b, c ``(B, S, N)``, h0 ``(B, C, N)``
+    f32 or None (block ``{"l": tokens a tile, "c": channels a CTA}`` under
+    kernel id 'mamba', workload ``(S, C)``).  CUDA tensors launch the
+    kernel; CPU tensors form dtx and da and run its plain version."""
+    if _REGISTRY is not None:
+        entry = _REGISTRY.get("mamba", (x.shape[1], x.shape[2]))
+        if entry and "block" in entry:
+            chunk = int(entry["block"].get("l", chunk))
+            bd = int(entry["block"].get("c", bd))
+    return _mamba_scan(x, dt, a, b, c, chunk=chunk, bd=bd, h0=h0)

@@ -56,3 +56,19 @@ def rwkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Ten
         ys.append(torch.einsum("bn,bnm->bm", r[:, t], state + u[:, :, None] * kv))
         state = state * torch.exp(logw[:, t])[..., None] + kv
     return torch.stack(ys, dim=1), state
+
+
+def mamba_scan_ref(dtx: torch.Tensor, da: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor) -> tuple:
+    """Token-by-token selective scan from a zero state.  All args f32;
+    dtx (B, S, C); da (B, S, C, N) log-decay; b/c (B, S, N).  Returns
+    (y (B, S, C), state (B, C, N))."""
+    bsz, s, ch = dtx.shape
+    n = b.shape[-1]
+    h = torch.zeros(bsz, ch, n, dtype=torch.float32, device=dtx.device)
+    ys = []
+    for t in range(s):
+        u = dtx[:, t, :, None] * b[:, t, None, :]
+        h = torch.exp(da[:, t]) * h + u
+        ys.append(torch.einsum("bcn,bn->bc", h, c[:, t]))
+    return torch.stack(ys, dim=1), h

@@ -3,8 +3,8 @@
 A request pool feeds a fixed-size decode batch; finished requests are
 retired and their slots refilled, prefill runs per admitted wave (its
 attention is the flash-attention kernel, its RWKV-6 time-mix the
-chunked-scan kernel), and every decode step is the ``serve_step`` of
-``models/steps.py``.
+chunked-scan kernel, its Mamba mixer the selective-scan kernel), and every
+decode step is the ``serve_step`` of ``models/steps.py``.
 
 ``--registry PATH`` serves tuned schedules: the prefill/decode step bodies
 run under ``kernels.ops.serving``, so every dense site looks its workload
@@ -20,7 +20,11 @@ the tiled-matmul kernel at the tuned block.  The table comes from
         --full --requests 8 --batch 4 --prompt-len 1024 --gen-len 32 \\
         --max-len 1056
 
-Runs on the card; ``--device cpu`` runs the kernels' plain versions.
+jamba-v0.1-52b's ``--full`` config (32 layers) needs ~103 GB of bf16
+weights, more than one 80 GB card: on one card, serve a depth cut of it
+through :func:`serve_once` (``dataclasses.replace(cfg, n_layers=16)``, two
+whole periods, as ``chip_smoke.py`` does).  Runs on the card; ``--device
+cpu`` runs the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -191,7 +195,8 @@ def serve_once(
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="musicgen-large",
-                    help="a ported architecture: musicgen-large or rwkv6-7b")
+                    help="a ported architecture: musicgen-large, rwkv6-7b or "
+                         "jamba-v0.1-52b")
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the smoke config)")
     ap.add_argument("--requests", type=int, default=16)

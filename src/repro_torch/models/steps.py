@@ -7,9 +7,10 @@ the step body runs under ``kernels.ops.serving(registry)``, so every dense
 site looks its contraction up in the tuned-schedule table and a hit on the
 card launches the tiled-matmul kernel.  ``None`` leaves dense sites on the
 plain ``@``.  Either way every prefill attention is the flash-attention
-kernel and every prefill RWKV-6 time-mix the chunked-scan kernel (whose
-dense projections stay on the plain ``@``, as in the reference).  Steps run
-under ``torch.no_grad()``.
+kernel, every prefill RWKV-6 time-mix the chunked-scan kernel and every
+prefill Mamba mixer the selective-scan kernel (the RWKV-6 and Mamba dense
+projections and the MoE experts stay on the plain ``@``, as in the
+reference).  Steps run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 

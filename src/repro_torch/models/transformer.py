@@ -9,8 +9,9 @@ Python loop.  Parameters are read by name as in the JAX pytree
 ``models/convert.py`` carries a JAX pytree across unchanged.
 
 The port runs attention (global and sliding-window) + dense-MLP layers, the
-layers of musicgen-large, and RWKV-6 time-mix + channel-mix layers, those of
-rwkv6-7b; MoE, Mamba and cross-attention raise ``NotImplementedError``
+layers of musicgen-large; RWKV-6 time-mix + channel-mix layers, those of
+rwkv6-7b; and Mamba mixers and MoE FFNs beside GQA attention and dense MLPs,
+those of jamba-v0.1-52b.  Cross-attention raises ``NotImplementedError``
 (ROADMAP.md).  Sharding annotations (``ashard``) are dropped until
 ``runtime/sharding.py`` is ported.  Entry points:
 
@@ -21,8 +22,9 @@ rwkv6-7b; MoE, Mamba and cross-attention raise ``NotImplementedError``
 The cache is the JAX layout (one dict per period position, leaves stacked
 over ``n_periods``: attention ``k``/``v`` ``(n_periods, B, buf, HKV, hd)``,
 RWKV-6 ``s`` ``(n_periods, B, H, N, N)`` f32 and ``xt``/``xc``
-``(n_periods, B, D)``), and **prefill and decode write into it in place**:
-the caches passed in are the caches returned.
+``(n_periods, B, D)``, Mamba ``h`` ``(n_periods, B, d_inner, N)`` f32 and
+``conv`` ``(n_periods, B, d_conv - 1, d_inner)``), and **prefill and decode
+write into it in place**: the caches passed in are the caches returned.
 """
 from __future__ import annotations
 
@@ -45,12 +47,12 @@ from repro_torch.configs.base import (
 )
 
 from . import layers as L
+from . import mamba as M
+from . import moe as X
 from . import rwkv6 as R
 
 _NOT_PORTED = {
-    MAMBA: "the Mamba mixer is not ported yet (ROADMAP.md, kernel B4 with jamba)",
     CROSS_ATTN: "cross-attention is not ported yet (ROADMAP.md, model zoo)",
-    MOE: "the MoE FFN is not ported yet (ROADMAP.md, model zoo: moe.py)",
 }
 
 
@@ -64,7 +66,7 @@ def check_supported(cfg: ModelConfig) -> None:
         for kind in (spec.mixer, spec.ffn):
             if kind in _NOT_PORTED:
                 raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-        if spec.mixer not in (ATTN, ATTN_LOCAL, RWKV6) or spec.ffn != DENSE:
+        if spec.mixer not in (ATTN, ATTN_LOCAL, RWKV6, MAMBA) or spec.ffn not in (DENSE, MOE):
             raise ValueError(f"unknown layer kind {spec}")
 
 
@@ -114,9 +116,16 @@ def _block_init(generator, spec: LayerSpec, cfg: ModelConfig, device) -> Dict[st
         p["post_ffn"] = torch.ones(d, dtype=dt, device=device)
     if spec.mixer == RWKV6:
         p["rwkv"] = R.rwkv_time_mix_params(generator, d, cfg.rwkv_head_dim, dt, device)
-        p["cmix"] = R.channel_mix_params(generator, d, cfg.d_ff, dt, device)
+    elif spec.mixer == MAMBA:
+        p["mamba"] = M.mamba_params(generator, d, cfg.ssm_d_state, cfg.ssm_d_conv,
+                                    cfg.ssm_expand, dt, device)
     else:
         p["attn"] = L.attn_params(generator, cfg, dt, device)
+    if spec.ffn == MOE:
+        p["moe"] = X.moe_params(generator, d, cfg.moe, dt, device)
+    elif spec.mixer == RWKV6:
+        p["cmix"] = R.channel_mix_params(generator, d, cfg.d_ff, dt, device)
+    else:
         p["mlp"] = L.mlp_params(generator, d, cfg.d_ff, dt, device)
     return p
 
@@ -157,7 +166,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"
     HKV, hd)``, where a sliding-window layer has ``min(max_len, window)``
     slots; RWKV-6 keeps the f32 state ``s`` ``(n_periods, batch, H, N, N)``
     and the token-shift carries ``xt`` (time-mix) and ``xc`` (channel-mix)
-    ``(n_periods, batch, D)``."""
+    ``(n_periods, batch, D)``; Mamba keeps the f32 state ``h``
+    ``(n_periods, batch, d_inner, N)`` and the conv window ``conv``
+    ``(n_periods, batch, d_conv - 1, d_inner)``."""
     check_supported(cfg)
     dt = _dtype(cfg)
     caches = []
@@ -171,6 +182,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"
                                   device=device),
                 "xc": torch.zeros((cfg.n_periods, batch, cfg.d_model), dtype=dt,
                                   device=device)})
+            continue
+        if spec.mixer == MAMBA:
+            d_inner = cfg.ssm_expand * cfg.d_model
+            caches.append({
+                "h": torch.zeros((cfg.n_periods, batch, d_inner, cfg.ssm_d_state),
+                                 dtype=torch.float32, device=device),
+                "conv": torch.zeros((cfg.n_periods, batch, cfg.ssm_d_conv - 1, d_inner),
+                                    dtype=dt, device=device)})
             continue
         win = spec.window if spec.mixer == ATTN_LOCAL else None
         buf = min(max_len, win) if win else max_len
@@ -203,11 +222,28 @@ def _apply_rwkv(p, cfg, h, cache, decode):
     return out
 
 
+def _apply_mamba(p, h, cache, decode):
+    """The Mamba mixer on normed input ``h``; writes ``cache`` (one layer's
+    h/conv views) in place.  Prefill starts from the cache's state and conv
+    window, as the reference does (zeros in a fresh cache)."""
+    st = M.MambaState(cache["h"], cache["conv"]) if cache is not None else None
+    if decode:
+        out, st2 = M.mamba_decode(p["mamba"], h, st)
+    else:
+        out, st2 = M.mamba_apply(p["mamba"], h, st)
+    if cache is not None:
+        cache["h"].copy_(st2.h)
+        cache["conv"].copy_(st2.conv)
+    return out
+
+
 def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, decode):
     """The mixer on normed input ``h``; writes ``cache`` (one layer's
     views) in place."""
     if spec.mixer == RWKV6:
         return _apply_rwkv(p, cfg, h, cache, decode)
+    if spec.mixer == MAMBA:
+        return _apply_mamba(p, h, cache, decode)
     if spec.mixer not in (ATTN, ATTN_LOCAL):
         raise NotImplementedError(_NOT_PORTED.get(spec.mixer, spec.mixer))
     q, k, v = L.attn_qkv(p["attn"], cfg, h, positions=positions)
@@ -234,32 +270,37 @@ def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, decode):
 
 
 def _apply_ffn(spec, p, cfg, h, cache, decode):
-    if spec.ffn != DENSE:
-        raise NotImplementedError(_NOT_PORTED.get(spec.ffn, spec.ffn))
+    """The FFN on normed input ``h``.  Returns (out, aux): aux is the MoE
+    layer's ``moe_aux_loss + moe_z_loss`` (f32 scalar), None for a dense
+    FFN."""
+    if spec.ffn == MOE:
+        out, aux = X.moe_apply(p["moe"], h, cfg.moe, cfg.act)
+        return out, aux["moe_aux_loss"] + aux["moe_z_loss"]
     if spec.mixer != RWKV6:
-        return L.mlp_apply(p["mlp"], h, cfg.act)
+        return L.mlp_apply(p["mlp"], h, cfg.act), None
     # the channel-mix token shift reads the carry only in decode; prefill
     # starts from zeros whatever the cache holds, as the reference does
     xc = cache["xc"] if (cache is not None and decode) else None
     out, last = R.channel_mix(p["cmix"], h, x_prev=xc)
     if cache is not None:
         cache["xc"].copy_(last)
-    return out
+    return out, None
 
 
 def _apply_block(spec, p, cfg, x, cache, cache_len, positions, decode):
+    """One layer.  Returns (x, aux) with aux as :func:`_apply_ffn`'s."""
     h = L.rms_norm(x, p["norm_attn"])
     mix = _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, decode)
     if cfg.post_norm:
         mix = L.rms_norm(mix, p["post_attn"])
     if cfg.parallel_block:
-        ff = _apply_ffn(spec, p, cfg, h, cache, decode)
-        return x + mix.to(x.dtype) + ff.to(x.dtype)
+        ff, aux = _apply_ffn(spec, p, cfg, h, cache, decode)
+        return x + mix.to(x.dtype) + ff.to(x.dtype), aux
     x = x + mix.to(x.dtype)
-    ff = _apply_ffn(spec, p, cfg, L.rms_norm(x, p["norm_ffn"]), cache, decode)
+    ff, aux = _apply_ffn(spec, p, cfg, L.rms_norm(x, p["norm_ffn"]), cache, decode)
     if cfg.post_norm:
         ff = L.rms_norm(ff, p["post_ffn"])
-    return x + ff.to(x.dtype)
+    return x + ff.to(x.dtype), aux
 
 
 # ---------------------------------------------------------------------------
@@ -276,25 +317,33 @@ def _embed_in(params, cfg, batch) -> torch.Tensor:
 
 
 def _run_layers(params, cfg, x, caches, cache_len, positions, decode):
+    """Every layer in order.  Returns (x, aux): the sum over MoE layers of
+    ``moe_aux_loss + moe_z_loss`` (f32 scalar, 0 without MoE layers)."""
     n = len(cfg.period)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params["blocks"]):
         per, pos = divmod(i, n)
         cache = (None if caches is None
                  else {name: t[per] for name, t in caches[pos].items()})
-        x = _apply_block(cfg.period[pos], p, cfg, x, cache, cache_len, positions, decode)
-    return x
+        x, layer_aux = _apply_block(cfg.period[pos], p, cfg, x, cache, cache_len,
+                                    positions, decode)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return x, aux
 
 
 def hidden_states(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                   caches: Optional[Tuple] = None
                   ) -> Tuple[torch.Tensor, Optional[Tuple], torch.Tensor]:
     """Full-sequence forward up to the final norm (no logits).  Returns
-    (hidden (B, S, D), caches, aux_loss); aux_loss is 0 (no MoE layer)."""
+    (hidden (B, S, D), caches, aux_loss): aux_loss sums each MoE layer's
+    ``moe_aux_loss + moe_z_loss`` (0 without MoE layers), as the
+    reference's does."""
     x = _embed_in(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x = _run_layers(params, cfg, x, caches, 0, positions, decode=False)
+    x, aux = _run_layers(params, cfg, x, caches, 0, positions, decode=False)
     x = L.rms_norm(x, params["final_norm"])
-    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, caches, aux
 
 
 def forward(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
@@ -310,11 +359,12 @@ def forward(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def decode_step(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 caches: Tuple, cache_len: int) -> Tuple[torch.Tensor, Tuple]:
     """One decode step at position ``cache_len`` (the valid cache length);
-    writes the new k/v (or RWKV-6 state and carries) into ``caches`` in
-    place.  Returns (logits (B, 1, V) f32, caches)."""
+    writes the new k/v (or RWKV-6 state and carries, or Mamba state and
+    conv window) into ``caches`` in place.  Returns (logits (B, 1, V) f32,
+    caches)."""
     x = _embed_in(params, cfg, batch)
     positions = torch.full((1, 1), cache_len, device=x.device)
-    x = _run_layers(params, cfg, x, caches, cache_len, positions, decode=True)
+    x, _ = _run_layers(params, cfg, x, caches, cache_len, positions, decode=True)
     x = L.rms_norm(x, params["final_norm"])
     logits = L.logits_apply(params["embed"], x, params.get("lm_head"), cfg.logit_softcap)
     return logits, caches

@@ -43,6 +43,9 @@ CASES = {
     # rows 31..39 see no key (the window ends before T): every version
     # gives the mean of v there (T <= bk, so the padded kv range is T)
     "no_visible_key": (1, 40, 24, 2, 2, 16, True, 8, None, "float32"),
+    # jamba-v0.1-52b's head dim and GQA group (32 q heads over 8 kv heads)
+    "d128_gqa_groups4": (1, 40, 40, 8, 2, 128, True, None, None, "float32"),
+    "bf16_d128_gqa_groups4": (2, 33, 33, 4, 1, 128, True, None, None, "bfloat16"),
 }
 
 
@@ -162,7 +165,7 @@ def test_model_attention_refuses_a_query_block_over_a_cache():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     q, k = torch.zeros(1, 4, 4, 16), torch.zeros(1, 6, 2, 16)
-    for d in (12, 128):
+    for d in (12, 256):
         with pytest.raises(ValueError, match="head_dim"):
             flash_attention(torch.zeros(1, 4, 2, d), torch.zeros(1, 4, 2, d),
                             torch.zeros(1, 4, 2, d))

@@ -96,6 +96,7 @@ FLASH_CASES = [
     (1, 40, 24, 2, 2, 16, True, 8, None, 128, 16),   # rows with no visible key
     (2, 130, 130, 4, 4, 64, True, None, None, 128, 128),
     (1, 70, 70, 2, 2, 64, False, None, 20.0, 8, 64),
+    (2, 70, 70, 8, 2, 128, True, None, None, 128, 128),  # jamba's D and GQA group
 ]
 
 
@@ -217,6 +218,74 @@ def test_two_layer_rwkv_model_step_on_the_card():
     assert rwkv6_chunk_scan.launches == before + cfg.n_layers
     _, got_step, caches = decode(on_card, {"tokens": step.cuda()}, caches, n)
     for g_, w_ in ((got, want), (got_step, want_step), (caches[0]["s"], want_caches[0]["s"])):
+        assert torch.isfinite(g_).all()
+        err = (g_.cpu() - w_).abs().max() / w_.abs().max()
+        assert err.item() <= 1e-4
+
+
+# (B, S, C, N, chunk, bd)
+MAMBA_CASES = [(1, 1, 8, 4, 4, 8), (2, 37, 20, 8, 8, 16), (2, 40, 32, 4, 32, 128),
+               (1, 200, 300, 16, 64, 128), (2, 130, 520, 16, 32, 256), (3, 65, 100, 16, 16, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_kernel_matches_plain_version_on_the_card(dtype, with_h0):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.mamba_scan import launch_plan, mamba_scan, mamba_scan_plain_model
+
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for (b, s, ch, n, chunk, bd) in MAMBA_CASES:
+        def rand(*shape):
+            return torch.randn(*shape, generator=g, device="cuda")
+
+        x = rand(b, s, ch).to(dt_)
+        dt = torch.exp(0.5 * rand(b, s, ch) - 3.5).to(dt_)
+        a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda")[None].repeat(ch, 1)
+        proj = (0.5 * rand(b, s, 4 + 2 * n)).to(dt_)  # b and c: strided views
+        bm, cm = proj[..., 4:4 + n], proj[..., 4 + n:]
+        h0 = 0.1 * rand(b, ch, n) if with_h0 else None
+        before = mamba_scan.launches
+        y, h = mamba_scan(x, dt, a, bm, cm, chunk=chunk, bd=bd, h0=h0)
+        torch.cuda.synchronize()
+        assert mamba_scan.launches == before + 1
+        want_y, want_h = mamba_scan_plain_model(
+            x, dt, a, bm, cm, chunk=launch_plan(s, ch, chunk, bd)["l"], h0=h0)
+        # the JAX kernel test's tolerance; both widen to f32 at the load
+        torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_jamba_smoke_model_step_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.models import steps as S
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("jamba-v0.1-52b").smoke()  # one period: 7 Mamba layers, 1 attention
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = copy.deepcopy(params).to("cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, 70), generator=torch.Generator().manual_seed(1))
+    step = torch.randint(0, cfg.vocab, (2, 1), generator=torch.Generator().manual_seed(2))
+    prefill, decode = S.make_prefill_step(cfg, 71), S.make_decode_step(cfg)
+
+    want, caches, n = prefill(params, {"tokens": tokens})
+    _, want_step, want_caches = decode(params, {"tokens": step}, caches, n)
+    before = (mamba_scan.launches, flash_attention.launches)
+    got, caches, n = prefill(on_card, {"tokens": tokens.cuda()})
+    torch.cuda.synchronize()
+    assert (mamba_scan.launches, flash_attention.launches) == (before[0] + 7, before[1] + 1)
+    _, got_step, caches = decode(on_card, {"tokens": step.cuda()}, caches, n)
+    for g_, w_ in ((got, want), (got_step, want_step), (caches[0]["h"], want_caches[0]["h"])):
         assert torch.isfinite(g_).all()
         err = (g_.cpu() - w_).abs().max() / w_.abs().max()
         assert err.item() <= 1e-4

@@ -135,7 +135,7 @@ def test_other_archs_are_not_ported_yet():
         get_config("gemma2-27b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.init_params(dataclasses.replace(get_config("musicgen-large").smoke(),
-                                           period=(LayerSpec("mamba", DENSE),)),
+                                           period=(LayerSpec("cross_attn", DENSE),)),
                        None, "meta")
 
 
