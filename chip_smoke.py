@@ -9,13 +9,20 @@ line with its seconds:
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build  — nvcc builds the tiled-matmul, flash-attention, RWKV-6 scan and
    Mamba scan kernels from ``src/repro_torch`` and a copy of each scan
-   kernel with one term dropped (the mutation checks below), in parallel,
-   and reports ptxas' register lines;
+   kernel and of the flash kernel with one term dropped (the mutation
+   checks below), in parallel, and reports ptxas' register lines and the
+   number of HGMMA (wgmma) instructions in the flash library's SASS;
 3. kernel — the matmul kernel against its plain torch version on the card
    over a sweep of shapes, blocks, grid orders, dtypes and transposed B;
    attention — the flash-attention kernel against its plain version over
    the JAX kernel tests' shapes, windows, softcaps, bf16, head dim 128 with
-   GQA groups of 4 and the two models' own shapes;
+   GQA groups of 4, the tensor-core route's bf16 cases at head dims 64 and
+   128 (ragged S != T, GQA 4, blind rows, softcaps, every kv tile, a
+   strided q view) and the two models' own shapes, each case with its route
+   and the kernel's own launch plan held equal to ``launch_plan``; then a
+   mutation check: the tensor-core kernel with the accumulator's alpha
+   rescale dropped must put most of that route's multi-tile cases outside
+   their limit;
    rwkv_scan — the RWKV-6 chunked-scan kernel against its plain version over
    the JAX kernel tests' ranges (S 1-70, N 4/8/16, chunks 4/16/64, 1-4
    streams), N = 64 at chunks 64 and 128, a carried state, bf16 r/k/v and
@@ -72,7 +79,9 @@ line with its seconds:
    then the scan kernel at rwkv6-7b's prefill shape against its plain
    version and its bound (bytes vs the 4N^2 FLOP a token that any form of
    the recurrence does; no single PyTorch call computes the recurrence);
-   flash attention also at jamba's prefill shape (head dim 128, GQA 32/8);
+   flash attention also at jamba's prefill shape (head dim 128, GQA 32/8),
+   both bf16 on the tensor cores, and at musicgen's shape in f32 (the SIMT
+   route), each with its TFLOP/s;
    then the Mamba scan at jamba's prefill shape against its plain version
    and its bound (bytes, FP32 operations, or the exponentials at the SFU
    rate and the card's top SM clock, whichever is largest).
@@ -151,6 +160,8 @@ MAMBA_LAYER_LIMIT = 2e-3  # one f32 layer, prefill vs recurrence: tests/test_moe
 JAMBA_RECURRENCE_LIMIT = 0.11
 MAMBA_MUTANT_LINE = "const float decay = exp2f(dtv * a2[n]);  // e^{dt a_n}"
 SFU_EXP_PER_CLOCK = 16  # exponentials a clock per SM (sm_90's MUFU rate)
+FLASH_SWEEP = [(64, 64), (128, 64), (64, 32), (128, 32), (64, 16), (128, 16)]  # other "fa" blocks, timed
+FLASH_MUTANT_LINE = "acc[c][i] *= (i & 2) ? alpha1 : alpha0;  // the accumulator's alpha rescale"
 
 
 def kernel_wrappers() -> dict:
@@ -256,7 +267,8 @@ def phase_kernel(cases_f) -> None:
 
 
 def attention_cases() -> list:
-    """(B, S, T, H, HKV, D, causal, window, softcap, bq, bk, dtype)."""
+    """(B, S, T, H, HKV, D, causal, window, softcap, bq, bk, dtype, q_view);
+    ``q_view``: q is a strided view into a fused (B, S, 3, H, D) buffer."""
     cases, blocks = [], [(16, 16), (64, 128), (128, 128), (128, 16)]
     i = 0
     for s in (2, 17, 64, 130):          # the JAX sweep: S 2-130, D 8/16/32,
@@ -268,58 +280,120 @@ def attention_cases() -> list:
                         bq, bk = blocks[i % len(blocks)]
                         i += 1
                         cases.append((2, s, s, hkv * g, hkv, d, causal, None, None,
-                                      bq, bk, torch.float32))
+                                      bq, bk, torch.float32, False))
     for dt in (torch.float32, torch.bfloat16):
         for window, softcap in ((None, None), (8, None), (None, 20.0), (16, 50.0)):
-            cases.append((1, 48, 48, 4, 2, 16, True, window, softcap, 128, 128, dt))
-        cases += [(2, 20, 45, 2, 2, 8, False, None, None, 128, 128, dt),
-                  (1, 45, 20, 2, 1, 32, True, None, None, 128, 128, dt),
-                  (1, 40, 24, 2, 2, 16, True, 8, None, 128, 16, dt),  # rows see no key
-                  (1, 70, 70, 2, 2, 64, False, None, 20.0, 8, 64, dt)]
+            cases.append((1, 48, 48, 4, 2, 16, True, window, softcap, 128, 128, dt, False))
+        cases += [(2, 20, 45, 2, 2, 8, False, None, None, 128, 128, dt, False),
+                  (1, 45, 20, 2, 1, 32, True, None, None, 128, 128, dt, False),
+                  (1, 40, 24, 2, 2, 16, True, 8, None, 128, 16, dt, False),  # rows see no key
+                  (1, 70, 70, 2, 2, 64, False, None, 20.0, 8, 64, dt, False)]
     for dt in (torch.float32, torch.bfloat16):  # jamba's head dim and GQA group
-        cases += [(1, 70, 70, 8, 2, 128, True, None, None, 128, 128, dt),
-                  (2, 45, 45, 4, 1, 128, True, None, None, 64, 32, dt),
-                  (1, 33, 50, 4, 1, 128, False, None, None, 16, 16, dt)]
+        cases += [(1, 70, 70, 8, 2, 128, True, None, None, 128, 128, dt, False),
+                  (2, 45, 45, 4, 1, 128, True, None, None, 64, 32, dt, False),
+                  (1, 33, 50, 4, 1, 128, False, None, None, 16, 16, dt, False)]
+    cases += TC_CASES
     b, s, h, d = FA_SHAPE
-    cases.append((b, s, s, h, h, d, True, None, None, 128, 128, torch.bfloat16))
+    cases.append((b, s, s, h, h, d, True, None, None, 128, 128, torch.bfloat16, False))
     b, s, h, hkv, d = FA_JAMBA_SHAPE
-    cases.append((b, s, s, h, hkv, d, True, None, None, 128, 128, torch.bfloat16))
+    cases.append((b, s, s, h, hkv, d, True, None, None, 128, 128, torch.bfloat16, False))
     return cases
 
 
+# bf16 at D = 64 and 128, the tensor-core route: S and T off multiples of 64
+# and S != T, GQA 4, a window with rows that see no key, softcaps, a block
+# for each kv tile (bk 16, 32, 48 -> 64, 128 -> 128 at D = 128 and 64 at
+# D = 64) and q tile (64, 128), and q as a strided view, as a fused
+# projection would pass it
+TC_CASES = [(b, s, t, h, hkv, d, causal, window, softcap, bq, bk, torch.bfloat16, q_view)
+            for d in (64, 128)
+            for (b, s, t, h, hkv, causal, window, softcap, bq, bk, q_view) in (
+                (2, 100, 100, 4, 4, True, None, None, 128, 128, False),
+                (1, 70, 150, 8, 2, False, None, None, 64, 64, False),
+                (1, 150, 70, 8, 2, True, None, None, 128, 32, False),
+                (1, 120, 90, 4, 1, True, 24, None, 128, 16, False),    # rows 113-119 see no key
+                (2, 130, 130, 4, 2, True, None, 30.0, 64, 128, False),
+                (1, 200, 200, 4, 4, False, 40, 20.0, 16, 16, False),
+                (2, 96, 96, 8, 2, True, None, None, 128, 48, False),
+                (2, 77, 77, 8, 2, True, None, None, 128, 128, True))]
+
+
+def attention_case_check(case, g) -> dict:
+    """One case: the kernel against its plain version on the same inputs."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
+                                                     kernel_plan, launch_plan)
+
+    (b, s, t, h, hkv, d, causal, window, softcap, bq, bk, dt, q_view) = case
+    if q_view:
+        q = torch.randn(b, s, 3, h, d, generator=g, device="cuda").to(dt)[:, :, 0]
+    else:
+        q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+    k = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
+    v = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window, softcap=softcap, bq=bq, bk=bk)
+    out = flash_attention(q, k, v, **kw)
+    plain = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    lim = ATTN_LIMIT[dt]
+    diff = (out.float() - plain.float()).abs()
+    plan = launch_plan(s, t, bq, bk, d=d, dtype=dt)
+    if plan != kernel_plan(s, t, bq, bk, d=d, dtype=dt):
+        raise SystemExit(f"attention {case}: launch_plan {plan} is not the kernel's "
+                         f"{kernel_plan(s, t, bq, bk, d=d, dtype=dt)}")
+    # allclose(rtol=lim, atol=lim), as the JAX kernel tests hold it
+    return {"bsthd": [b, s, t, h, hkv, d], "causal": causal, "window": window,
+            "softcap": softcap, "block": [bq, bk], "dtype": str(dt), "q_view": q_view,
+            "plan": plan, "max_abs_err": diff.max().item(), "limit": lim,
+            "ratio_to_limit": (diff / (lim + lim * plain.float().abs())).max().item()}
+
+
 def phase_attention(cases_f) -> None:
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain, launch_plan)
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    worst, failures, routes = {}, [], {}
+    cases = attention_cases()
+    for case in cases:
+        c = attention_case_check(case, g)
+        cases_f.write(json.dumps({"attention": c}) + "\n")
+        key = c["dtype"].replace("torch.", "")
+        worst[key] = max(worst.get(key, 0.0), c["max_abs_err"])
+        route = c["plan"]["route"]
+        routes[route] = routes.get(route, 0) + 1
+        want = "wgmma" if case[11] == torch.bfloat16 and case[5] in (64, 128) else "simt"
+        if not c["ratio_to_limit"] <= 1.0 or route != want:
+            failures.append(c)
+    emit("attention", t0, cases=len(cases), routes=routes, worst_max_abs_err=worst,
+         limits={"float32": 3e-5, "bfloat16": 3e-2}, failures=failures[:5])
+    if failures:
+        raise SystemExit(f"{len(failures)} attention cases outside their limit or route")
+
+
+def phase_attention_mutant(cases_f, mutant: Path) -> None:
+    """The tensor-core kernel with the accumulator's alpha rescale dropped,
+    through the same wrapper, over every multi-tile case of that route: most
+    must fall outside their limit."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import _declare, launch_plan
 
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    worst, failures = {}, []
-    cases = attention_cases()
-    for (b, s, t, h, hkv, d, causal, window, softcap, bq, bk, dt) in cases:
-        q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
-        k = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
-        v = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
-        kw = dict(causal=causal, window=window, softcap=softcap, bq=bq, bk=bk)
-        out = flash_attention(q, k, v, **kw)
-        plain = flash_attention_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        lim = ATTN_LIMIT[dt]
-        diff = (out.float() - plain.float()).abs()
-        # allclose(rtol=lim, atol=lim), as the JAX kernel tests hold it
-        ratio = (diff / (lim + lim * plain.float().abs())).max().item()
-        case = {"bsthd": [b, s, t, h, hkv, d], "causal": causal, "window": window,
-                "softcap": softcap, "block": [bq, bk], "dtype": str(dt),
-                "plan": launch_plan(s, t, bq, bk), "max_abs_err": diff.max().item(),
-                "limit": lim, "ratio_to_limit": ratio}
-        cases_f.write(json.dumps({"attention": case}) + "\n")
-        key = str(dt).replace("torch.", "")
-        worst[key] = max(worst.get(key, 0.0), case["max_abs_err"])
-        if not ratio <= 1.0:
-            failures.append(case)
-    emit("attention", t0, cases=len(cases), worst_max_abs_err=worst,
-         limits={"float32": 3e-5, "bfloat16": 3e-2}, failures=failures[:5])
-    if failures:
-        raise SystemExit(f"{len(failures)} attention cases outside their limit")
+    picked = []
+    for case in attention_cases():
+        (b, s, t, h, hkv, d, causal, window, softcap, bq, bk, dt, q_view) = case
+        plan = launch_plan(s, t, bq, bk, d=d, dtype=dt)
+        if plan["route"] == "wgmma" and t > plan["kv_tile"]:
+            picked.append(case)
+    with _build.substitute("flash_attention", mutant, _declare):
+        mut = [attention_case_check(case, g) for case in picked]
+    for c in mut:
+        cases_f.write(json.dumps({"attention_mutant": c}) + "\n")
+    outside = sum(not c["ratio_to_limit"] <= 1.0 for c in mut)
+    emit("mutation", t0, kernel="flash_attention", dropped=FLASH_MUTANT_LINE,
+         wgmma_multi_tile_cases=len(mut), outside_limit=outside,
+         min_ratio_to_limit=min(c["ratio_to_limit"] for c in mut))
+    if not outside > len(mut) / 2:
+        raise SystemExit(f"flash mutant: only {outside} of {len(mut)} multi-tile "
+                         f"tensor-core cases outside their limit")
 
 
 def rwkv_cases() -> list:
@@ -1108,6 +1182,37 @@ def phase_model_jamba(out_dir: Path, mutant: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def flush_buffer() -> torch.Tensor:
+    """512 MiB to overwrite between timed launches: ten times L2, and long
+    enough on the device (~0.16 ms) that the host's launch overhead (up to
+    ~80 us a wrapper call) is hidden behind it and not timed."""
+    return torch.empty(512 * 1024 * 1024 // 4, device="cuda")
+
+
+def flash_device_ms(fn, reps: int = 10) -> float:
+    """Mean device ms of the flash kernel's rows in a ``torch.profiler``
+    chrome trace of ``reps`` back-to-back calls of ``fn``: the device's own
+    time, with no host time and no flush in it.  The mean is taken over the
+    rows the trace holds, which can be fewer than ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    path = ROOT / "chiprun_out" / "flash_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    durs = [float(e["dur"]) for e in events
+            if e.get("ph") == "X" and str(e.get("cat", "")).lower() in DEVICE_CATS
+            and "flash_fwd" in e.get("name", "")]
+    if not durs:
+        raise SystemExit("the trace holds no flash kernel")
+    return sum(durs) / len(durs) / 1e3
+
+
 def time_ms(fn, flush: torch.Tensor, reps: int) -> float:
     """Median ms of ``fn`` over ``reps`` launches, each after overwriting a
     buffer larger than L2 (a layer's weights are cold when it runs)."""
@@ -1133,7 +1238,7 @@ def phase_timing(registry, card: str, g) -> list:
 
     t0 = time.perf_counter()
     peak = F32_PEAK["pcie" if "PCIe" in card else "sxm"]
-    flush = torch.empty(64 * 1024 * 1024 // 4 * 2, device="cuda")  # 128 MiB
+    flush = flush_buffer()
     rows = []
     for (m, k, n) in CONTRACTIONS:
         entry = registry.get("mm", (m, k, n), hardware=current_hardware(), exact=True)
@@ -1170,47 +1275,59 @@ def phase_timing(registry, card: str, g) -> list:
     return rows
 
 
-def flash_timing_row(shape, card: str, g, flush) -> dict:
-    """Flash attention at a model's prefill shape (B, S, H, HKV, D), bf16,
-    causal: the kernel, its plain version, SDPA (yardstick only) and the
-    bound."""
+def flash_timing_row(shape, card: str, g, flush, dt=torch.bfloat16) -> dict:
+    """Flash attention at a model's prefill shape (B, S, H, HKV, D), causal:
+    the kernel, its plain version, SDPA (yardstick only) and the bound."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain, launch_plan)
 
     b, s, h, hkv, d = shape
-    q = torch.randn(b, s, h, d, generator=g, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda").to(torch.bfloat16)
-            for _ in range(2))
+    q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dt) for _ in range(2))
     out = flash_attention(q, k, v, causal=True)
     plain = flash_attention_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
     max_abs = (out.float() - plain.float()).abs().max().item()
-    if not max_abs <= 3e-2 + 3e-2 * plain.float().abs().max().item():
-        raise SystemExit(f"flash attention at {shape}: max abs err {max_abs}")
+    lim = ATTN_LIMIT[dt]
+    if not max_abs <= lim + lim * plain.float().abs().max().item():
+        raise SystemExit(f"flash attention at {shape} {dt}: max abs err {max_abs}")
     ms = time_ms(lambda: flash_attention(q, k, v, causal=True), flush, 20)
+    device_ms = flash_device_ms(lambda: flash_attention(q, k, v, causal=True))
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True), flush, 5)
+    # the same call at other "fa" blocks: what the block mapping moves
+    sweep = [{"block": list(blk), "plan": launch_plan(s, s, *blk, d=d, dtype=dt),
+              "ms": time_ms(lambda: flash_attention(q, k, v, causal=True, bq=blk[0], bk=blk[1]),
+                            flush, 20)}
+             for blk in FLASH_SWEEP] if dt == torch.bfloat16 else []
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA takes (B, H, S, D)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=hkv != h),
                          flush, 20)
-    bytes_ms = 2 * b * s * (h + hkv) * d * 2 / HBM_BYTES_PER_S * 1e3  # q, k, v, o once
-    flops = 4 * b * h * d * s * (s + 1) // 2                           # visible pairs only
-    ops_ms = flops / BF16_PEAK["pcie" if "PCIe" in card else "sxm"] * 1e3
-    return {"bshkd": list(shape), "dtype": "bfloat16", "causal": True,
-            "plan": launch_plan(s, s), "ms": ms, "plain_ms": plain_ms,
+    size = q.element_size()
+    bytes_ms = 2 * b * s * (h + hkv) * d * size / HBM_BYTES_PER_S * 1e3  # q, k, v, o once
+    flops = 4 * b * h * d * s * (s + 1) // 2                              # visible pairs only
+    peak = (BF16_PEAK if dt == torch.bfloat16 else F32_PEAK)["pcie" if "PCIe" in card else "sxm"]
+    ops_ms = flops / peak * 1e3
+    plan = launch_plan(s, s, d=d, dtype=dt)
+    return {"bshkd": list(shape), "dtype": str(dt).replace("torch.", ""), "causal": True,
+            "route": plan["route"], "plan": plan, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "block_sweep": sweep,
             "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "peak_flops": peak,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "tflops": flops / ms / 1e9, "max_abs_err": max_abs}
 
 
 def phase_flash_timing(card: str, g) -> list:
-    """Flash attention at musicgen-large's and jamba's prefill shapes."""
+    """Flash attention at musicgen-large's and jamba's prefill shapes in
+    bf16 (the tensor-core route, what the models run), and at musicgen's
+    shape in f32 (the SIMT route)."""
     t0 = time.perf_counter()
-    flush = torch.empty(64 * 1024 * 1024 // 4 * 2, device="cuda")  # 128 MiB
+    flush = flush_buffer()
     b, s, h, d = FA_SHAPE
     rows = [flash_timing_row(shape, card, g, flush) for shape in ((b, s, h, h, d),
                                                                   FA_JAMBA_SHAPE)]
+    rows.append(flash_timing_row((b, s, h, h, d), card, g, flush, torch.float32))
     del flush
     emit("timing_flash", t0, shapes=rows)
     return rows
@@ -1226,7 +1343,7 @@ def phase_rwkv_timing(card: str) -> dict:
     b, s, h, n = RWKV_SHAPE
     case = (b, s, h, n, RWKV_CHUNK, torch.bfloat16, True)
     r, k, v, logw, u, s0 = rwkv_inputs(case, SEED)
-    flush = torch.empty(64 * 1024 * 1024 // 4 * 2, device="cuda")  # 128 MiB
+    flush = flush_buffer()
     y, st = rwkv6_chunk_scan(r, k, v, logw, u, chunk=RWKV_CHUNK, s0=s0)
     yp, sp = rwkv_plain(r, k, v, logw, u, s0, RWKV_CHUNK)
     torch.cuda.synchronize()
@@ -1269,7 +1386,7 @@ def phase_mamba_timing(card: str) -> dict:
     case = (b, s, c, n, MAMBA_CHUNK, MAMBA_BD, torch.bfloat16, True)
     x, dt, a, bm, cm, h0 = mamba_inputs(case, SEED)
     plan = launch_plan(s, c, MAMBA_CHUNK, MAMBA_BD)
-    flush = torch.empty(64 * 1024 * 1024 // 4 * 2, device="cuda")  # 128 MiB
+    flush = flush_buffer()
     y, h = mamba_scan(x, dt, a, bm, cm, chunk=MAMBA_CHUNK, bd=MAMBA_BD, h0=h0)
     yp, hp = mamba_scan_plain_model(x, dt, a, bm, cm, chunk=plan["l"], h0=h0)
     torch.cuda.synchronize()
@@ -1326,14 +1443,16 @@ def main() -> int:
     emit("device", t0, nvidia_smi=smi, name=card, torch=torch.__version__,
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
-    # the mutation checks' copies of the scan kernels: the RWKV-6 scan with
-    # its u-bonus term dropped, the Mamba scan with the decay of each staged
-    # tile's first token dropped
+    # the mutation checks' copies of three kernels: the RWKV-6 scan with its
+    # u-bonus term dropped, the Mamba scan with the decay of each staged
+    # tile's first token dropped, the tensor-core flash kernel with the
+    # accumulator's alpha rescale dropped
     mutants = {}
     for name, line, repl in (
             ("rwkv6_scan", MUTANT_LINE, "(void)dg;  // mutation: u-bonus dropped"),
             ("mamba_scan", MAMBA_MUTANT_LINE,
-             "const float decay = i == 0 ? 1.f : exp2f(dtv * a2[n]);  // mutation")):
+             "const float decay = i == 0 ? 1.f : exp2f(dtv * a2[n]);  // mutation"),
+            ("flash_attention", FLASH_MUTANT_LINE, "(void)0;  // mutation: no alpha rescale")):
         mutants[name] = ROOT / "build" / "mutant" / f"{name}_mutant.cu"
         mutants[name].parent.mkdir(parents=True, exist_ok=True)
         src = (_build.CSRC / f"{name}.cu").read_text()
@@ -1344,15 +1463,25 @@ def main() -> int:
     t0 = time.perf_counter()
     names = ["matmul", "flash_attention", "rwkv6_scan", "mamba_scan"]
     _build.build_all(names + list(mutants.values()))  # one nvcc per source, all at once
+    sass = subprocess.run(
+        [str(Path(_build.nvcc()).parent / "cuobjdump"), "--dump-sass",
+         str(_build.build("flash_attention"))], capture_output=True, text=True, check=True).stdout
+    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    flash_log = str(_build.BUILD_INFO["flash_attention"]["log"]).splitlines()
     emit("build", t0, kernels=names,
          nvcc_s={n: round(float(_build.BUILD_INFO[n]["seconds"]), 3) for n in names},
          ptxas={n: sorted({ln.split(":")[-1].strip()
                            for ln in str(_build.BUILD_INFO[n]["log"]).splitlines()
-                           if "registers" in ln or "spill" in ln}) for n in names})
+                           if "registers" in ln or "spill" in ln}) for n in names},
+         flash_hgmma_in_sass=hgmma,
+         flash_wgmma_warnings=[ln.strip() for ln in flash_log if "wgmma" in ln.lower()])
+    if hgmma == 0:
+        raise SystemExit("the flash library's SASS holds no HGMMA instruction")
 
     with open(out_dir / "chip_smoke_cases.jsonl", "w") as cases_f:
         phase_kernel(cases_f)
         phase_attention(cases_f)
+        phase_attention_mutant(cases_f, mutants["flash_attention"])
         phase_rwkv_scan(cases_f)
         phase_mamba_scan(cases_f)
 
@@ -1387,6 +1516,7 @@ def main() -> int:
 
     rows = phase_timing(registry, card, g)
     fa = phase_flash_timing(card, g)
+    fa_main = [r for r in fa if r["dtype"] == "bfloat16"]
     rw = phase_rwkv_timing(card)
     mb = phase_mamba_timing(card)
     ops_total = sum(2 * r["mkn"][0] * r["mkn"][1] * r["mkn"][2] for r in rows)
@@ -1414,11 +1544,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:27",
         **launches("flash_attention"),
-        # one pass over musicgen-large's and jamba's prefill shapes
-        "max_abs_err": max(r["max_abs_err"] for r in fa),
-        **{k: sum(r[k] for r in fa) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        "bound_by": ("operations" if sum(r["ops_ms"] for r in fa) >= sum(r["bytes_ms"] for r in fa)
-                     else "bytes"),
+        # one pass over musicgen-large's and jamba's prefill shapes in bf16
+        # (the tensor-core route the models run); the f32 row is in "shapes"
+        "max_abs_err": max(r["max_abs_err"] for r in fa_main),
+        **{k: sum(r[k] for r in fa_main) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": ("operations" if sum(r["ops_ms"] for r in fa_main)
+                     >= sum(r["bytes_ms"] for r in fa_main) else "bytes"),
+        "routes": sorted({r["route"] for r in fa_main}),
         "shapes": fa,
     }, {
         "name": "rwkv6_scan",

@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the
 repository root (a directory ``.gitignore`` lists).  ``<hash>`` covers the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads the library already built.  Nothing here runs at import time: the CPU
-tests import every module on hosts with no ``nvcc``.
+source, every header it includes from ``csrc/`` (``#include "..."``,
+followed through headers), and the flags, so an edited source or header
+rebuilds and an unchanged one loads the library already built.  Nothing
+here runs at import time: the CPU tests import every module on hosts with
+no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,8 +49,35 @@ def _source(item: Union[str, Path]) -> Path:
     return item if isinstance(item, Path) else CSRC / f"{item}.cu"
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _headers(src: Path) -> List[Path]:
+    """The quoted headers ``src`` includes, and theirs, in the order first
+    met: each found beside the file that includes it, else in ``csrc/``
+    (where a mutant copy of a source finds them)."""
+    found: List[Path] = []
+    todo = [src]
+    while todo:
+        cur = todo.pop(0)
+        for name in _INCLUDE.findall(cur.read_bytes()):
+            rel = name.decode()
+            path = cur.parent / rel
+            if not path.exists():
+                path = CSRC / rel
+            if not path.exists():
+                raise FileNotFoundError(f"{cur.name} includes {rel!r}, found neither "
+                                        f"beside it nor in {CSRC}")
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
+
+
 def _lib_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in _headers(src):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
@@ -64,7 +94,7 @@ def build(item: Union[str, Path]) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)

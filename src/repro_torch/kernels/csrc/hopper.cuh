@@ -1,0 +1,198 @@
+// Hopper (sm_90a) building blocks, written by hand: 16-byte cp.async with
+// zero fill, the 128-byte shared-memory swizzle, wgmma matrix descriptors,
+// the warpgroup fences and wgmma.mma_async at bf16 x bf16 -> f32.  Header
+// only; a source that includes it is built for sm_90a (wgmma exists only
+// there).  `kernels/_build.py` hashes this header with every source that
+// includes it.
+//
+// Layouts.  A bf16 tile is kept in shared memory as column chunks of 64
+// values: rows of 128 bytes, 8 rows to a 1024-byte swizzle atom, the 16-byte
+// piece p of row r stored at piece p ^ (r % 8) (the hardware's 128-byte
+// swizzle: address bits [4, 7) xor bits [7, 10)).  Every chunk starts on a
+// 1024-byte boundary.  A 64-wide head dim is one chunk, a 128-wide one two.
+//   * K-major operand (Q as A, K as B of q·kᵀ: the reduced dim contiguous):
+//     8-row groups are SBO = 1024 bytes apart; LBO is unused under a swizzle
+//     (1 by convention).  The k-th 16-value step of the reduced dim is the
+//     chunk's start address + 32·k bytes (k < 4), then the next chunk.
+//   * MN-major operand (V as B of p·v: the output dim contiguous, the
+//     transpose bit set): a 64-value row of one chunk is one swizzle atom
+//     wide, so an n64 product never crosses atoms along N; 8-row groups
+//     along the reduced dim are 1024 bytes apart.  LBO (the stride between
+//     atoms along N) and SBO are both set to 1024, which is right whichever
+//     of the two the hardware reads for the 8-row step.  The k-th 16-row step
+//     is the chunk's start + 2048·k bytes.
+// Register layouts of m64nNk16 (warp w of the warpgroup, lane l, g = l / 4,
+// t = l % 4): accumulator register i holds row 16w + g + 8·((i >> 1) & 1),
+// column 8·(i >> 2) + 2t + (i & 1).  The A fragment of a register operand
+// (4 registers of 2 bf16) for k-step ks is the accumulator's registers
+// 8ks..8ks+7 packed in pairs, the lower column in the low half.
+#pragma once
+
+#include <cstdint>
+#include <cstring>
+
+#include <cuda_bf16.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes 16 zeros
+// (the source is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// this thread's generic-proxy writes to shared memory (cp.async's included)
+// become visible to the async proxy, through which wgmma reads its operands
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// byte offset of 16-byte piece p (0..7) of row r in a 128-byte-swizzled chunk
+__device__ __forceinline__ uint32_t sw128(int r, int p) {
+  return (uint32_t)(r * 128 + ((p ^ (r & 7)) << 4));
+}
+
+// wgmma shared-memory descriptor under the 128-byte swizzle: start address,
+// leading and stride byte offsets (all >> 4, 14 bits each), base offset 0
+// (atoms 1024-byte aligned), layout type 1 = SWIZZLE_128B at bits [62, 64)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) { return desc_sw128(addr, 16, 1024); }
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
+  return desc_sw128(addr, 1024, 1024);
+}
+
+// before the first wgmma of a batch: orders this warpgroup's register and
+// shared-memory writes before the asynchronous reads
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pins registers that an in-flight wgmma writes (an accumulator) or reads (a
+// register A operand) at this point of the program: the compiler may not move
+// their other uses across it, nor reuse them for anything else before it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// two f32 rounded to bf16 in one register, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  uint32_t r;
+  memcpy(&r, &v, sizeof(r));
+  return r;
+}
+
+// D (m64 x n16, f32) += A (m64 x k16) * B (k16 x n16), both bf16 from shared
+// memory through descriptors, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (m64 x n32, f32) += A (m64 x k16) * B (k16 x n32), both bf16 from shared
+// memory through descriptors, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (m64 x n64, f32) += A (m64 x k16) * B (k16 x n64), both bf16 from shared
+// memory through descriptors, both K-major
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (m64 x n64, f32) += A (m64 x k16, bf16 in registers, the accumulator's
+// fragment layout packed in pairs) * B (k16 x n64, bf16 from shared memory,
+// MN-major: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+}  // namespace hopper

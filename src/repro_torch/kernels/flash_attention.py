@@ -2,10 +2,27 @@
 
 :func:`flash_attention` launches the CUDA kernel in
 ``csrc/flash_attention.cu`` (see the note there: what it replaces, what
-bounds it on the card, how the ``(bq, bk)`` block maps onto a CTA tile and
-what a row with no visible key gets).  :func:`flash_attention_plain` is the
-same function in plain torch ops, the TPU kernel's blocked online softmax
-over kv blocks of ``bk``; the wrapper takes it only for CPU tensors.
+bounds it on the card and what a row with no visible key gets).
+:func:`flash_attention_plain` is the same function in plain torch ops, the
+TPU kernel's blocked online softmax over kv blocks of ``bk``; the wrapper
+takes it only for CPU tensors.
+
+Two routes, by (dtype, D) alone (:func:`launch_plan`): bf16 at D = 64 and
+128 (the models' head dims) runs on the tensor cores ("wgmma": wgmma for
+q·kᵀ and p·v, p rounded to bf16, K/V in a two-stage cp.async ring); f32 at
+every D and bf16 at D = 8, 16, 32 run the SIMT kernel ("simt"), since TF32
+products would miss the f32 limit of 3e-5.  The ``(bq, bk)`` block, clamped
+to (S, T), maps onto the CTA tile:
+
+* "wgmma": q tile 64 if bq <= 64 else 128 (one or two warpgroups of 64
+  rows), kv tile the power of two >= bk in [16, 4096 / D]: at most 64 keys
+  at D = 64 and 32 at D = 128, the largest tiles that keep a thread within
+  ~128 registers, so that two CTAs fit an SM (the note in the source has
+  the measurements);
+* "simt": q tile ``8·clamp(⌈bq/8⌉, 1, 8)``, kv tile ``16·clamp(⌈bk/16⌉, 1, 4)``.
+
+On both, ``bk`` also sets ``T_pad = ⌈T/bk⌉·bk``, what a row with no visible
+key is divided by.
 
 q is ``(B, S, H, D)``, k and v ``(B, T, HKV, D)`` with ``H % HKV == 0``
 (grouped-query heads); the output is ``(B, S, H, D)`` in q's dtype.
@@ -23,6 +40,8 @@ from . import _build
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the JAX kernel tests', musicgen-large's, jamba's
+TC_HEAD_DIMS = (64, 128)  # bf16 at these runs on the tensor cores
+TC_KV_CAP = 4096  # the tensor-core kv tile is at most TC_KV_CAP // D keys
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -30,7 +49,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.looptune_flash_attention.argtypes = (
         [p, p, p, p] + [i] * 6 + [ll] * 9 + [i, i, f, f, i, i, i, i, p])
     lib.looptune_flash_attention.restype = i
-    lib.looptune_flash_attention_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.looptune_flash_attention_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)]
     lib.looptune_flash_attention_plan.restype = i
 
 
@@ -129,6 +148,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     if not (q.stride(3) == k.stride(3) == v.stride(3) == 1):
         raise ValueError("flash_attention needs the head dim contiguous")
+    if launch_plan(s, t, bq, bk, d=d, dtype=q.dtype)["route"] == "wgmma":
+        check_aligned(q, k, v)
     # a window beyond S + T masks nothing more or less: clamp it into an int
     w = 0 if window is None else max(-(s + t), min(int(window), s + t))
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
@@ -153,10 +174,43 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
-def launch_plan(s: int, t: int, bq: int = 128, bk: int = 128) -> dict:
-    """The CTA tile a launch uses for block ``(bq, bk)`` and the padded kv
-    length that a row with no visible key is divided by."""
-    out = (ctypes.c_int * 3)()
-    if _lib().looptune_flash_attention_plan(s, t, bq, bk, out) != 0:
+def launch_plan(s: int, t: int, bq: int = 128, bk: int = 128, *, d: int,
+                dtype: torch.dtype) -> dict:
+    """The CTA tile a launch uses for block ``(bq, bk)`` at head dim ``d``
+    and ``dtype``, its route, and the padded kv length that a row with no
+    visible key is divided by.  Pure Python; the kernel computes the same
+    (``looptune_flash_attention_plan``, held equal on the card)."""
+    if min(s, t, bq, bk) < 1:
         raise ValueError(f"bad plan arguments {(s, t, bq, bk)}")
-    return {"q_tile": out[0], "kv_tile": out[1], "t_pad": out[2]}
+    bq, bk = min(bq, s), min(bk, t)
+    t_pad = -(-t // bk) * bk
+    if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
+        kv_tile = 16
+        while kv_tile < min(bk, TC_KV_CAP // d):
+            kv_tile *= 2
+        return {"route": "wgmma", "q_tile": 64 if bq <= 64 else 128, "kv_tile": kv_tile,
+                "t_pad": t_pad}
+    return {"route": "simt", "q_tile": 8 * max(1, min(-(-bq // 8), 8)),
+            "kv_tile": 16 * max(1, min(-(-bk // 16), 4)), "t_pad": t_pad}
+
+
+def kernel_plan(s: int, t: int, bq: int = 128, bk: int = 128, *, d: int,
+                dtype: torch.dtype) -> dict:
+    """The plan as the built kernel computes it (needs the library)."""
+    out = (ctypes.c_int * 4)()
+    if _lib().looptune_flash_attention_plan(s, t, bq, bk, d,
+                                            int(dtype == torch.bfloat16), out) != 0:
+        raise ValueError(f"bad plan arguments {(s, t, bq, bk)}")
+    return {"route": "wgmma" if out[3] else "simt", "q_tile": out[0], "kv_tile": out[1],
+            "t_pad": out[2]}
+
+
+def check_aligned(*tensors: torch.Tensor) -> None:
+    """The tensor-core route loads rows in 16-byte pieces: every base must be
+    16-byte aligned and every (b, s, h) stride a multiple of 8 elements.  A
+    view that is not raises; the wrapper makes no copy."""
+    for x in tensors:
+        if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
+            raise ValueError(f"the tensor-core flash kernel needs 16-byte aligned rows: "
+                             f"a view at offset {x.data_ptr() % 16} bytes with strides "
+                             f"{tuple(x.stride())} cannot be loaded")

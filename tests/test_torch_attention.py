@@ -22,7 +22,8 @@ from repro.models import layers as RL
 from repro_torch.core import ScheduleRegistry as TRegistry
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention import (check_aligned, flash_attention,
+                                                 flash_attention_plain, launch_plan)
 from repro_torch.models import layers as TL
 
 TOL = {"float32": 3e-5, "bfloat16": 3e-2}
@@ -181,3 +182,80 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q, k, k, bk=0)
     with pytest.raises(ValueError):
         flash_attention(q, k, k, softcap=0.0)
+
+
+# ---------------------------------------------------------------------------
+# launch plan: route and CTA tile by (dtype, D) and the "fa" block (pure Python)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 8, "simt"), (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"), (torch.float32, 8, "simt")])
+def test_launch_plan_route_by_dtype_and_head_dim(dtype, d, route):
+    assert launch_plan(1024, 1024, d=d, dtype=dtype)["route"] == route
+
+
+@pytest.mark.parametrize("block,tc64,tc128,simt", [
+    ((16, 16), (64, 16), (64, 16), (16, 16)),
+    ((64, 128), (64, 64), (64, 32), (64, 64)),
+    ((128, 128), (128, 64), (128, 32), (64, 64)),
+    ((128, 16), (128, 16), (128, 16), (64, 16)),
+    ((8, 64), (64, 64), (64, 32), (8, 64)),
+    ((100, 48), (128, 64), (128, 32), (64, 48)),
+    ((128, 32), (128, 32), (128, 32), (64, 32)),
+    ((512, 512), (128, 64), (128, 32), (64, 64))])
+def test_launch_plan_tile_for_block(block, tc64, tc128, simt):
+    for d, want in ((64, tc64), (128, tc128)):
+        tc = launch_plan(1024, 1024, *block, d=d, dtype=torch.bfloat16)
+        assert (tc["q_tile"], tc["kv_tile"]) == want
+    f32 = launch_plan(1024, 1024, *block, d=128, dtype=torch.float32)
+    assert (f32["q_tile"], f32["kv_tile"]) == simt
+
+
+@pytest.mark.parametrize("block,d,want", [((128, 128), 64, (128, 64)), ((128, 128), 128, (128, 32)),
+                                          ((64, 512), 64, (64, 64)), ((16, 100), 64, (64, 64)),
+                                          ((16, 100), 128, (64, 32)), ((16, 20), 128, (64, 32))])
+def test_launch_plan_caps_the_kv_tile_by_head_dim(block, d, want):
+    """The tensor-core kv tile is at most 4096 / D keys: 64 at D = 64, 32 at
+    D = 128 (two CTAs an SM)."""
+    plan = launch_plan(1024, 1024, *block, d=d, dtype=torch.bfloat16)
+    assert (plan["q_tile"], plan["kv_tile"]) == want
+
+
+@pytest.mark.parametrize("s,t,want", [
+    (20, 45, (64, 64)),     # bq clamps to 20, bk to 45 -> kv tile 64
+    (70, 30, (128, 32)),    # bk clamps to 30 -> 32
+    (1, 1, (64, 16)),
+    (200, 17, (128, 32))])
+def test_launch_plan_clamps_the_block_to_s_and_t(s, t, want):
+    plan = launch_plan(s, t, 128, 128, d=64, dtype=torch.bfloat16)
+    assert (plan["q_tile"], plan["kv_tile"]) == want
+    assert plan["t_pad"] == t  # bk clamped to T: one kv block, no padding
+
+
+@pytest.mark.parametrize("t,bk,t_pad", [(24, 16, 32), (24, 128, 24), (100, 48, 144),
+                                        (1024, 128, 1024), (45, 7, 49)])
+def test_launch_plan_t_pad_follows_the_registry_bk(t, bk, t_pad):
+    for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 128), (torch.float32, 16)):
+        assert launch_plan(40, t, 64, bk, d=d, dtype=dtype)["t_pad"] == t_pad
+
+
+def test_launch_plan_rejects_empty_arguments():
+    for args in ((0, 4, 1, 1), (4, 0, 1, 1), (4, 4, 0, 1), (4, 4, 1, 0)):
+        with pytest.raises(ValueError):
+            launch_plan(*args, d=64, dtype=torch.bfloat16)
+
+
+def test_tensor_core_route_refuses_misaligned_views():
+    """The wgmma route loads 16-byte pieces: a base off 16 bytes or a row
+    stride off 8 elements raises (the wrapper makes no copy)."""
+    base = torch.zeros(2, 10, 3, 4, 64, dtype=torch.bfloat16)
+    check_aligned(base[:, :, 0], base[:, :, 1], base[:, :, 2])  # a fused qkv buffer
+    flat = torch.zeros(2 * 10 * 4 * 64 + 4, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        check_aligned(flat[4:].view(2, 10, 4, 64))          # base 8 bytes off
+    odd = torch.zeros(2, 10, 4, 68, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        check_aligned(odd)                                  # head stride 68

@@ -86,18 +86,31 @@ def test_tuned_einsum_routes_to_the_kernel_on_the_card():
         assert err.item() <= 1e-5
 
 
-# (B, S, T, H, HKV, D, causal, window, softcap, bq, bk)
+# (B, S, T, H, HKV, D, causal, window, softcap, bq, bk, q_view); q_view: q is
+# a strided view into a fused (B, S, 3, H, D) buffer, as a fused projection
+# would pass it
 FLASH_CASES = [
-    (2, 37, 37, 4, 4, 16, True, None, None, 128, 128),
-    (1, 45, 20, 2, 1, 32, True, None, None, 128, 128),
-    (2, 20, 45, 2, 2, 8, False, None, None, 16, 16),
-    (1, 48, 48, 4, 2, 16, True, 8, None, 128, 128),
-    (1, 48, 48, 4, 2, 16, True, 16, 50.0, 32, 48),
-    (1, 40, 24, 2, 2, 16, True, 8, None, 128, 16),   # rows with no visible key
-    (2, 130, 130, 4, 4, 64, True, None, None, 128, 128),
-    (1, 70, 70, 2, 2, 64, False, None, 20.0, 8, 64),
-    (2, 70, 70, 8, 2, 128, True, None, None, 128, 128),  # jamba's D and GQA group
-]
+    (2, 37, 37, 4, 4, 16, True, None, None, 128, 128, False),
+    (1, 45, 20, 2, 1, 32, True, None, None, 128, 128, False),
+    (2, 20, 45, 2, 2, 8, False, None, None, 16, 16, False),
+    (1, 48, 48, 4, 2, 16, True, 8, None, 128, 128, False),
+    (1, 48, 48, 4, 2, 16, True, 16, 50.0, 32, 48, False),
+    (1, 40, 24, 2, 2, 16, True, 8, None, 128, 16, False),   # rows with no visible key
+    (2, 130, 130, 4, 4, 64, True, None, None, 128, 128, False),
+    (1, 70, 70, 2, 2, 64, False, None, 20.0, 8, 64, False),
+    (2, 70, 70, 8, 2, 128, True, None, None, 128, 128, False),  # jamba's D and GQA group
+] + [  # the tensor-core route's (bf16 at D = 64, 128): ragged S != T, GQA 4,
+    # a window with blind rows, softcaps, every kv tile (bk 16, 32, 48 -> 64,
+    # 128 -> 128 at D = 128) and q tile (bq <= 64, > 64), a strided q view
+    (b, s, t, h, hkv, d, causal, window, softcap, bq, bk, q_view)
+    for d in (64, 128)
+    for (b, s, t, h, hkv, causal, window, softcap, bq, bk, q_view) in (
+        (1, 70, 150, 8, 2, False, None, None, 64, 64, False),
+        (1, 150, 70, 8, 2, True, None, None, 128, 32, False),
+        (1, 120, 90, 4, 1, True, 24, None, 128, 16, False),   # rows 113-119 see no key
+        (2, 130, 130, 4, 2, True, None, 30.0, 64, 128, False),
+        (2, 96, 96, 8, 2, True, None, None, 100, 48, False),
+        (2, 77, 77, 8, 2, True, None, None, 128, 128, True))]
 
 
 @pytest.mark.cuda
@@ -105,16 +118,24 @@ FLASH_CASES = [
 def test_flash_kernel_matches_plain_version_on_the_card(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
+                                                     kernel_plan, launch_plan)
 
     dt = getattr(torch, dtype)
     tol = 3e-5 if dtype == "float32" else 3e-2
     g = torch.Generator(device="cuda").manual_seed(0)
-    for (b, s, t, h, hkv, d, causal, window, softcap, bq, bk) in FLASH_CASES:
-        q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+    for (b, s, t, h, hkv, d, causal, window, softcap, bq, bk, q_view) in FLASH_CASES:
+        if q_view:
+            q = torch.randn(b, s, 3, h, d, generator=g, device="cuda").to(dt)[:, :, 0]
+        else:
+            q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
         k = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
         v = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
         kw = dict(causal=causal, window=window, softcap=softcap, bq=bq, bk=bk)
+        plan = launch_plan(s, t, bq, bk, d=d, dtype=dt)
+        assert plan == kernel_plan(s, t, bq, bk, d=d, dtype=dt)  # the kernel's own plan
+        tensor_core = dtype == "bfloat16" and d in (64, 128)
+        assert plan["route"] == ("wgmma" if tensor_core else "simt")
         before = flash_attention.launches
         out = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()

@@ -1,7 +1,9 @@
 """The port's kernel layer on the CPU: the tiled matmul's plain version over
 a shape/block/order sweep with tails, ``_parse_matmul_spec`` and
-``tuned_einsum``'s counters against the JAX package's.  The kernel itself
-is held against its plain version in ``test_torch_cuda.py``."""
+``tuned_einsum``'s counters against the JAX package's, and the kernel
+build's library path (its hash of the headers a source includes).  The
+kernels themselves are held against their plain versions in
+``test_torch_cuda.py``."""
 import numpy as np
 import pytest
 import torch
@@ -116,3 +118,31 @@ def test_tuned_einsum_counts_and_values_match(spec, b_shape):
     assert t_stats["routed"] == 1  # kernel="on" forces the route on the CPU
     np.testing.assert_allclose(t_out.numpy(), np.asarray(r_out), rtol=2e-5, atol=2e-5)
     np.testing.assert_allclose(t_on.numpy(), np.asarray(r_out), rtol=2e-5, atol=2e-5)
+
+
+def test_lib_path_hashes_the_headers_a_source_includes(tmp_path):
+    """An edited header a source includes (``#include "..."``, followed
+    through headers) changes the library path, so no stale library loads;
+    a mutant copy elsewhere finds its headers in ``csrc/``."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "outer.cuh").write_text('#include "inner.cuh"\n')
+    (tmp_path / "inner.cuh").write_text("// v1\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cuda_runtime.h>\n#include "outer.cuh"\nint f() { return 0; }\n')
+    assert _build._headers(src) == [tmp_path / "outer.cuh", tmp_path / "inner.cuh"]
+    first = _build._lib_path(src)
+    assert first == _build._lib_path(src) and first.parent == _build.BUILD_DIR
+    (tmp_path / "inner.cuh").write_text("// v2\n")
+    second = _build._lib_path(src)
+    assert second != first and second.name.startswith("libk-")
+    # the flash kernel's source includes csrc/hopper.cuh; a copy of it in
+    # another directory resolves the header in csrc/ and hashes alike
+    flash = _build.CSRC / "flash_attention.cu"
+    assert _build._headers(flash) == [_build.CSRC / "hopper.cuh"]
+    copy = tmp_path / "flash_attention.cu"
+    copy.write_bytes(flash.read_bytes())
+    assert _build._lib_path(copy) == _build._lib_path(flash)
+    (tmp_path / "bad.cu").write_text('#include "missing.cuh"\n')
+    with pytest.raises(FileNotFoundError, match="missing.cuh"):
+        _build._lib_path(tmp_path / "bad.cu")
