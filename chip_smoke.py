@@ -9,11 +9,20 @@ line with its seconds:
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build  — nvcc builds the tiled-matmul, flash-attention, RWKV-6 scan and
    Mamba scan kernels from ``src/repro_torch`` and a copy of each scan
-   kernel and of the flash kernel with one term dropped (the mutation
-   checks below), in parallel, and reports ptxas' register lines and the
-   number of HGMMA (wgmma) instructions in the flash library's SASS;
+   kernel, of the flash kernel and of the matmul with one term dropped (the
+   mutation checks below), in parallel, and reports ptxas' register lines
+   and the number of HGMMA (wgmma) instructions in the flash and matmul
+   libraries' SASS;
 3. kernel — the matmul kernel against its plain torch version on the card
-   over a sweep of shapes, blocks, grid orders, dtypes and transposed B;
+   over a sweep of shapes, blocks, grid orders, dtypes and transposed B,
+   then its tensor-core route's bf16 cases (musicgen-large's six shapes at
+   the thin blocks an f32-timed search picked for the model and at 128^3,
+   every (m tile, n tile) pair, ragged M,
+   N and K off multiples of 64, both B layouts, f32 and bf16 out), each case
+   with its route and the kernel's own launch plan held equal to
+   ``launch_plan``; then a mutation check: the matmul with its last 64-value
+   k chunk dropped must put every tensor-core case with K > 64 outside its
+   limit;
    attention — the flash-attention kernel against its plain version over
    the JAX kernel tests' shapes, windows, softcaps, bf16, head dim 128 with
    GQA groups of 4, the tensor-core route's bf16 cases at head dims 64 and
@@ -47,7 +56,9 @@ line with its seconds:
    model's shapes, against ``matmul_plain`` at the record's block; the last
    logits and first decode logits against the same steps with
    ``registry=None`` (dense on ``torch.matmul``), and one prefill wave and
-   one decode step are traced with ``torch.profiler``;
+   one decode step are traced with ``torch.profiler``.  Every launch of
+   that path, the bf16 tune's rewards and every serving call, must take the
+   tensor-core route;
    model_rwkv — the third path: rwkv6-7b at full width (32 layers, d_model
    4096, bf16, random weights from a seed) served by ``serve_once``: every
    prefill time-mix launches the scan kernel.  Then the prefill of a
@@ -74,6 +85,9 @@ line with its seconds:
 6. timing — per contraction: the kernel at its tuned block and at 128^3,
    the plain version, ``torch.matmul`` (the library yardstick only), and
    the bound (bytes over 3.35 TB/s vs FP32 operations over the FP32 peak);
+   then the six contractions in bf16 at the model's tuned records, on the
+   tensor-core route, with the profiler's device time, TFLOP/s and the bf16
+   bound (bytes vs operations at 989 TFLOP/s);
    then flash attention at the model's prefill shape against its plain
    version, ``scaled_dot_product_attention`` (yardstick only) and its bound;
    then the scan kernel at rwkv6-7b's prefill shape against its plain
@@ -162,6 +176,23 @@ MAMBA_MUTANT_LINE = "const float decay = exp2f(dtv * a2[n]);  // e^{dt a_n}"
 SFU_EXP_PER_CLOCK = 16  # exponentials a clock per SM (sm_90's MUFU rate)
 FLASH_SWEEP = [(64, 64), (128, 64), (64, 32), (128, 32), (64, 16), (128, 16)]  # other "fa" blocks, timed
 FLASH_MUTANT_LINE = "acc[c][i] *= (i & 2) ? alpha1 : alpha0;  // the accumulator's alpha rescale"
+MATMUL_MUTANT_LINE = "const int kchunks = (a.K + kChunk - 1) / kChunk;  // 64-value chunks of K"
+# the tensor-core route's f32-out limit: the products of bf16 values are
+# exact in f32, but the tensor cores add them into the f32 accumulator with
+# truncation rather than round to nearest, so the error grows with K: the
+# route read up to 3.7e-6 at K = 2048 and 1.17e-5 at K = 8192 against the
+# plain version (the SIMT route 3.7e-6 there; PERF.md §2).  This limit is
+# about 2.5 times the K = 8192 reading.  The SIMT route keeps 1e-5, and bf16
+# out is 1e-2 on both
+TC_F32_LIMIT = 3e-5
+
+
+def reset_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+    from repro_torch.kernels.matmul import matmul
+
+    matmul.route_launches = {"wgmma": 0, "simt": 0}
 
 
 def kernel_wrappers() -> dict:
@@ -174,11 +205,6 @@ def kernel_wrappers() -> dict:
 
     return {"tiled_matmul": matmul, "flash_attention": flash_attention,
             "rwkv6_scan": rwkv6_chunk_scan, "mamba_scan": mamba_scan}
-
-
-def reset_launches() -> None:
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
 
 
 def read_launches() -> dict:
@@ -210,10 +236,13 @@ def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
             / ref.abs().max().clamp_min(1e-30)).item()
 
 
-def limit_for(out_dtype) -> float:
+def limit_for(out_dtype, route: str = "simt") -> float:
     # both accumulate in f32, only the order of summation differs; a bf16
-    # output rounds to 8 bits of mantissa (tests/test_kernels.py's 1e-2)
-    return 1e-5 if out_dtype == torch.float32 else 1e-2
+    # output rounds to 8 bits of mantissa (tests/test_kernels.py's 1e-2);
+    # the tensor cores' truncating f32 accumulation has its own f32 limit
+    if out_dtype != torch.float32:
+        return 1e-2
+    return TC_F32_LIMIT if route == "wgmma" else 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -228,42 +257,103 @@ DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
           (torch.bfloat16, torch.float32)]
 
 
+# the tensor-core route's bf16 cases: musicgen-large's six contractions at
+# the thin blocks an f32-timed search picked for the model (one output
+# element a block) and at 128^3, then ragged M with N and K multiples of 8
+# but not of 64 at blocks that reach every (m tile, n tile) pair
+MODEL_BLOCKS = [(1, 2048, 1), (4, 2048, 1), (1, 8192, 1), (128, 128, 128)]
+TC_BLOCKS = [(64, 64, 64), (64, 128, 128), (32, 256, 256), (128, 64, 64), (128, 128, 128),
+             (128, 256, 256)]
+
+
+def matmul_cases() -> list:
+    """(m, k, n, (bm, bk, bn), grid order, in dtype, out dtype, trans_b):
+    the sweep of both routes, then the tensor-core route's bf16 cases."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(m, k, n, blk, order, dt, odt, trans_b)
+             for (m, k, n) in SHAPES for blk in BLOCKS for order in ("mn", "nm")
+             for dt, odt in DTYPES for trans_b in (False, True)]
+    cases += [(m, k, n, blk, "mn", bf16, odt, trans_b)
+              for (m, k, n) in CONTRACTIONS for blk in MODEL_BLOCKS
+              for odt in (bf16, f32) for trans_b in (False, True)]
+    cases += [(m, k, n, blk, ("mn", "nm")[i % 2], bf16, odt, trans_b)
+              for m in (1, 4, 33, 200) for (k, n) in ((200, 1000), (1000, 200), (8, 72))
+              for i, blk in enumerate(TC_BLOCKS) for odt in (bf16, f32)
+              for trans_b in (False, True)]
+    return cases
+
+
+def matmul_case_check(case, g) -> dict:
+    """One case: the kernel against its plain version on the same inputs,
+    its route, and the kernel's own plan against ``launch_plan``."""
+    from repro_torch.kernels.matmul import kernel_plan, launch_plan, matmul, matmul_plain
+
+    m, k, n, (bm, bk, bn), order, dt, odt, trans_b = case
+    a = torch.randn(m, k, generator=g, device="cuda").to(dt)
+    b = torch.randn(*((n, k) if trans_b else (k, n)), generator=g, device="cuda").to(dt)
+    kw = dict(bm=bm, bk=bk, bn=bn, grid_order=order, out_dtype=odt, trans_b=trans_b)
+    out = matmul(a, b, **kw)
+    plain = matmul_plain(a, b, **kw)
+    torch.cuda.synchronize()
+    plan = launch_plan(m, k, n, bm, bk, bn, order, dtype=dt)
+    want = "wgmma" if dt == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 else "simt"
+    return {"mkn": [m, k, n], "block": [bm, bk, bn], "order": order, "in": str(dt),
+            "out": str(odt), "trans_b": trans_b, "route": plan["route"], "want_route": want,
+            "plan": plan,
+            "plan_is_kernels": plan == kernel_plan(m, k, n, bm, bk, bn, order, dtype=dt),
+            "rel_err": rel_err(out, plain), "limit": limit_for(odt, plan["route"])}
+
+
 def phase_kernel(cases_f) -> None:
-    from repro_torch.kernels.matmul import launch_plan, matmul, matmul_plain
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, worst, failures, routes = [], {}, [], {}
+    for case in matmul_cases():
+        row = matmul_case_check(case, g)
+        cases_f.write(json.dumps(row) + "\n")
+        rows.append(row)
+        key = f"{row['in']}->{row['out']} {row['route']}".replace("torch.", "")
+        worst[key] = max(worst.get(key, 0.0), row["rel_err"])
+        routes[row["route"]] = routes.get(row["route"], 0) + 1
+        if not (row["rel_err"] <= row["limit"] and row["route"] == row["want_route"]
+                and row["plan_is_kernels"]):
+            failures.append(row)
+    tc_f32 = [r["rel_err"] for r in rows
+              if r["route"] == "wgmma" and r["out"] == "torch.float32"]
+    emit("kernel", t0, cases=len(rows), routes=routes, worst_rel_err=worst,
+         limits={"float32_out_simt": 1e-5, "float32_out_wgmma": TC_F32_LIMIT,
+                 "bfloat16_out": 1e-2},
+         wgmma_f32_out_worst_at_k8192=max(
+             r["rel_err"] for r in rows if r["route"] == "wgmma"
+             and r["out"] == "torch.float32" and r["mkn"][1] == 8192),
+         wgmma_f32_out_over_1e5=sum(e > 1e-5 for e in tc_f32),
+         wgmma_f32_out_cases=len(tc_f32), failures=failures[:5])
+    if failures:
+        raise SystemExit(f"{len(failures)} kernel cases outside their limit, route or plan")
+
+
+def phase_matmul_mutant(cases_f, mutant: Path) -> None:
+    """The matmul with its tensor-core k loop one 64-value chunk short,
+    through the same wrapper: every tensor-core case with K > 64 must fall
+    outside its limit."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.matmul import _declare, launch_plan
 
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    n_cases, worst, failures = 0, {}, []
-    for (m, k, n) in SHAPES:
-        for (bm, bk, bn) in BLOCKS:
-            for order in ("mn", "nm"):
-                for dt, odt in DTYPES:
-                    for trans_b in (False, True):
-                        a = torch.randn(m, k, generator=g, device="cuda").to(dt)
-                        b = torch.randn(*((n, k) if trans_b else (k, n)),
-                                        generator=g, device="cuda").to(dt)
-                        kw = dict(bm=bm, bk=bk, bn=bn, grid_order=order,
-                                  out_dtype=odt, trans_b=trans_b)
-                        out = matmul(a, b, **kw)
-                        plain = matmul_plain(a, b, **kw)
-                        torch.cuda.synchronize()
-                        err = rel_err(out, plain)
-                        lim = limit_for(odt)
-                        case = {"mkn": [m, k, n], "block": [bm, bk, bn],
-                                "order": order, "in": str(dt), "out": str(odt),
-                                "trans_b": trans_b, "rel_err": err, "limit": lim,
-                                "plan": launch_plan(m, n, bm, bn, order)}
-                        cases_f.write(json.dumps(case) + "\n")
-                        key = f"{dt}->{odt}".replace("torch.", "")
-                        worst[key] = max(worst.get(key, 0.0), err)
-                        n_cases += 1
-                        if not err <= lim:
-                            failures.append(case)
-    emit("kernel", t0, cases=n_cases, worst_rel_err=worst,
-         limits={"float32_out": 1e-5, "bfloat16_out": 1e-2},
-         failures=failures[:5])
-    if failures:
-        raise SystemExit(f"{len(failures)} kernel cases outside their limit")
+    picked = [c for c in matmul_cases() if c[1] > 64
+              and launch_plan(c[0], c[1], c[2], *c[3], c[4], dtype=c[5])["route"] == "wgmma"]
+    with _build.substitute("matmul", mutant, _declare):
+        mut = [matmul_case_check(case, g) for case in picked]
+    for row in mut:
+        cases_f.write(json.dumps({"matmul_mutant": row}) + "\n")
+    outside = sum(not r["rel_err"] <= r["limit"] for r in mut)
+    emit("mutation", t0, kernel="tiled_matmul", dropped=MATMUL_MUTANT_LINE,
+         wgmma_cases_k_over_64=len(mut), outside_limit=outside,
+         min_ratio_to_limit=min(r["rel_err"] / r["limit"] for r in mut))
+    if outside != len(mut):
+        raise SystemExit(f"matmul mutant: only {outside} of {len(mut)} tensor-core cases "
+                         f"with K > 64 outside their limit")
 
 
 def attention_cases() -> list:
@@ -685,7 +775,7 @@ def device_times(prof, wall_s: float, path: Path) -> dict:
         spans.append((start, start + dur))
         name = e.get("name", "")
         key = ("flash_attention" if "flash_fwd" in name else
-               "tiled_matmul" if "tiled_matmul" in name else
+               "tiled_matmul" if "tiled_matmul" in name or "tc_matmul" in name else
                "rwkv6_scan" if "rwkv6_scan" in name else
                "mamba_scan" if "mamba_scan" in name else "other")
         by[key] += dur / 1e3
@@ -713,7 +803,7 @@ def record_checks(registry, g) -> list:
     ``matmul_plain`` on the same operands at the record's block."""
     from repro_torch.core.registry import current_hardware
     from repro_torch.kernels import ops
-    from repro_torch.kernels.matmul import matmul_plain
+    from repro_torch.kernels.matmul import launch_plan, matmul_plain
 
     bf16, rows = torch.bfloat16, []
     for m, seq in ((DECODE_M, 1), (PREFILL_M, PREFILL_M // DECODE_M)):
@@ -736,9 +826,11 @@ def record_checks(registry, g) -> list:
                                  out_dtype=odt or bf16, trans_b=trans_b)
             torch.cuda.synchronize()
             odt = odt or bf16
+            route = launch_plan(m, k, n, block["m"], block["k"], block["n"], order,
+                                dtype=bf16)["route"]
             rows.append({"spec": spec, "mkn": [m, k, n], "out": str(odt),
                          "block": [block["m"], block["k"], block["n"]], "order": order,
-                         "routed": routed, "limit": limit_for(odt),
+                         "route": route, "routed": routed, "limit": limit_for(odt, route),
                          "rel_err": rel_err(out.reshape(m, n), plain)})
     return rows
 
@@ -800,9 +892,12 @@ def model_agreement(cfg, registry, out_dir: Path) -> dict:
             "traces": traces}
 
 
-def phase_model(out_dir: Path) -> dict:
+def phase_model(out_dir: Path) -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.core import LoopTuner, matmul_benchmark
+    from repro_torch.core.registry import current_hardware
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.matmul import launch_plan, matmul
     from repro_torch.launch import serve as SV
 
     t0 = time.perf_counter()
@@ -815,13 +910,23 @@ def phase_model(out_dir: Path) -> dict:
                     dtypes=["bfloat16"] * n, weights=[1.0] * n,
                     budget_s=TUNE_BUDGET_S * n, eval_budget=TUNE_MAX_EVALS * n)
     tune_s, tune_launches = time.perf_counter() - t0, read_launches()["tiled_matmul"]
+    tune_routes = dict(matmul.route_launches)
     summary = SV.serve_once(cfg, seed=SEED, registry=tuner.registry, device="cuda",
                             **SERVE)
     launches = read_launches()  # ... and ends here
+    serve_routes = {r: matmul.route_launches[r] - tune_routes[r] for r in tune_routes}
     peak_bytes = torch.cuda.max_memory_allocated()
     stats = summary["registry"]["serving"]
     waves = summary["prefill_waves"]
     records = record_checks(tuner.registry, torch.Generator(device="cuda").manual_seed(SEED))
+    tuned = {}
+    for mkn in CONTRACTIONS:
+        block, order = ops._entry_schedule(tuner.registry.get(
+            "mm", mkn, "bfloat16", hardware=current_hardware(), exact=True))
+        blk = (block["m"], block["k"], block["n"])
+        tuned["x".join(map(str, mkn))] = {
+            "block": list(blk), "grid_order": order,
+            "plan": launch_plan(*mkn, *blk, order, dtype=torch.bfloat16)}
     agree = model_agreement(cfg, tuner.registry, out_dir)
     worst = max(agree["prefill_last_logits_rel_err"], agree["decode_logits_rel_err"])
     row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -837,8 +942,8 @@ def phase_model(out_dir: Path) -> dict:
            "tokens_per_s": summary["tokens_per_s"],
            "max_memory_allocated": peak_bytes,
            "hits": stats["hits"], "misses": stats["misses"], "routed": stats["routed"],
-           "tuned_blocks": {"x".join(map(str, mkn)): tuner.registry.get(
-               "mm", mkn, "bfloat16")["block"] for mkn in CONTRACTIONS},
+           "tune_route_launches": tune_routes, "serve_route_launches": serve_routes,
+           "tuned_blocks": tuned,
            "logits_finite": summary["logits_finite"] and agree["finite"],
            "records": records,
            "worst_rel_err_vs_registry_none": worst, "limit": MODEL_LIMIT,
@@ -846,14 +951,19 @@ def phase_model(out_dir: Path) -> dict:
                                     "decode_logits_rel_err", "traces")}}
     emit("model", t0, **row)
     checks = {
-        "every record: kernel vs plain within limit_for, routed once":
-            all(r["rel_err"] <= r["limit"] and r["routed"] == 1 for r in records),
+        "every record: kernel vs plain within limit_for, routed once, on wgmma":
+            all(r["rel_err"] <= r["limit"] and r["routed"] == 1 and r["route"] == "wgmma"
+                for r in records),
         "misses == 0": stats["misses"] == 0,
         "routed == hits > 0": stats["routed"] == stats["hits"] > 0,
         "flash launches == layers x waves":
             launches["flash_attention"] == cfg.n_layers * waves > 0,
         "matmul launches while serving == routed":
             launches["tiled_matmul"] - tune_launches == stats["routed"],
+        "every reward launch of the bf16 tune on wgmma":
+            tune_routes == {"wgmma": tune_launches, "simt": 0} and tune_launches > 0,
+        "every serving launch on wgmma":
+            serve_routes == {"wgmma": stats["routed"], "simt": 0},
         "no scan launches": launches["rwkv6_scan"] == 0,
         "every logit finite": row["logits_finite"],
         f"tuned vs registry=None <= {MODEL_LIMIT}": worst <= MODEL_LIMIT,
@@ -861,7 +971,7 @@ def phase_model(out_dir: Path) -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise SystemExit(f"model phase failed: {bad}")
-    return row
+    return row, tuner.registry
 
 
 # ---------------------------------------------------------------------------
@@ -1189,11 +1299,12 @@ def flush_buffer() -> torch.Tensor:
     return torch.empty(512 * 1024 * 1024 // 4, device="cuda")
 
 
-def flash_device_ms(fn, reps: int = 10) -> float:
-    """Mean device ms of the flash kernel's rows in a ``torch.profiler``
-    chrome trace of ``reps`` back-to-back calls of ``fn``: the device's own
-    time, with no host time and no flush in it.  The mean is taken over the
-    rows the trace holds, which can be fewer than ``reps``."""
+def kernel_device_ms(fn, name: str, reps: int = 10) -> float:
+    """Mean device ms of the rows of the kernel whose name holds ``name`` in
+    a ``torch.profiler`` chrome trace of ``reps`` back-to-back calls of
+    ``fn``: the device's own time, with no host time and no flush in it.
+    The mean is taken over the rows the trace holds, which can be fewer than
+    ``reps``."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -1201,15 +1312,15 @@ def flash_device_ms(fn, reps: int = 10) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    path = ROOT / "chiprun_out" / "flash_trace.json"
+    path = ROOT / "build" / "kernel_trace.json"
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
     durs = [float(e["dur"]) for e in events
             if e.get("ph") == "X" and str(e.get("cat", "")).lower() in DEVICE_CATS
-            and "flash_fwd" in e.get("name", "")]
+            and name in e.get("name", "")]
     if not durs:
-        raise SystemExit("the trace holds no flash kernel")
+        raise SystemExit(f"the trace holds no {name} kernel")
     return sum(durs) / len(durs) / 1e3
 
 
@@ -1262,7 +1373,8 @@ def phase_timing(registry, card: str, g) -> list:
         ops_ms = 2 * m * k * n / peak * 1e3
         bytes_ms = (m * k + k * n + m * n) * 4 / HBM_BYTES_PER_S * 1e3
         row = {"mkn": [m, k, n], "block": [blk["m"], blk["k"], blk["n"]],
-               "grid_order": order, "plan": launch_plan(m, n, blk["m"], blk["n"], order),
+               "grid_order": order,
+               "plan": launch_plan(m, k, n, blk["m"], blk["k"], blk["n"], order),
                "ms": ms, "ms_128cubed": ms_default, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -1272,6 +1384,59 @@ def phase_timing(registry, card: str, g) -> list:
         print(json.dumps({"phase": "timing_entry", **row}), flush=True)
     del flush
     emit("timing", t0, card=card, fp32_peak_flops=peak, hbm_bytes_per_s=HBM_BYTES_PER_S)
+    return rows
+
+
+def phase_timing_bf16(registry, card: str, g) -> list:
+    """The six contractions in bf16 at the model's tuned records, B (K, N)
+    as the model stores the weight and bf16 out, as the model serves them:
+    the tensor-core route, against the plain version, ``torch.matmul`` on
+    the same bf16 operands (the library yardstick only) and the bf16 bound
+    (bytes over 3.35 TB/s vs operations over the bf16 tensor peak)."""
+    from repro_torch.core.registry import current_hardware
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.matmul import launch_plan, matmul, matmul_plain
+
+    t0 = time.perf_counter()
+    peak = BF16_PEAK["pcie" if "PCIe" in card else "sxm"]
+    flush = flush_buffer()
+    rows = []
+    for (m, k, n) in CONTRACTIONS:
+        block, order = ops._entry_schedule(registry.get(
+            "mm", (m, k, n), "bfloat16", hardware=current_hardware(), exact=True))
+        blk = (block["m"], block["k"], block["n"])
+        kw = dict(bm=blk[0], bk=blk[1], bn=blk[2], grid_order=order)
+        a = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+        b = torch.randn(k, n, generator=g, device="cuda").bfloat16()
+        out = matmul(a, b, **kw)
+        plain = matmul_plain(a, b, **kw)
+        torch.cuda.synchronize()
+        max_abs = (out.float() - plain.float()).abs().max().item()
+        err = rel_err(out, plain)
+        if not err <= limit_for(torch.bfloat16):
+            raise SystemExit(f"bf16 kernel vs plain at {(m, k, n)} block {kw}: rel err {err}")
+        ms = time_ms(lambda: matmul(a, b, **kw), flush, 20)
+        device_ms = kernel_device_ms(lambda: matmul(a, b, **kw), "tc_matmul")
+        plain_ms = time_ms(lambda: matmul_plain(a, b, **kw), flush, 3)
+        library_ms = time_ms(lambda: torch.matmul(a, b), flush, 20)
+        ops_ms = 2 * m * k * n / peak * 1e3
+        bytes_ms = (m * k + k * n + m * n) * 2 / HBM_BYTES_PER_S * 1e3
+        plan = launch_plan(m, k, n, *blk, order, dtype=torch.bfloat16)
+        row = {"mkn": [m, k, n], "dtype": "bfloat16", "route": plan["route"],
+               "block": list(blk), "grid_order": order, "plan": plan, "ms": ms,
+               "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": max(ops_ms, bytes_ms), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "tflops": 2 * m * k * n / ms / 1e9, "max_abs_err": max_abs, "rel_err": err}
+        rows.append(row)
+        print(json.dumps({"phase": "timing_bf16_entry", **row}), flush=True)
+    del flush
+    emit("timing_bf16", t0, card=card, bf16_peak_flops=peak, hbm_bytes_per_s=HBM_BYTES_PER_S,
+         ms=sum(r["ms"] for r in rows), device_ms=sum(r["device_ms"] for r in rows),
+         bound_ms=sum(r["bound_ms"] for r in rows),
+         library_ms=sum(r["library_ms"] for r in rows))
+    if any(r["route"] != "wgmma" for r in rows):
+        raise SystemExit("a bf16 record of the model is not on the tensor-core route")
     return rows
 
 
@@ -1292,7 +1457,7 @@ def flash_timing_row(shape, card: str, g, flush, dt=torch.bfloat16) -> dict:
     if not max_abs <= lim + lim * plain.float().abs().max().item():
         raise SystemExit(f"flash attention at {shape} {dt}: max abs err {max_abs}")
     ms = time_ms(lambda: flash_attention(q, k, v, causal=True), flush, 20)
-    device_ms = flash_device_ms(lambda: flash_attention(q, k, v, causal=True))
+    device_ms = kernel_device_ms(lambda: flash_attention(q, k, v, causal=True), "flash_fwd")
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True), flush, 5)
     # the same call at other "fa" blocks: what the block mapping moves
     sweep = [{"block": list(blk), "plan": launch_plan(s, s, *blk, d=d, dtype=dt),
@@ -1443,16 +1608,19 @@ def main() -> int:
     emit("device", t0, nvidia_smi=smi, name=card, torch=torch.__version__,
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
-    # the mutation checks' copies of three kernels: the RWKV-6 scan with its
+    # the mutation checks' copies of four kernels: the RWKV-6 scan with its
     # u-bonus term dropped, the Mamba scan with the decay of each staged
     # tile's first token dropped, the tensor-core flash kernel with the
-    # accumulator's alpha rescale dropped
+    # accumulator's alpha rescale dropped, the tensor-core matmul with its
+    # last 64-value k chunk dropped
     mutants = {}
     for name, line, repl in (
             ("rwkv6_scan", MUTANT_LINE, "(void)dg;  // mutation: u-bonus dropped"),
             ("mamba_scan", MAMBA_MUTANT_LINE,
              "const float decay = i == 0 ? 1.f : exp2f(dtv * a2[n]);  // mutation"),
-            ("flash_attention", FLASH_MUTANT_LINE, "(void)0;  // mutation: no alpha rescale")):
+            ("flash_attention", FLASH_MUTANT_LINE, "(void)0;  // mutation: no alpha rescale"),
+            ("matmul", MATMUL_MUTANT_LINE,
+             "const int kchunks = (a.K + kChunk - 1) / kChunk - 1;  // mutation")):
         mutants[name] = ROOT / "build" / "mutant" / f"{name}_mutant.cu"
         mutants[name].parent.mkdir(parents=True, exist_ok=True)
         src = (_build.CSRC / f"{name}.cu").read_text()
@@ -1463,23 +1631,35 @@ def main() -> int:
     t0 = time.perf_counter()
     names = ["matmul", "flash_attention", "rwkv6_scan", "mamba_scan"]
     _build.build_all(names + list(mutants.values()))  # one nvcc per source, all at once
-    sass = subprocess.run(
-        [str(Path(_build.nvcc()).parent / "cuobjdump"), "--dump-sass",
-         str(_build.build("flash_attention"))], capture_output=True, text=True, check=True).stdout
-    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
-    flash_log = str(_build.BUILD_INFO["flash_attention"]["log"]).splitlines()
+    hgmma = {}
+    for name in ("flash_attention", "matmul"):
+        sass = subprocess.run(
+            [str(Path(_build.nvcc()).parent / "cuobjdump"), "--dump-sass",
+             str(_build.build(name))], capture_output=True, text=True, check=True).stdout
+        hgmma[name] = sum("HGMMA" in ln for ln in sass.splitlines())
+
+    def warnings(name: str) -> list:  # wgmma serialisation (C7520) and the like
+        return [ln.strip() for ln in str(_build.BUILD_INFO[name]["log"]).splitlines()
+                if "wgmma" in ln.lower() or "C7520" in ln]
+
     emit("build", t0, kernels=names,
          nvcc_s={n: round(float(_build.BUILD_INFO[n]["seconds"]), 3) for n in names},
          ptxas={n: sorted({ln.split(":")[-1].strip()
                            for ln in str(_build.BUILD_INFO[n]["log"]).splitlines()
-                           if "registers" in ln or "spill" in ln}) for n in names},
-         flash_hgmma_in_sass=hgmma,
-         flash_wgmma_warnings=[ln.strip() for ln in flash_log if "wgmma" in ln.lower()])
-    if hgmma == 0:
-        raise SystemExit("the flash library's SASS holds no HGMMA instruction")
+                           if "Used" in ln and "registers" in ln or "spill" in ln})
+                for n in names},
+         flash_hgmma_in_sass=hgmma["flash_attention"],
+         flash_wgmma_warnings=warnings("flash_attention"),
+         matmul_hgmma_in_sass=hgmma["matmul"], matmul_wgmma_warnings=warnings("matmul"),
+         matmul_c7519_arrive_injected=sum(
+             "C7519" in ln for ln in str(_build.BUILD_INFO["matmul"]["log"]).splitlines()))
+    for name, count in hgmma.items():
+        if count == 0:
+            raise SystemExit(f"the {name} library's SASS holds no HGMMA instruction")
 
     with open(out_dir / "chip_smoke_cases.jsonl", "w") as cases_f:
         phase_kernel(cases_f)
+        phase_matmul_mutant(cases_f, mutants["matmul"])
         phase_attention(cases_f)
         phase_attention_mutant(cases_f, mutants["flash_attention"])
         phase_rwkv_scan(cases_f)
@@ -1494,7 +1674,7 @@ def main() -> int:
     check_path_launches("tune_serve", by_path["tune_serve"], ("tiled_matmul",))
     del wts
 
-    model = phase_model(out_dir)  # the second path (counts set to 0 and read inside)
+    model, model_registry = phase_model(out_dir)  # the second path (counts set to 0 and read inside)
     gc.collect()
     torch.cuda.empty_cache()  # musicgen's tensors are gone before rwkv6-7b's
     model_rwkv = phase_model_rwkv(out_dir, mutants["rwkv6_scan"])  # the third path, likewise
@@ -1515,27 +1695,32 @@ def main() -> int:
         return {"launches": sum(per.values()), "launches_by_path": per}
 
     rows = phase_timing(registry, card, g)
+    rows_bf16 = phase_timing_bf16(model_registry, card, g)
     fa = phase_flash_timing(card, g)
     fa_main = [r for r in fa if r["dtype"] == "bfloat16"]
     rw = phase_rwkv_timing(card)
     mb = phase_mamba_timing(card)
-    ops_total = sum(2 * r["mkn"][0] * r["mkn"][1] * r["mkn"][2] for r in rows)
-    bound_ops = ops_total / F32_PEAK["pcie" if "PCIe" in card else "sxm"] * 1e3
-    bound_bytes = sum((r["mkn"][0] * r["mkn"][1] + r["mkn"][1] * r["mkn"][2]
-                       + r["mkn"][0] * r["mkn"][2]) * 4 for r in rows) / HBM_BYTES_PER_S * 1e3
+    def route_sums(rs: list) -> dict:
+        return {k: sum(r[k] for r in rs) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+
     kernels = [{
         "name": "tiled_matmul",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/matmul.cu",
         "replaces": "src/repro/kernels/matmul.py:24",
         **launches("tiled_matmul"),
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # one pass over the six musicgen-large contractions at tuned blocks
-        "ms": sum(r["ms"] for r in rows),
-        "plain_ms": sum(r["plain_ms"] for r in rows),
-        "bound_ms": sum(r["bound_ms"] for r in rows),
-        "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
-        "library_ms": sum(r["library_ms"] for r in rows),
+        "route_launches_model": {"tune": model["tune_route_launches"],
+                                 "serve": model["serve_route_launches"]},
+        # one pass over the six musicgen-large contractions in bf16 at the
+        # model's tuned records, on the tensor-core route the model serves;
+        # the f32 rows (the SIMT route, the tune -> serve path) beside them
+        "max_abs_err": max(r["max_abs_err"] for r in rows_bf16),
+        **route_sums(rows_bf16),
+        "bound_by": ("operations" if sum(r["ops_ms"] for r in rows_bf16)
+                     >= sum(r["bytes_ms"] for r in rows_bf16) else "bytes"),
+        "device_ms": sum(r["device_ms"] for r in rows_bf16),
+        "by_route": {"wgmma": route_sums(rows_bf16), "simt": route_sums(rows)},
+        "shapes_bf16": rows_bf16,
         "shapes": rows,
         "tune": tune_rows,
     }, {

@@ -63,6 +63,9 @@ class Contraction:
     """``out[...] = post(sum_k  lhs[...] * rhs[...])`` in named-iterator form.
 
     ``rhs`` may be None for unary ops (reduction / transpose / copy).
+    ``dtype`` is the operand type the contraction is timed at on the card
+    ("float32" or "bfloat16", the label of the registry record it is tuned
+    for); the JAX package's contractions carry no type.
     """
 
     name: str
@@ -70,6 +73,15 @@ class Contraction:
     lhs: TensorSpec
     rhs: Optional[TensorSpec]
     iter_sizes: Dict[str, int]  # iterator -> extent
+    # left out of the repr, which stays the JAX package's
+    dtype: str = dataclasses.field(default="float32", repr=False)
+
+    @property
+    def key_name(self) -> str:
+        """The name that keys this contraction's schedules: the name, with
+        the dtype beside it when that is not float32, so that evaluation
+        caches never serve one operand type's measurement to another."""
+        return self.name if self.dtype == "float32" else f"{self.name}:{self.dtype}"
 
     @property
     def reduce_iters(self) -> Tuple[str, ...]:
@@ -266,10 +278,11 @@ class LoopNest:
 
     def key(self, with_cursor: bool = True) -> Tuple:
         body = tuple((l.iterator, l.count, l.step) for l in self.loops)
-        # the contraction name disambiguates structurally-identical schedules
-        # of different contractions (tensor layouts change the evaluation),
-        # so caches may be shared across benchmarks
-        return (self.contraction.name, body, self.n_compute,
+        # the contraction name (and operand type) disambiguates
+        # structurally-identical schedules of different contractions (tensor
+        # layouts and types change the evaluation), so caches may be shared
+        # across benchmarks
+        return (self.contraction.key_name, body, self.n_compute,
                 self.cursor if with_cursor else -1)
 
     def structure_key(self) -> Tuple:
@@ -282,9 +295,9 @@ class LoopNest:
         turned back into featurizable schedules — e.g. to harvest a
         :class:`ScheduleCache` into surrogate training data."""
         name, body, n_compute, _cursor = key
-        if name != contraction.name:
+        if name != contraction.key_name:
             raise ValueError(
-                f"key is for contraction {name!r}, not {contraction.name!r}")
+                f"key is for contraction {name!r}, not {contraction.key_name!r}")
         out = object.__new__(cls)
         out.contraction = contraction
         out.loops = [LoopLevel(it, count, step) for it, count, step in body]

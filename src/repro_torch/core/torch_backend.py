@@ -9,7 +9,9 @@ lowered once into a function of the contraction's operands:
    the card's shared memory, :func:`~repro_torch.core.registry.card_boundary`)
    and calls :func:`repro_torch.kernels.matmul.matmul`, the tiled-matmul
    kernel; every reward of a matmul nest on the card is a timed launch of
-   it.  See :func:`register_kernel_route`.
+   it, on operands of the contraction's dtype (a ``"bfloat16"`` record is
+   timed on bf16 operands, on the kernel's tensor-core route, the route
+   that serves it).  See :func:`register_kernel_route`.
 2. **The slab path.**  Any other contraction replays the blocked
    interpreter's slab plan (``cpu_backend._run_section``, so the plans match
    by construction) in plain torch ops: each slab is sliced, ``torch.einsum``-
@@ -18,7 +20,7 @@ lowered once into a function of the contraction's operands:
    contractions and small CPU parity runs, not for matmul nests at the
    sizes the card is tuned at.
 
-Lowered functions are cached by ``(structure_key, vec_cap, route)`` in
+Lowered functions are cached by ``(structure_key, vec_cap, route, dtype)`` in
 :class:`CompiledKernelCache` (LRU).  Timing lives in
 :class:`~repro_torch.core.measure.MeasuredBackend`; :meth:`run_once` ends in
 ``torch.cuda.synchronize()`` on the card.
@@ -81,8 +83,9 @@ def _build_slab_fn(nest: LoopNest, vec_cap: int) -> Callable:
         acc = torch.zeros(c.out.dims, dtype=torch.float32,
                           device=operands[0].device)
         for in_win, out_win in compute:
+            # bf16 operands (a bf16-labelled contraction) widen slab by slab
             acc[out_win] += torch.einsum(
-                expr, *(op[w] for op, w in zip(operands, in_win)))
+                expr, *(op[w].float() for op, w in zip(operands, in_win)))
         # write-back nest: copy the accumulator into the output buffer in
         # the scheduled traversal order (slabs partition the output exactly)
         out = torch.zeros_like(acc)
@@ -210,6 +213,9 @@ def execute_torch(nest: LoopNest, arrays: Dict[str, np.ndarray],
 # ---------------------------------------------------------------------------
 
 
+# the operand type of a contraction's label
+_OPERAND_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 # peak GFLOPS is constant within a process: memoized per device so backend
 # construction never re-times it
 _PEAK_CACHE: Dict[str, float] = {}
@@ -264,7 +270,7 @@ class TorchBackend(MeasuredBackend):
 
     def _compile_key(self, nest: LoopNest) -> Tuple:
         return (nest.structure_key(), self.vec_cap,
-                self._route(nest.contraction))
+                self._route(nest.contraction), nest.contraction.dtype)
 
     def executable(self, nest: LoopNest) -> Callable:
         """The lowered function for this structure (cached)."""
@@ -284,12 +290,15 @@ class TorchBackend(MeasuredBackend):
         return fn
 
     def _inputs(self, c: Contraction) -> Tuple[torch.Tensor, ...]:
+        """The seeded f32 operands, rounded once to the contraction's dtype
+        (a bf16-labelled record's rewards time the kernel on bf16)."""
         def build():
             arrays = make_inputs(c, self.seed)
-            return tuple(torch.from_numpy(arrays[t.name]).to(self.device)
+            dt = _OPERAND_DTYPES[c.dtype]
+            return tuple(torch.from_numpy(arrays[t.name]).to(self.device).to(dt)
                          for t in c.inputs())
 
-        return self._inputs_cache.get_or_create(c.name, build)
+        return self._inputs_cache.get_or_create((c.name, c.dtype), build)
 
     def execute(self, nest: LoopNest) -> np.ndarray:
         """Run the (cached) lowered function on the executor's operands."""
@@ -310,7 +319,9 @@ class TorchBackend(MeasuredBackend):
 
     def peak(self) -> float:
         """Empirical peak GFLOPS of the device: best-of-5 timing of a 512^3
-        f32 ``torch.matmul``.  Memoized per device."""
+        f32 ``torch.matmul``.  Memoized per device.  It stays the f32
+        normaliser when rewards are timed on bf16 operands: the searches
+        compare raw GFLOPS, so a bf16 reward above it is fine."""
         key = str(self.device)
         peak = _PEAK_CACHE.get(key)
         if peak is None:

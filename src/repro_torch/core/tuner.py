@@ -19,6 +19,7 @@ the learned surrogate, not ported yet).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -99,9 +100,16 @@ class LoopTuner:
     def tune(self, bench: Contraction, kernel: str = "mm", *,
              dtype: str = "float32", budget_s: Optional[float] = None,
              max_evals: Optional[int] = None) -> Dict[str, Any]:
-        """Tune one contraction; returns the registry entry."""
+        """Tune one contraction; returns the registry entry.
+
+        The rewards are timed at ``dtype``: the contraction is relabelled
+        with it, so a measured backend times its operands in that type (the
+        card's kernel on bf16 for a ``"bfloat16"`` record) and the shared
+        evaluation cache keeps each type's measurements apart."""
         t0 = time.perf_counter()
         budget_s = budget_s if budget_s is not None else self.search_budget_s
+        if bench.dtype != dtype:
+            bench = dataclasses.replace(bench, dtype=dtype)
         env = self._env_for(bench)
         if self.policy == "search":
             res = greedy_search(env, 0, lookahead=1, budget_s=budget_s,

@@ -4,9 +4,21 @@ The tuned loop nest lowers onto this kernel: the resident suffix of the
 schedule becomes the block ``(bm, bk, bn)`` and the outer levels the grid
 order (``grid_order``).  :func:`matmul` launches the CUDA kernel in
 ``csrc/matmul.cu`` (see the note there: what it replaces, what bounds it on
-the card, and how it maps blocks of any size onto a thread block).
+the card, and how each route maps blocks of any size onto a thread block).
 :func:`matmul_plain` is the same function in plain torch ops; the wrapper
 takes it only for tensors that lie on the CPU.
+
+Two routes, by the launch's arguments alone (:func:`launch_plan`): bf16
+operands with K and N multiples of 8 run on the tensor cores ("wgmma":
+wgmma from a cp.async ring in shared memory, f32 accumulation), everything
+else, every f32 launch included, runs the SIMT kernel ("simt": f32 FMAs;
+TF32 would miss the f32 limit of 1e-5).  On "wgmma" the block, clamped to
+(M, K, N), maps to an m tile of 64 if bm <= 64 else 128, an n tile of the
+power of two >= bn in [64, 256], and ``clamp(ceil(bk / 64), 1, 4)`` 64-value
+k chunks a ring stage (fewer if three stages would not fit); the ring has 4
+stages.  When M <= 64 (decode, bound by reading B) K is split over two
+warpgroups of the CTA (n tile <= 128), a stage holds one chunk for each, and
+the ring has as many stages as fit (up to 16).
 """
 from __future__ import annotations
 
@@ -19,11 +31,21 @@ from . import _build
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
+#: the tensor-core route's ring: shared memory a block may use (less the
+#: 1024-byte alignment slack), stages, the deep ring's cap, chunks a stage
+TC_SMEM = 232448 - 1024
+TC_STAGES, TC_DEEP_STAGES, TC_MAX_KC = 4, 16, 4
+#: the SIMT route's register sub-tiles (rows, columns), in the kernel's order
+SIMT_SUBTILES = ((64, 64), (16, 256), (256, 16), (4, 1024), (1, 1024), (4, 64),
+                 (64, 4), (1, 256), (16, 16))
+SIMT_THREADS = 256
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.looptune_matmul.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     lib.looptune_matmul.restype = i
-    lib.looptune_matmul_plan.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
+    lib.looptune_matmul_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)]
     lib.looptune_matmul_plan.restype = i
 
 
@@ -94,6 +116,13 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 128,
         raise ValueError("matmul takes contiguous operands")
     if min(bm, bk, bn) < 1:
         raise ValueError(f"blocks must be >= 1, got {(bm, bk, bn)}")
+    route = route_for(k, n, a.dtype)
+    if route == "wgmma":
+        for x in (a, b):
+            if x.data_ptr() % 16:
+                raise ValueError(f"the tensor-core matmul loads rows in 16-byte pieces: "
+                                 f"an operand at offset {x.data_ptr() % 16} bytes "
+                                 f"cannot be loaded")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     with torch.cuda.device(a.device):
@@ -106,21 +135,91 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 128,
         raise RuntimeError(f"tiled matmul launch failed: cudaError {err} "
                            f"(m={m} k={k} n={n} block={(bm, bk, bn)})")
     matmul.launches += 1
+    matmul.route_launches[route] += 1
     return out
 
 
 #: kernel launches since the count was last set to 0 (the CPU path and the
-#: plain version do not count)
+#: plain version do not count), in all and by route
 matmul.launches = 0
+matmul.route_launches = {"wgmma": 0, "simt": 0}
 
 
-def launch_plan(m: int, n: int, bm: int, bn: int, grid_order: str = "mn"
-                ) -> dict:
-    """How the kernel lays out one launch: the CTA tile (after grouping
-    small blocks), the register sub-tile configuration and the CTA count."""
-    out = (ctypes.c_int * 4)()
-    err = _lib().looptune_matmul_plan(m, n, min(bm, m), min(bn, n),
-                                      int(grid_order == "nm"), out)
-    if err != 0:
-        raise ValueError(f"bad plan arguments {(m, n, bm, bn)}")
-    return {"cta_tile": (out[0], out[1]), "config": out[2], "ctas": out[3]}
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _sm_count() -> int:
+    """The current card's SMs (the SIMT plan reads them), else an H100 SXM's."""
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return 132
+
+
+def route_for(k: int, n: int, dtype: torch.dtype) -> str:
+    """The route a launch takes: "wgmma" for bf16 operands whose A and B
+    rows all start on 16-byte boundaries (K and N multiples of 8), else
+    "simt"."""
+    return "wgmma" if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 else "simt"
+
+
+def launch_plan(m: int, k: int, n: int, bm: int = 128, bk: int = 128, bn: int = 128,
+                grid_order: str = "mn", *, dtype: torch.dtype = torch.float32) -> dict:
+    """How the kernel lays out one launch, and on which route.  Pure Python;
+    the kernel computes the same (``looptune_matmul_plan``, held equal on
+    the card).
+
+    "wgmma": the CTA ``tile`` (m, n), ``k_chunks`` 64-value chunks a ring
+    stage, ``stages``, ``ctas`` and ``k_split``, the warpgroups that split K
+    (each multiplies its own chunk of a stage; the partial tiles are summed
+    in shared memory).  "simt": the CTA ``tile`` after grouping
+    small blocks (which reads the card's SM count: the current card's, else
+    132), the register sub-tile ``config`` and ``ctas``."""
+    if min(m, k, n, bm, bk, bn) < 1:
+        raise ValueError(f"bad plan arguments {(m, k, n, bm, bk, bn)}")
+    bm, bk, bn = min(bm, m), min(bk, k), min(bn, n)
+    if route_for(k, n, dtype) == "wgmma":
+        tm = 64 if bm <= 64 else 128
+        tn = 64
+        while tn < bn and tn < 256:
+            tn *= 2
+        chunks = _cdiv(k, 64)
+        # M <= 64: K split over two warpgroups (n tile <= 128), one chunk
+        # each a stage
+        ks = 2 if m <= 64 and tn <= 128 else 1
+        kc = ks if m <= 64 else min(_cdiv(bk, 64), TC_MAX_KC, chunks)
+        while kc > 1 and 3 * kc * (tm + tn) * 128 > TC_SMEM:
+            kc -= 1
+        fit = TC_SMEM // (kc * (tm + tn) * 128)
+        stages = min(TC_DEEP_STAGES if m <= 64 else TC_STAGES, fit, _cdiv(chunks, kc) + 2)
+        return {"route": "wgmma", "tile": (tm, tn), "k_chunks": kc,
+                "stages": max(stages, 3), "ctas": _cdiv(m, tm) * _cdiv(n, tn), "k_split": ks}
+    # the SIMT kernel's make_plan: group small blocks along the fast grid
+    # dimension while two CTAs an SM remain, then the sub-tile that pads least
+    order_nm = grid_order == "nm"
+    tm, tn = bm, bn
+    if bm * bn < SIMT_THREADS:
+        fast = _cdiv(m, bm) if order_nm else _cdiv(n, bn)
+        ctas = _cdiv(m, bm) * _cdiv(n, bn)
+        g = min(SIMT_THREADS // (bm * bn), fast, ctas // (2 * _sm_count()))
+        g = max(g, 1)
+        if order_nm:
+            tm = bm * g
+        else:
+            tn = bn * g
+    pads = [_cdiv(tm, sm) * sm * _cdiv(tn, sn) * sn for sm, sn in SIMT_SUBTILES]
+    return {"route": "simt", "tile": (tm, tn), "config": pads.index(min(pads)),
+            "ctas": _cdiv(m, tm) * _cdiv(n, tn)}
+
+
+def kernel_plan(m: int, k: int, n: int, bm: int = 128, bk: int = 128, bn: int = 128,
+                grid_order: str = "mn", *, dtype: torch.dtype = torch.float32) -> dict:
+    """The plan as the built kernel computes it (needs the library)."""
+    out = (ctypes.c_int * 7)()
+    if _lib().looptune_matmul_plan(m, k, n, bm, bk, bn, int(grid_order == "nm"),
+                                   int(dtype == torch.bfloat16), out) != 0:
+        raise ValueError(f"bad plan arguments {(m, k, n, bm, bk, bn)}")
+    if out[0]:
+        return {"route": "wgmma", "tile": (out[1], out[2]), "k_chunks": out[3],
+                "stages": out[4], "ctas": out[5], "k_split": out[6]}
+    return {"route": "simt", "tile": (out[1], out[2]), "config": out[3], "ctas": out[5]}

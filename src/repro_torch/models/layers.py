@@ -104,14 +104,17 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, q_offset: int = 0, kv_len: Optional[int] = None,
-              window: Optional[int] = None, softcap: Optional[float] = None
-              ) -> torch.Tensor:
+              window: Optional[int] = None, softcap: Optional[float] = None,
+              kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of q (B, S, HQ, D) over k, v (B, T, HKV, D); HQ % HKV == 0.
 
     ``q_offset``: absolute position of q[0] — decode (S=1, offset=cache
     length) or prefill (0).  ``window``: sliding-window size; a query at
     position p sees [p-window+1, p].  ``kv_len``: valid cache length
-    (trailing slots masked).  Returns (B, S, HQ, D) in v's dtype.
+    (trailing slots masked).  ``kv_positions`` (decode only): the absolute
+    position each of the T cache slots holds, negative for a slot never
+    written (a sliding-window ring cache); None means slot t holds position
+    t.  Returns (B, S, HQ, D) in v's dtype.
 
     S == 1 is the plain decode branch.  S > 1 with ``q_offset == 0`` and no
     ``kv_len`` (every prefill self-attention) is the flash-attention kernel.
@@ -126,12 +129,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if s == 1:
         # decode: one query row, (B, H, 1, T) scores are tiny
         scale = torch.tensor(1.0 / math.sqrt(d), dtype=q.dtype, device=q.device)
-        kv_pos = torch.arange(t, device=q.device)
+        kv_pos = torch.arange(t, device=q.device) if kv_positions is None else kv_positions
         kvl = t if kv_len is None else kv_len
         scores = torch.einsum("bqhd,bthd->bhqt", (q * scale).float(),
                               _repeat_kv(k, groups).float())
         scores = _softcap(scores, softcap)
-        mask = kv_pos < kvl
+        mask = (kv_pos < kvl) & (kv_pos >= 0)
         if causal:
             mask &= kv_pos <= q_offset
         if window is not None:
@@ -139,7 +142,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scores = torch.where(mask[None, None, None], scores, -1e30)
         p = torch.softmax(scores, dim=-1)
         return torch.einsum("bhqt,bthd->bqhd", p.to(v.dtype), _repeat_kv(v, groups))
-    if q_offset != 0 or kv_len is not None:
+    if q_offset != 0 or kv_len is not None or kv_positions is not None:
         raise NotImplementedError(
             "attention of S > 1 queries at an offset or over a partly filled "
             "cache is not ported (ROADMAP.md, model zoo); prefill calls it "

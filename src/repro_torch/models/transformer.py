@@ -163,8 +163,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"
                ) -> Tuple[Dict[str, torch.Tensor], ...]:
     """Decode cache: one dict per period position, leaves stacked over
     ``n_periods``.  Attention keeps ``k``/``v`` ``(n_periods, batch, buf,
-    HKV, hd)``, where a sliding-window layer has ``min(max_len, window)``
-    slots; RWKV-6 keeps the f32 state ``s`` ``(n_periods, batch, H, N, N)``
+    HKV, hd)``, where a sliding-window layer has ``buf = min(max_len, window)``
+    slots used as a ring (position p in slot ``p % buf``, unlike the JAX
+    package's clamped last slot); RWKV-6 keeps the f32 state ``s`` ``(n_periods, batch, H, N, N)``
     and the token-shift carries ``xt`` (time-mix) and ``xc`` (channel-mix)
     ``(n_periods, batch, D)``; Mamba keeps the f32 state ``h``
     ``(n_periods, batch, d_inner, N)`` and the conv window ``conv``
@@ -255,17 +256,26 @@ def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, decode):
             if buf >= s:
                 cache["k"][:, :s] = k
                 cache["v"][:, :s] = v
-            else:  # windowed cache keeps only the tail
-                cache["k"].copy_(k[:, -buf:])
-                cache["v"].copy_(v[:, -buf:])
+            else:  # a windowed cache is a ring: the last buf keys, position p in slot p % buf
+                cache["k"].copy_(torch.roll(k[:, -buf:], shifts=s % buf, dims=1))
+                cache["v"].copy_(torch.roll(v[:, -buf:], shifts=s % buf, dims=1))
     else:
-        # jax.lax.dynamic_update_slice clamps the start so the update fits
-        at = min(cache_len, cache["k"].shape[1] - 1)
+        buf = cache["k"].shape[1]
+        kv_positions = None
+        if window is None:
+            # jax.lax.dynamic_update_slice clamps the start so the update fits
+            at = min(cache_len, buf - 1)
+        else:
+            # the ring: position cache_len goes to slot cache_len % buf, and
+            # slot j then holds the latest position p <= cache_len with
+            # p % buf == j (negative: never written)
+            at = cache_len % buf
+            kv_positions = cache_len - (cache_len - torch.arange(buf, device=h.device)) % buf
         cache["k"][:, at:at + 1] = k
         cache["v"][:, at:at + 1] = v
         out = L.attention(q, cache["k"], cache["v"], causal=True, q_offset=cache_len,
                           kv_len=cache_len + 1, window=window,
-                          softcap=cfg.attn_softcap)
+                          softcap=cfg.attn_softcap, kv_positions=kv_positions)
     return L.dense(out.reshape(*h.shape[:2], -1), p["attn"]["wo"])
 
 

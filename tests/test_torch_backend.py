@@ -5,6 +5,8 @@ slab path in plain torch ops (``kernel="off"``) and the tiled-matmul route
 (``kernel="on"``, which on a CPU tensor takes the kernel's plain version).
 Both are held against ``cpu_backend.execute`` and ``execute_jax``.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -131,3 +133,64 @@ def test_env_rewards_match_on_the_analytical_backend():
         r_obs, r_r, r_done, r_info = r_env.step(a)
         np.testing.assert_array_equal(t_obs, r_obs)
         assert (t_r, t_done, t_info["gflops"]) == (r_r, r_done, r_info["gflops"])
+
+
+def _route_spy(monkeypatch):
+    """Record the operand dtypes each launch of the matmul route sees."""
+    import importlib
+
+    mm = importlib.import_module("repro_torch.kernels.matmul")
+    real, seen = mm.matmul, []
+
+    def spy(a, b, **kw):
+        seen.append((a.dtype, b.dtype))
+        return real(a, b, **kw)
+
+    monkeypatch.setattr(mm, "matmul", spy)
+    return seen
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rewards_launch_the_route_at_the_record_dtype(monkeypatch, dtype):
+    """A "bfloat16" record's rewards hand bf16 operands to the matmul route
+    (the seeded f32 inputs rounded once), the default f32 ones."""
+    from repro_torch.core import LoopTuner
+
+    seen = _route_spy(monkeypatch)
+    tuner = LoopTuner(backend=TorchBackend(device="cpu", kernel="on", repeats=1))
+    entry = tuner.tune(TL.matmul_benchmark(32, 48, 40), dtype=dtype, max_evals=4,
+                       budget_s=600.0)
+    assert entry["gflops"] > 0 and tuner.registry.get("mm", (32, 48, 40), dtype)
+    want = getattr(torch, dtype)
+    assert seen and all(d == (want, want) for d in seen)
+    c = TL.matmul_benchmark(32, 48, 40)
+    a, b = tuner.backend._inputs(dataclasses.replace(c, dtype=dtype))
+    ref = TCB.make_inputs(c, 0)
+    np.testing.assert_array_equal(a.float().numpy(),
+                                  torch.from_numpy(ref["A"]).to(want).float().numpy())
+
+
+def test_f32_and_bf16_tunes_share_no_cached_evaluation():
+    """One tuner, one contraction, tuned as an f32 then a bf16 record: the
+    shared evaluation cache, the operand cache and the lowered-function
+    cache key on the dtype, so the bf16 tune measures every schedule
+    itself."""
+    from repro_torch.core import LoopTuner
+
+    be = TorchBackend(device="cpu", kernel="on", repeats=1)
+    tuner = LoopTuner(backend=be)
+    bench = TL.matmul_benchmark(32, 48, 40)
+    tuner.tune(bench, max_evals=5, budget_s=600.0)
+    f32_keys = {k for k, _ in tuner.cache.entries()}
+    misses, compiles = tuner.cache.misses, be.compiles
+    tuner.tune(bench, dtype="bfloat16", max_evals=5, budget_s=600.0)
+    bf16_keys = {k for k, _ in tuner.cache.entries()} - f32_keys
+    assert f32_keys and bf16_keys
+    assert all(k[0] == "mm_32_48_40" for k in f32_keys)
+    assert all(k[0] == "mm_32_48_40:bfloat16" for k in bf16_keys)
+    # the base schedule of both tunes has the same loop body, measured twice
+    assert {k[1:] for k in f32_keys} & {k[1:] for k in bf16_keys}
+    assert tuner.cache.misses - misses == len(bf16_keys)
+    assert be.compiles - compiles == len(bf16_keys)
+    assert set(be._inputs_cache._data) == {("mm_32_48_40", "float32"),
+                                           ("mm_32_48_40", "bfloat16")}

@@ -41,6 +41,81 @@ def test_kernel_matches_plain_version_on_the_card(order, trans_b, dtype):
             assert torch.allclose(out.float(), ref32, rtol=2e-2, atol=2e-2)
 
 
+# the tensor-core route: ragged M (1, 4, 33, 200), K and N multiples of 8
+# but not of 64, and blocks that reach every (m tile, n tile) pair and 1-4
+# k chunks a stage
+TC_SHAPES = [(1, 64, 64), (4, 200, 1000), (33, 1000, 200), (200, 8, 72), (130, 520, 264),
+             (4, 2048, 128)]
+TC_BLOCKS = [(4, 64, 64), (64, 128, 100), (64, 512, 256), (96, 128, 128), (128, 200, 64),
+             (128, 256, 256)]
+#: f32 out at these K (<= 2048): products of bf16 values are exact in f32 and
+#: only the order of summation differs; the route reads <= 4e-6 here (its own
+#: limit, 3e-5, is for K = 8192, where the tensor cores' truncating
+#: accumulation reaches ~1.2e-5: PERF.md §2)
+TC_F32_OUT_LIMIT = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_tensor_core_route_matches_plain_version_on_the_card(trans_b, out_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.matmul import kernel_plan, launch_plan
+
+    odt = getattr(torch, out_dtype)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for (m, k, n) in TC_SHAPES:
+        for order, (bm, bk, bn) in zip(("mn", "nm") * 3, TC_BLOCKS):
+            a = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+            b = torch.randn(*((n, k) if trans_b else (k, n)), generator=g,
+                            device="cuda").bfloat16()
+            kw = dict(bm=bm, bk=bk, bn=bn, grid_order=order, out_dtype=odt,
+                      trans_b=trans_b)
+            plan = launch_plan(m, k, n, bm, bk, bn, order, dtype=torch.bfloat16)
+            assert plan["route"] == "wgmma"
+            assert plan == kernel_plan(m, k, n, bm, bk, bn, order, dtype=torch.bfloat16)
+            before = dict(matmul.route_launches)
+            out = matmul(a, b, **kw)
+            torch.cuda.synchronize()
+            assert matmul.route_launches == {**before, "wgmma": before["wgmma"] + 1}
+            ref = matmul_plain(a, b, **kw).float()
+            assert out.dtype == odt and out.shape == (m, n)
+            err = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+            assert err <= (TC_F32_OUT_LIMIT if out_dtype == "float32" else 1e-2), \
+                ((m, k, n), (bm, bk, bn), plan, err)
+
+
+@pytest.mark.cuda
+def test_routes_and_plans_on_the_card():
+    """f32, and bf16 with K or N off a multiple of 8, stay on the SIMT
+    route; the kernel's own plan equals launch_plan on both routes; an
+    unaligned bf16 operand raises and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.matmul import kernel_plan, launch_plan
+
+    for (m, k, n), dt, route in [((33, 200, 96), torch.float32, "simt"),
+                                 ((33, 36, 96), torch.bfloat16, "simt"),
+                                 ((33, 200, 98), torch.bfloat16, "simt"),
+                                 ((33, 200, 96), torch.bfloat16, "wgmma")]:
+        for blk in [(1, 2048, 1), (4, 64, 64), (128, 128, 128), (256, 512, 256)]:
+            plan = launch_plan(m, k, n, *blk, dtype=dt)
+            assert plan["route"] == route
+            assert plan == kernel_plan(m, k, n, *blk, dtype=dt)
+        a = torch.randn(m, k, device="cuda").to(dt)
+        b = torch.randn(k, n, device="cuda").to(dt)
+        before = dict(matmul.route_launches)
+        matmul(a, b)
+        torch.cuda.synchronize()
+        assert matmul.route_launches == {**before, route: before[route] + 1}
+    a = torch.randn(4 * 200 + 1, device="cuda").bfloat16()[1:].view(4, 200)
+    before = matmul.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        matmul(a, torch.randn(200, 96, device="cuda").bfloat16())
+    assert matmul.launches == before
+
+
 @pytest.mark.cuda
 def test_card_executor_rewards_launch_the_kernel():
     if not torch.cuda.is_available():

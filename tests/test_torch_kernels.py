@@ -1,5 +1,7 @@
 """The port's kernel layer on the CPU: the tiled matmul's plain version over
-a shape/block/order sweep with tails, ``_parse_matmul_spec`` and
+a shape/block/order sweep with tails, against the Pallas kernel in
+interpret mode (f32 and bf16 operands), its launch plan (route and
+tensor-core tile, in pure Python), ``_parse_matmul_spec`` and
 ``tuned_einsum``'s counters against the JAX package's, and the kernel
 build's library path (its hash of the headers a source includes).  The
 kernels themselves are held against their plain versions in
@@ -15,7 +17,7 @@ from repro.kernels.matmul import matmul as jax_matmul
 from repro_torch.core import LoopTuner as TTuner
 from repro_torch.core import matmul_benchmark
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.matmul import matmul, matmul_plain
+from repro_torch.kernels.matmul import launch_plan, matmul, matmul_plain
 
 SWEEP = [(m, k, n, blk, order)
          for (m, k, n) in [(1, 1, 1), (7, 13, 5), (33, 64, 17), (64, 48, 96),
@@ -44,15 +46,84 @@ def test_plain_tiled_matmul_sweep(m, k, n, blk, order):
         np.testing.assert_allclose(out.numpy(), a @ b, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("in_dt,out_dt", [("float32", None), ("bfloat16", "float32"),
+                                           ("bfloat16", "bfloat16")])
 @pytest.mark.parametrize("m,k,n,blk,order", SWEEP[::5])
-def test_plain_tiled_matmul_matches_pallas_interpret(m, k, n, blk, order):
+def test_plain_tiled_matmul_matches_pallas_interpret(m, k, n, blk, order, in_dt, out_dt):
+    """bf16 operands (the tensor-core route's) too: both accumulate the exact
+    products in f32 (2e-5); a bf16 output rounds once (1e-2, PERF.md §2)."""
     a, b = _operands(m, k, n, seed=3)
     bm, bk, bn = blk
-    out = matmul(torch.from_numpy(a), torch.from_numpy(b), bm=bm, bk=bk, bn=bn,
-                 grid_order=order)  # CPU tensors: the plain version
-    ref = jax_matmul(jnp.asarray(a), jnp.asarray(b), bm=bm, bk=bk, bn=bn,
-                     grid_order=order, interpret=True)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+    ta, tb = (torch.from_numpy(x).to(getattr(torch, in_dt)) for x in (a, b))
+    out = matmul(ta, tb, bm=bm, bk=bk, bn=bn, grid_order=order,
+                 out_dtype=getattr(torch, out_dt) if out_dt else None)  # CPU: the plain version
+    ref = jax_matmul(jnp.asarray(a, in_dt), jnp.asarray(b, in_dt), bm=bm, bk=bk, bn=bn,
+                     grid_order=order, interpret=True,
+                     out_dtype=jnp.dtype(out_dt) if out_dt else None)
+    assert str(out.dtype) == f"torch.{out_dt or in_dt}" and ref.dtype == jnp.dtype(out_dt or in_dt)
+    tol = 1e-2 if (out_dt or in_dt) == "bfloat16" else 2e-5
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("mkn,dtype,route", [
+    ((1024, 2048, 2048), torch.float32, "simt"),     # every f32 launch: TF32 misses 1e-5
+    ((1024, 2048, 2048), torch.bfloat16, "wgmma"),
+    ((4, 2048, 2048), torch.bfloat16, "wgmma"),      # M < 64: decode too
+    ((1, 8, 8), torch.bfloat16, "wgmma"),
+    ((33, 36, 96), torch.bfloat16, "simt"),          # K off a multiple of 8
+    ((33, 200, 98), torch.bfloat16, "simt"),         # N off a multiple of 8
+    ((1, 1, 1), torch.bfloat16, "simt"),
+])
+def test_launch_plan_route_rules(mkn, dtype, route):
+    for blk in [(1, 2048, 1), (128, 128, 128), (256, 512, 256)]:
+        for order in ("mn", "nm"):
+            assert launch_plan(*mkn, *blk, order, dtype=dtype)["route"] == route
+
+
+# the thin blocks an f32-timed search picked for musicgen-large and the
+# default 128^3, at the model's shapes:
+# (m, k, n), block -> tile, k chunks a stage, stages, CTAs, k-split warpgroups
+TILE_CASES = [
+    ((1024, 2048, 2048), (1, 2048, 1), (64, 64), 4, 3, 512, 1),
+    ((1024, 2048, 8192), (4, 2048, 1), (64, 64), 4, 3, 2048, 1),
+    ((1024, 8192, 2048), (1, 8192, 1), (64, 64), 4, 3, 512, 1),
+    ((1024, 2048, 2048), (128, 128, 128), (128, 128), 2, 3, 128, 1),
+    ((1024, 8192, 2048), (128, 64, 256), (128, 256), 1, 4, 64, 1),
+    ((1024, 2048, 8192), (65, 65, 65), (128, 128), 2, 3, 512, 1),
+    ((4, 2048, 2048), (1, 2048, 1), (64, 64), 2, 7, 32, 2),   # decode: K split in two
+    ((4, 8192, 2048), (128, 128, 128), (64, 128), 2, 4, 16, 2),
+    ((4, 2048, 8192), (4, 64, 256), (64, 256), 1, 5, 32, 1),
+    ((200, 1000, 200), (64, 1000, 1000), (64, 256), 1, 4, 4, 1),  # clamped; 3 stages fit
+    ((33, 8, 72), (128, 128, 128), (64, 128), 2, 3, 1, 2),   # one chunk, zero filled
+]
+
+
+@pytest.mark.parametrize("mkn,blk,tile,kc,stages,ctas,ks", TILE_CASES)
+def test_launch_plan_maps_blocks_onto_warpgroup_tiles(mkn, blk, tile, kc, stages, ctas, ks):
+    plan = launch_plan(*mkn, *blk, dtype=torch.bfloat16)
+    assert plan == {"route": "wgmma", "tile": tile, "k_chunks": kc, "stages": stages,
+                    "ctas": ctas, "k_split": ks}
+    # the ring fits in the 227 KB a block may use, with the alignment slack
+    assert 1024 + stages * kc * (tile[0] + tile[1]) * 128 <= 232448
+    # the grid order changes no tile
+    assert launch_plan(*mkn, *blk, "nm", dtype=torch.bfloat16) == plan
+
+
+def test_launch_plan_keeps_the_simt_plan():
+    """f32 keeps the SIMT kernel's plan: small blocks grouped along the fast
+    grid dimension while two CTAs an SM remain, then the register sub-tile
+    that pads least."""
+    assert launch_plan(4, 33, 96, 4, 64, 64) == {
+        "route": "simt", "tile": (4, 64), "config": 5, "ctas": 2}
+    assert launch_plan(1024, 2048, 2048, 1, 2048, 1) == {
+        "route": "simt", "tile": (1, 256), "config": 7, "ctas": 1024 * 8}
+    assert launch_plan(1024, 2048, 2048, 1, 2048, 1, "nm") == {
+        "route": "simt", "tile": (256, 1), "config": 6, "ctas": 4 * 2048}
+    # decode: grouping stops while two CTAs an SM remain
+    assert launch_plan(4, 2048, 2048, 1, 2048, 1) == {
+        "route": "simt", "tile": (1, 31), "config": 5, "ctas": 4 * 67}
+    assert launch_plan(1024, 2048, 2048)["tile"] == (128, 128)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

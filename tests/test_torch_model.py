@@ -5,8 +5,12 @@ window, every block option of the schema, a token frontend): JAX
 ``init_params`` weights carried across with ``params_from_jax``, then JAX
 ``make_prefill_step`` + 4 x ``make_decode_step`` against the port's on the
 same inputs, in f32: last logits and caches within 1e-4 (max abs diff /
-max abs), equal greedy tokens.  Then the port's serve loop alone, on the
-CPU, with a tuned registry.
+max abs), equal greedy tokens.  A sliding-window layer's cache is a ring in
+the port (position p in slot p % window), so its prefill cache is compared
+slot by position, and its decode past the window is held against the JAX
+package's ``forward`` over the same tokens (the JAX decode clamps its
+writes to the last slot there and masks slots by index).  Then the port's
+serve loop alone, on the CPU, with a tuned registry.
 """
 import dataclasses
 import os
@@ -84,21 +88,56 @@ def test_prefill_and_decode_match_jax(variant):
     assert int(r_len) == t_len == PROMPT
     assert _rel(t_last.numpy(), r_last) <= 1e-4
     np.testing.assert_array_equal(t_last.argmax(-1).numpy(), np.asarray(r_last).argmax(-1))
-    for got, want in zip(t_caches, r_caches):
+    window = t_cfg.period[0].window
+    for got, r_cache in zip(t_caches, r_caches):
         for name in ("k", "v"):
-            assert _rel(got[name].numpy(), want[name]) <= 1e-4
+            want = np.asarray(r_cache[name])
+            buf = want.shape[2]
+            if window is not None and PROMPT > buf:
+                # JAX keeps positions PROMPT-buf.. in slots 0..; the port's
+                # ring keeps position p in slot p % buf
+                want = np.roll(want, PROMPT % buf, axis=2)
+            assert _rel(got[name].numpy(), want) <= 1e-4
 
     tok = np.asarray(r_last).argmax(-1)
+    seq = prompts
     r_step, t_step = RS.make_decode_step(r_cfg), TS.make_decode_step(t_cfg)
     for i in range(DECODES):
+        seq = np.concatenate([seq, tok[:, None]], axis=1)
         r_in, t_in = _batches(t_cfg, tok[:, None])
         r_nxt, r_logits, r_caches = r_step(params, r_in, r_caches,
                                            jax.numpy.int32(PROMPT + i))
+        if window is not None and PROMPT + i >= window:
+            # past the window the reference is the full forward over every
+            # token so far (the JAX decode masks the wrong keys there)
+            r_logits = RT.forward(params, r_cfg, _batches(t_cfg, seq)[0])[0][:, -1:]
+            r_nxt = np.asarray(r_logits)[:, -1].argmax(-1)
         t_nxt, t_logits, t_caches = t_step(tparams, t_in, t_caches, PROMPT + i)
         assert t_logits.shape == (B, 1, t_cfg.vocab) and t_logits.dtype == torch.float32
         assert _rel(t_logits.numpy(), r_logits) <= 1e-4
         np.testing.assert_array_equal(t_nxt.numpy(), np.asarray(r_nxt))
         tok = np.asarray(r_nxt)
+
+
+@pytest.mark.parametrize("prompt_len", [1, 4, 6])
+def test_sliding_window_decode_matches_own_forward_past_the_window(prompt_len):
+    """One windowed layer (window 4, max_len 16): the port's prefill of
+    ``prompt_len`` tokens, then decode up to position 9, each step against
+    the port's own ``forward`` over every token so far."""
+    cfg = dataclasses.replace(get_config("musicgen-large").smoke(), n_layers=1,
+                              period=(LayerSpec(ATTN_LOCAL, DENSE, window=4),),
+                              dtype="float32")
+    params = SV.init_model(cfg, 0, "cpu")
+    make_inputs = SV.input_fn(cfg, "cpu")
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (B, 10))
+    _, caches, n = TS.make_prefill_step(cfg, 16)(params, make_inputs(toks[:, :prompt_len]))
+    assert caches[0]["k"].shape[2] == 4
+    step = TS.make_decode_step(cfg)
+    for pos in range(prompt_len, 10):
+        _, logits, caches = step(params, make_inputs(toks[:, pos:pos + 1]), caches, pos)
+        with torch.no_grad():
+            want = TT.forward(params, cfg, make_inputs(toks[:, :pos + 1]))[0][:, -1:]
+        assert _rel(logits.numpy(), want.numpy()) <= 1e-4, pos
 
 
 def test_converted_weights_keep_every_name_and_value():
