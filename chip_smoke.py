@@ -20,9 +20,10 @@ line with its seconds:
    every (m tile, n tile) pair, ragged M,
    N and K off multiples of 64, both B layouts, f32 and bf16 out), each case
    with its route and the kernel's own launch plan held equal to
-   ``launch_plan``; then a mutation check: the matmul with its last 64-value
-   k chunk dropped must put every tensor-core case with K > 64 outside its
-   limit;
+   ``launch_plan``; then two mutation checks: the matmul with its last
+   64-value k chunk dropped must put every tensor-core case with K > 64
+   outside its limit, and with the SIMT ring's last k stage dropped every
+   SIMT case with K over one stage;
    attention — the flash-attention kernel against its plain version over
    the JAX kernel tests' shapes, windows, softcaps, bf16, head dim 128 with
    GQA groups of 4, the tensor-core route's bf16 cases at head dims 64 and
@@ -32,7 +33,9 @@ line with its seconds:
    mutation check: the tensor-core kernel with the accumulator's alpha
    rescale dropped must put most of that route's multi-tile cases outside
    their limit;
-   rwkv_scan — the RWKV-6 chunked-scan kernel against its plain version over
+   rwkv_scan — the RWKV-6 chunked-scan kernel (two passes: the chunks' own
+   products in parallel, then the state's walk over the chunks) against its
+   plain version over
    the JAX kernel tests' ranges (S 1-70, N 4/8/16, chunks 4/16/64, 1-4
    streams), N = 64 at chunks 64 and 128, a carried state, bf16 r/k/v and
    rwkv6-7b's prefill shape;
@@ -82,9 +85,10 @@ line with its seconds:
    paths' expert choices are recorded and compared; and a mutation check:
    the scan kernel with the decay of each staged tile's first token
    dropped must fail the sharp check and the mamba_scan cases;
-6. timing — per contraction: the kernel at its tuned block and at 128^3,
-   the plain version, ``torch.matmul`` (the library yardstick only), and
-   the bound (bytes over 3.35 TB/s vs FP32 operations over the FP32 peak);
+6. timing — per contraction, in f32 on the SIMT route: the kernel at its
+   tuned block and at 128^3 (each with its TFLOP/s), the plain version,
+   ``torch.matmul`` (the library yardstick only), and the bound (bytes over
+   3.35 TB/s vs FP32 operations over the FP32 peak);
    then the six contractions in bf16 at the model's tuned records, on the
    tensor-core route, with the profiler's device time, TFLOP/s and the bf16
    bound (bytes vs operations at 989 TFLOP/s);
@@ -92,7 +96,8 @@ line with its seconds:
    version, ``scaled_dot_product_attention`` (yardstick only) and its bound;
    then the scan kernel at rwkv6-7b's prefill shape against its plain
    version and its bound (bytes vs the 4N^2 FLOP a token that any form of
-   the recurrence does; no single PyTorch call computes the recurrence);
+   the recurrence does; no single PyTorch call computes the recurrence),
+   with each pass's device time and the chunked form's FP32 floor;
    flash attention also at jamba's prefill shape (head dim 128, GQA 32/8),
    both bf16 on the tensor cores, and at musicgen's shape in f32 (the SIMT
    route), each with its TFLOP/s;
@@ -152,7 +157,7 @@ RECURRENCE_LEN = 384  # prompt of the prefill-vs-recurrence check: 3 chunks
 # witness below) tells bf16 rounding of the dense products from the scan
 RECURRENCE_LIMIT = 0.15
 F32_WITNESS_LIMIT = RECURRENCE_LIMIT / 10  # the f32 run must sit far below it
-MUTANT_LINE = "out = fmaf(dg, V[row * NP + m], out);  // the u-bonus term"
+MUTANT_LINE = "const float dg = DG[row];  // the u-bonus term"
 # jamba-v0.1-52b at two periods: the published widths, 16 of its 32 layers
 # (the 32 need ~103 GB of bf16 weights; 16 hold 52.1 GB on one 80 GB card)
 JAMBA_LAYERS = 16
@@ -177,6 +182,7 @@ SFU_EXP_PER_CLOCK = 16  # exponentials a clock per SM (sm_90's MUFU rate)
 FLASH_SWEEP = [(64, 64), (128, 64), (64, 32), (128, 32), (64, 16), (128, 16)]  # other "fa" blocks, timed
 FLASH_MUTANT_LINE = "acc[c][i] *= (i & 2) ? alpha1 : alpha0;  // the accumulator's alpha rescale"
 MATMUL_MUTANT_LINE = "const int kchunks = (a.K + kChunk - 1) / kChunk;  // 64-value chunks of K"
+SIMT_MUTANT_LINE = "return (K + kd - 1) / kd;  // k stages of the SIMT ring"
 # the tensor-core route's f32-out limit: the products of bf16 values are
 # exact in f32, but the tensor cores add them into the f32 accumulator with
 # truncation rather than round to nearest, so the error grows with K: the
@@ -332,28 +338,32 @@ def phase_kernel(cases_f) -> None:
         raise SystemExit(f"{len(failures)} kernel cases outside their limit, route or plan")
 
 
-def phase_matmul_mutant(cases_f, mutant: Path) -> None:
-    """The matmul with its tensor-core k loop one 64-value chunk short,
-    through the same wrapper: every tensor-core case with K > 64 must fall
+def phase_matmul_mutant(cases_f, mutant: Path, route: str, dropped: str) -> None:
+    """The matmul with the last k step of ``route`` dropped (a 64-value chunk
+    on "wgmma", a ring stage of the plan's k depth on "simt"), through the
+    same wrapper: every case of that route with K over one step must fall
     outside its limit."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.matmul import _declare, launch_plan
 
+    def over_one_step(case) -> bool:
+        plan = launch_plan(case[0], case[1], case[2], *case[3], case[4], dtype=case[5])
+        return plan["route"] == route and case[1] > plan.get("k_depth", 64)
+
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    picked = [c for c in matmul_cases() if c[1] > 64
-              and launch_plan(c[0], c[1], c[2], *c[3], c[4], dtype=c[5])["route"] == "wgmma"]
+    picked = [c for c in matmul_cases() if over_one_step(c)]
     with _build.substitute("matmul", mutant, _declare):
         mut = [matmul_case_check(case, g) for case in picked]
     for row in mut:
-        cases_f.write(json.dumps({"matmul_mutant": row}) + "\n")
+        cases_f.write(json.dumps({f"matmul_{route}_mutant": row}) + "\n")
     outside = sum(not r["rel_err"] <= r["limit"] for r in mut)
-    emit("mutation", t0, kernel="tiled_matmul", dropped=MATMUL_MUTANT_LINE,
-         wgmma_cases_k_over_64=len(mut), outside_limit=outside,
+    emit("mutation", t0, kernel="tiled_matmul", route=route, dropped=dropped,
+         cases_k_over_one_step=len(mut), outside_limit=outside,
          min_ratio_to_limit=min(r["rel_err"] / r["limit"] for r in mut))
     if outside != len(mut):
-        raise SystemExit(f"matmul mutant: only {outside} of {len(mut)} tensor-core cases "
-                         f"with K > 64 outside their limit")
+        raise SystemExit(f"matmul {route} mutant: only {outside} of {len(mut)} cases with K "
+                         f"over one step outside their limit")
 
 
 def attention_cases() -> list:
@@ -541,7 +551,8 @@ def rwkv_case_check(i: int, case) -> dict:
     torch.cuda.synchronize()
     ratio = max(((a - p).abs() / (RWKV_LIMIT + RWKV_LIMIT * p.abs())).max().item()
                 for a, p in ((y, yp), (st, sp)))
-    return {"bshn": [b, s, h, n], "chunk": chunk, "plan": launch_plan(s, chunk),
+    return {"bshn": [b, s, h, n], "chunk": chunk,
+            "plan": launch_plan(s, chunk, b=b, h=h, n=n, dtype=dt),
             "dtype": str(dt), "s0": with_s0,
             "max_abs_err": max((y - yp).abs().max().item(), (st - sp).abs().max().item()),
             "limit": RWKV_LIMIT, "ratio_to_limit": ratio}
@@ -775,8 +786,8 @@ def device_times(prof, wall_s: float, path: Path) -> dict:
         spans.append((start, start + dur))
         name = e.get("name", "")
         key = ("flash_attention" if "flash_fwd" in name else
-               "tiled_matmul" if "tiled_matmul" in name or "tc_matmul" in name else
-               "rwkv6_scan" if "rwkv6_scan" in name else
+               "tiled_matmul" if "simt_matmul" in name or "tc_matmul" in name else
+               "rwkv6_scan" if "rwkv6_chunk_intra" in name or "rwkv6_state_walk" in name else
                "mamba_scan" if "mamba_scan" in name else "other")
         by[key] += dur / 1e3
     table_ms = sum(getattr(e, "self_device_time_total", 0.0)
@@ -1378,12 +1389,16 @@ def phase_timing(registry, card: str, g) -> list:
                "ms": ms, "ms_128cubed": ms_default, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": max(ops_ms, bytes_ms),
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-               "tflops": 2 * m * k * n / ms / 1e9, "max_abs_err": max_abs,
+               "tflops": 2 * m * k * n / ms / 1e9,
+               "tflops_128cubed": 2 * m * k * n / ms_default / 1e9,
+               "plan_128cubed": launch_plan(m, k, n), "max_abs_err": max_abs,
                "rel_err": err}
         rows.append(row)
         print(json.dumps({"phase": "timing_entry", **row}), flush=True)
     del flush
-    emit("timing", t0, card=card, fp32_peak_flops=peak, hbm_bytes_per_s=HBM_BYTES_PER_S)
+    emit("timing", t0, card=card, fp32_peak_flops=peak, hbm_bytes_per_s=HBM_BYTES_PER_S,
+         **{k: sum(r[k] for r in rows)
+            for k in ("ms", "ms_128cubed", "plain_ms", "library_ms", "bound_ms")})
     return rows
 
 
@@ -1517,7 +1532,10 @@ def phase_rwkv_timing(card: str) -> dict:
                  flush, 20)
     plain_ms = time_ms(lambda: rwkv_plain(r, k, v, logw, u, s0, RWKV_CHUNK), flush, 5)
     del flush
-    plan = launch_plan(s, RWKV_CHUNK)
+    device_ms = {name: kernel_device_ms(
+        lambda: rwkv6_chunk_scan(r, k, v, logw, u, chunk=RWKV_CHUNK, s0=s0), name)
+        for name in ("rwkv6_chunk_intra", "rwkv6_state_walk")}
+    plan = launch_plan(s, RWKV_CHUNK, b=b, h=h, n=n, dtype=torch.bfloat16)
     L = plan["chunk"]
     # bytes: r, k, v (bf16), logw, u, s0 read once; y and the state written once
     nbytes = b * s * h * n * (3 * 2 + 4 + 4) + h * n * 4 + 2 * b * h * n * n * 4
@@ -1535,7 +1553,10 @@ def phase_rwkv_timing(card: str) -> dict:
            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": nbytes, "flops": flops,
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
            "flops_chunked": flops_chunked,
-           "chunked_gflops_per_s": flops_chunked / ms / 1e6, "max_abs_err": max_abs}
+           "chunked_fp32_floor_ms": flops_chunked / F32_PEAK[
+               "pcie" if "PCIe" in card else "sxm"] * 1e3,
+           "chunked_gflops_per_s": flops_chunked / ms / 1e6, "device_ms_by_pass": device_ms,
+           "max_abs_err": max_abs}
     emit("timing_rwkv", t0, **row)
     return row
 
@@ -1614,19 +1635,23 @@ def main() -> int:
     # accumulator's alpha rescale dropped, the tensor-core matmul with its
     # last 64-value k chunk dropped
     mutants = {}
-    for name, line, repl in (
-            ("rwkv6_scan", MUTANT_LINE, "(void)dg;  // mutation: u-bonus dropped"),
-            ("mamba_scan", MAMBA_MUTANT_LINE,
+    for key, name, line, repl in (
+            ("rwkv6_scan", "rwkv6_scan", MUTANT_LINE,
+             "const float dg = 0.f;  // mutation: u-bonus dropped"),
+            ("mamba_scan", "mamba_scan", MAMBA_MUTANT_LINE,
              "const float decay = i == 0 ? 1.f : exp2f(dtv * a2[n]);  // mutation"),
-            ("flash_attention", FLASH_MUTANT_LINE, "(void)0;  // mutation: no alpha rescale"),
-            ("matmul", MATMUL_MUTANT_LINE,
-             "const int kchunks = (a.K + kChunk - 1) / kChunk - 1;  // mutation")):
-        mutants[name] = ROOT / "build" / "mutant" / f"{name}_mutant.cu"
-        mutants[name].parent.mkdir(parents=True, exist_ok=True)
+            ("flash_attention", "flash_attention", FLASH_MUTANT_LINE,
+             "(void)0;  // mutation: no alpha rescale"),
+            ("matmul", "matmul", MATMUL_MUTANT_LINE,
+             "const int kchunks = (a.K + kChunk - 1) / kChunk - 1;  // mutation"),
+            ("matmul_simt", "matmul", SIMT_MUTANT_LINE,
+             "return (K + kd - 1) / kd - 1;  // mutation: the last k stage dropped")):
+        mutants[key] = ROOT / "build" / "mutant" / f"{key}_mutant.cu"
+        mutants[key].parent.mkdir(parents=True, exist_ok=True)
         src = (_build.CSRC / f"{name}.cu").read_text()
         if src.count(line) != 1:
             raise SystemExit(f"mutation: {line!r} not found once in {name}.cu")
-        mutants[name].write_text(src.replace(line, repl))
+        mutants[key].write_text(src.replace(line, repl))
 
     t0 = time.perf_counter()
     names = ["matmul", "flash_attention", "rwkv6_scan", "mamba_scan"]
@@ -1659,7 +1684,8 @@ def main() -> int:
 
     with open(out_dir / "chip_smoke_cases.jsonl", "w") as cases_f:
         phase_kernel(cases_f)
-        phase_matmul_mutant(cases_f, mutants["matmul"])
+        phase_matmul_mutant(cases_f, mutants["matmul"], "wgmma", MATMUL_MUTANT_LINE)
+        phase_matmul_mutant(cases_f, mutants["matmul_simt"], "simt", SIMT_MUTANT_LINE)
         phase_attention(cases_f)
         phase_attention_mutant(cases_f, mutants["flash_attention"])
         phase_rwkv_scan(cases_f)

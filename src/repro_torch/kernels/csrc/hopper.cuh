@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks, written by hand: 16-byte cp.async with
-// zero fill, the 128-byte shared-memory swizzle, wgmma matrix descriptors,
+// Hopper (sm_90a) building blocks, written by hand: 16- and 4-byte cp.async
+// with zero fill, the 128-byte shared-memory swizzle, wgmma matrix descriptors,
 // the warpgroup fences and wgmma.mma_async at bf16 x bf16 -> f32.  Header
 // only; a source that includes it is built for sm_90a (wgmma exists only
 // there).  `kernels/_build.py` hashes this header with every source that
@@ -46,6 +46,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // (the source is then not read)
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes global -> shared, asynchronously (through L1: .cg takes only 16);
+// src_bytes = 0 writes a zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
 }

@@ -63,34 +63,44 @@
 //   specialisation, setmaxnreg, persistent CTAs or clusters yet.
 //
 // "simt" -- every f32 launch (TF32 cannot meet the 1e-5 f32 limit) and bf16
-// with K or N off a multiple of 8.  Bound: max(2*M*K*N / FP32 FMA peak,
-// bytes / 3.35 TB/s); the kernel is f32 arithmetic without TF32, as the
-// reference is, so the FP32 non-tensor peak applies (67 TFLOP/s on H100
-// SXM, 51 on PCIe).  The design stages A and B slabs in shared memory and
-// gives each thread a register micro-tile (RM x RN outputs, RM + RN
-// shared-memory loads per RM * RN FMAs); bf16 is widened with
-// __bfloat162float.  Blocks of any size are accepted, because the registry
-// can hold any:
-//   * shared memory: a bk-deep slab is staged in sub-chunks of at most KC
-//     (8 to 128) k values, so no block ever needs more than ~35 KB of static
-//     shared memory, whatever bk is;
-//   * registers: the CTA tile is walked in sub-tiles of (TR*RM) x (TC*RN)
-//     outputs (kSubTiles below), each held in registers while k runs, so a
-//     tile larger than the threads can hold is computed a sub-tile at a
-//     time;
-//   * small blocks: when bm*bn is below the 256 threads of a CTA, one CTA
-//     covers G neighbouring blocks along the fast grid dimension, i.e. the
-//     CTA tile is (bm, G*bn) for "mn" and (G*bm, bn) for "nm", with
-//     G = min(256 / (bm*bn), blocks along that dimension,
-//             CTAs / (2 * SMs)):
-//     grouping stops while at least two CTAs per SM remain, so a thin
-//     decode product keeps the parallelism its tuned block asked for.  The
-//     blocks are independent and share the k stepping, so this changes no
-//     value, only how many threads idle.
-//   The sub-tile shape is the one that wastes the fewest padded outputs on
-//   the CTA tile (ties: the first listed, which has the larger register
-//   micro-tile).  Thin sub-tiles stage deeper k chunks (larger KC), so each
-//   chunk still moves ~8K values and keeps enough loads in flight.
+// with K or N off a multiple of 8.  Bound: max(2*M*K*N / FP32 peak, bytes /
+// 3.35 TB/s); f32 FMAs without TF32, as the reference computes, so the FP32
+// non-tensor peak applies (67 TFLOP/s on H100 SXM, 51 on PCIe): prefill is
+// bound by the FMAs, decode (M = 4) by reading B once.
+//   Block mapping (the registry's block, clamped to (M, K, N)), as on the
+//   tensor-core route: the m tile is 64 if bm <= 64 else 128, the n tile 64
+//   if bn <= 64 else 128, and bk sets a ring stage's k depth, the power of
+//   two >= bk in [8, 64]; the ring has up to 4 stages in the shared memory
+//   (in a third of it at 64 x 64, whose 80-register threads then run three
+//   CTAs an SM).  A thin block does not give thin CTAs, nor a large one
+//   serial sub-tiles.
+//   * 256 threads, 16 x 16, each with a register micro-tile of (TM / 16) x
+//     (TN / 16) <= 8 x 8 outputs read from shared memory as float4.  A and
+//     B (N, K) arrive k-contiguous and stay so (cp.async cannot transpose): a
+//     thread reads 4 k values of one of its rows as one float4.  B (K, N)
+//     arrives n-contiguous: a thread reads 4 of its columns as one float4.
+//     Staged k-contiguous rows are padded by 4 floats (an odd number of
+//     16-byte units a row), so the 16 rows of B (N, K) a half-warp reads lie
+//     in distinct bank groups, and a half-warp reads one row of A
+//     (broadcast): no bank conflicts by construction.  At 8 x 8, 16 float4
+//     loads feed 256 FMAs;
+//   * loads: a ring of stages in dynamic shared memory, filled by 16-byte
+//     cp.async with zero fill past M, N and K where rows allow it (K % 4 == 0
+//     for A and B (N, K), N % 4 == 0 for B (K, N), 16-byte aligned bases),
+//     by 4-byte cp.async for other f32 shapes, and by loads through
+//     registers that widen bf16 to f32.  stages - 1 steps are in flight while
+//     one is multiplied; one barrier a step;
+//   * each output sums k in order in f32 and is stored once (f32 or bf16).
+//   When M <= 16 (decode) the plan differs: the m tile is 4 (M <= 4) or 16,
+//   the n tile the power of two >= bn in [16, 128] as long as at least 128
+//   CTAs remain to stream B (16 columns at N = 2048, up to 64 at N = 8192:
+//   on an H100 a 16-CTA tile took 0.20 ms where 128 CTAs took 0.045), and K
+//   is split over the CTA's 1024 / tn groups of tn / 4 threads.  A stage
+//   holds 4 k values for each group, each group sums its own partial tile,
+//   and the partial tiles are summed once in shared memory, in group order
+//   (no atomics).  The ring has up to 4 stages in half the shared memory, so
+//   two CTAs can share an SM.  PERF.md has the measurements
+//   (benchmarks/port/matmul_decode_plans.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,177 +111,417 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// wait until at most n of this thread's committed cp.async groups are in
+// flight (n <= 14, uniform over the CTA)
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  using namespace hopper;
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    case 7: cp_async_wait<7>(); break;
+    case 8: cp_async_wait<8>(); break;
+    case 9: cp_async_wait<9>(); break;
+    case 10: cp_async_wait<10>(); break;
+    case 11: cp_async_wait<11>(); break;
+    case 12: cp_async_wait<12>(); break;
+    case 13: cp_async_wait<13>(); break;
+    default: cp_async_wait<14>(); break;
+  }
 }
 
-// TR x TC threads; each owns RM x RN outputs of a (TR*RM) x (TC*RN)
-// sub-tile at rows ty + i*TR and columns tx + j*TC (strided, so a warp reads
-// consecutive shared-memory words of B and broadcasts words of A).
-template <typename TIn, typename TOut, int TR, int TC, int RM, int RN, int KC>
-__global__ void __launch_bounds__(kThreads)
-tiled_matmul(const TIn* __restrict__ A, const TIn* __restrict__ B,
-             TOut* __restrict__ C, int M, int K, int N, int bk, int tm, int tn,
-             int order_nm, int trans_b) {
-  static_assert(TR * TC == kThreads, "thread layout");
-  constexpr int SM = TR * RM;
-  constexpr int SN = TC * RN;
-  __shared__ float As[KC][SM];
-  __shared__ float Bs[KC][SN];
+constexpr int kSmem = 232448;  // dynamic shared memory a block may use
 
-  const int gmc = (M + tm - 1) / tm;
-  const int gnc = (N + tn - 1) / tn;
+// raises a kernel's dynamic shared memory limit to kSmem, once a device
+template <auto Kernel>
+cudaError_t allow_smem() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// "simt" route: f32 FMAs fed by a cp.async ring
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 256;                  // threads of a SIMT CTA
+constexpr int kSimtStages = 4;                 // ring stages at most
+constexpr int kDecodeM = 16;                   // M <= 16: the decode plan
+constexpr int kDecodeCtas = 128;               // ... whose n tile leaves this many CTAs
+constexpr int kDecodeSmem = kSmem / 2 - 1024;  // two decode CTAs an SM
+constexpr int kPad = 4;                        // floats after each staged row
+
+__host__ __device__ constexpr int ilog2(int x) { return x > 1 ? 1 + ilog2(x / 2) : 0; }
+
+// floats of one ring stage: A [tm][kd + 4] (k contiguous), then B [kd][tn + 4]
+// (B (K, N): n contiguous) or [tn][kd + 4] (B (N, K): k contiguous), sized for
+// the larger of the two so that the plan does not depend on the B layout
+__host__ __device__ constexpr int simt_stage_floats(int tm, int tn, int kd) {
+  return tm * (kd + kPad) + (kd + kPad) * (tn + kPad);
+}
+
+struct SimtPlan {
+  int tm, tn, kd, stages, ctas, ks;
+};
+
+SimtPlan simt_plan(int M, int K, int N, int bm, int bk, int bn) {
+  bm = bm < M ? bm : M;
+  bk = bk < K ? bk : K;
+  bn = bn < N ? bn : N;
+  SimtPlan p;
+  int budget;
+  if (M <= kDecodeM) {  // one m tile; K split over ks groups of tn / 4 threads
+    p.tm = M <= 4 ? 4 : 16;
+    p.tn = 16;  // the power of two >= bn in [16, 128] that leaves >= 128 CTAs
+    while (p.tn < bn && p.tn < 128 && cdiv(N, 2 * p.tn) >= kDecodeCtas) p.tn *= 2;
+    p.ks = 4 * kThreads / p.tn;
+    p.kd = 4 * p.ks;  // 4 k values a group a stage
+    budget = kDecodeSmem;
+  } else {
+    p.tm = bm <= 64 ? 64 : 128;
+    p.tn = bn <= 64 ? 64 : 128;
+    p.kd = 8;
+    while (p.kd < bk && p.kd < 64) p.kd *= 2;
+    p.ks = 1;
+    // 64 x 64: a third of the shared memory, so that three CTAs share an SM
+    budget = p.tm * p.tn <= 64 * 64 ? kSmem / 3 - 1024 : kSmem;
+  }
+  const int fit = budget / (simt_stage_floats(p.tm, p.tn, p.kd) * 4);
+  p.stages = fit < kSimtStages ? fit : kSimtStages;
+  p.ctas = cdiv(M, p.tm) * cdiv(N, p.tn);
+  return p;
+}
+
+// the ring, or the decode plan's partial tiles if they are larger
+size_t simt_smem_bytes(const SimtPlan& p) {
+  const size_t ring = (size_t)p.stages * simt_stage_floats(p.tm, p.tn, p.kd) * 4;
+  const size_t part = p.ks > 1 ? (size_t)p.ks * p.tm * p.tn * 4 : 0;
+  return ring > part ? ring : part;
+}
+
+struct SimtArgs {
+  const void* A;
+  const void* B;
+  void* C;
+  int M, K, N, kd, stages, order_nm, in_bf16, out_bf16;
+  int vec_a, vec_b;  // the operand's rows allow 16-byte copies
+};
+
+__device__ __forceinline__ int simt_steps(int K, int kd) {
+  return (K + kd - 1) / kd;  // k stages of the SIMT ring
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void store_out(const SimtArgs& a, size_t at, float v) {
+  if (a.out_bf16)
+    static_cast<__nv_bfloat16*>(a.C)[at] = __float2bfloat16(v);
+  else
+    static_cast<float*>(a.C)[at] = v;
+}
+
+// rows [r0, r0 + rows) x k [k0, k0 + 2^kl) of a row-major (R, K) matrix into
+// dst [rows][2^kl + 4] (k contiguous); rows past R and k past K are zero
+__device__ __forceinline__ void stage_k_rows(float* dst, const void* src, int R, int r0,
+                                             int rows, int K, int k0, int kl, int vec,
+                                             int bf16, int tid) {
+  using namespace hopper;
+  const int kd = 1 << kl, pitch = kd + kPad;
+  if (bf16) {  // through registers, widened to f32
+    const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(src);
+    for (int e = tid; e < rows << kl; e += kThreads) {
+      const int r = e >> kl, kk = e & (kd - 1), gr = r0 + r, gk = k0 + kk;
+      dst[r * pitch + kk] = gr < R && gk < K ? __bfloat162float(s[(size_t)gr * K + gk]) : 0.f;
+    }
+  } else if (vec) {  // K % 4 == 0: a 16-byte piece is wholly in or out
+    const float* s = static_cast<const float*>(src);
+    for (int e = tid; e < rows << (kl - 2); e += kThreads) {
+      const int r = e >> (kl - 2), kk = 4 * (e & (kd / 4 - 1)), gr = r0 + r, gk = k0 + kk;
+      const bool in = gr < R && gk < K;
+      cp_async16(smem_u32(dst + r * pitch + kk), in ? s + (size_t)gr * K + gk : s, in ? 16 : 0);
+    }
+  } else {
+    const float* s = static_cast<const float*>(src);
+    for (int e = tid; e < rows << kl; e += kThreads) {
+      const int r = e >> kl, kk = e & (kd - 1), gr = r0 + r, gk = k0 + kk;
+      const bool in = gr < R && gk < K;
+      cp_async4(smem_u32(dst + r * pitch + kk), in ? s + (size_t)gr * K + gk : s, in ? 4 : 0);
+    }
+  }
+}
+
+// k [k0, k0 + 2^kl) x columns [n0, n0 + TN) of a row-major (K, N) matrix into
+// dst [2^kl][TN + 4] (n contiguous); k past K and columns past N are zero
+template <int TN>
+__device__ __forceinline__ void stage_n_rows(float* dst, const void* src, int K, int k0,
+                                             int kl, int N, int n0, int vec, int bf16,
+                                             int tid) {
+  using namespace hopper;
+  constexpr int pitch = TN + kPad;
+  if (bf16) {
+    const __nv_bfloat16* s = static_cast<const __nv_bfloat16*>(src);
+    for (int e = tid; e < TN << kl; e += kThreads) {
+      const int kr = e / TN, c = e % TN, gk = k0 + kr, gn = n0 + c;
+      dst[kr * pitch + c] = gk < K && gn < N ? __bfloat162float(s[(size_t)gk * N + gn]) : 0.f;
+    }
+  } else if (vec) {  // N % 4 == 0
+    const float* s = static_cast<const float*>(src);
+    for (int e = tid; e < (TN / 4) << kl; e += kThreads) {
+      const int kr = e / (TN / 4), c = 4 * (e % (TN / 4)), gk = k0 + kr, gn = n0 + c;
+      const bool in = gk < K && gn < N;
+      cp_async16(smem_u32(dst + kr * pitch + c), in ? s + (size_t)gk * N + gn : s, in ? 16 : 0);
+    }
+  } else {
+    const float* s = static_cast<const float*>(src);
+    for (int e = tid; e < TN << kl; e += kThreads) {
+      const int kr = e / TN, c = e % TN, gk = k0 + kr, gn = n0 + c;
+      const bool in = gk < K && gn < N;
+      cp_async4(smem_u32(dst + kr * pitch + c), in ? s + (size_t)gk * N + gn : s, in ? 4 : 0);
+    }
+  }
+}
+
+// One TM x TN output tile a CTA (M > 16), thread (ty, tx) of 16 x 16 owning
+// rows ty + 16 i (i < TM / 16) and TN / 16 columns: with B (K, N) the float4
+// runs 4 tx + 64 q (q < TN / 64), read from the n-contiguous stage as float4;
+// with B (N, K) the columns tx + 16 j, read as float4 along k from the
+// k-contiguous stage.  A is read as float4 along k.  Each output sums k in
+// order, in f32.
+template <int TM, int TN, int TB>
+__global__ void __launch_bounds__(kThreads, 1) simt_matmul(const SimtArgs a) {
+  using namespace hopper;
+  constexpr int RM = TM / 16, RN = TN / 16;
+  extern __shared__ float4 simt_smem[];
+  float* const smem = reinterpret_cast<float*>(simt_smem);
+  const int kd = a.kd, kl = __ffs(kd) - 1, pk = kd + kPad;  // kd is a power of two
+  const int b_off = TM * pk, stage = simt_stage_floats(TM, TN, kd);
+
+  const int gm = cdiv(a.M, TM), gn = cdiv(a.N, TN);
   const int l = blockIdx.x;
-  const int bi = order_nm ? l % gmc : l / gnc;
-  const int bj = order_nm ? l / gmc : l % gnc;
-  const int m_lo = bi * tm, m_hi = min(m_lo + tm, M);
-  const int n_lo = bj * tn, n_hi = min(n_lo + tn, N);
+  const int bi = a.order_nm ? l % gm : l / gn;
+  const int bj = a.order_nm ? l / gm : l % gn;
+  const int m0 = bi * TM, n0 = bj * TN;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TC, ty = tid / TC;
+  auto load = [&](int t, int s) {  // k stage t into ring stage s
+    float* const st = smem + s * stage;
+    stage_k_rows(st, a.A, a.M, m0, TM, a.K, t * kd, kl, a.vec_a, a.in_bf16, tid);
+    if constexpr (TB)
+      stage_k_rows(st + b_off, a.B, a.N, n0, TN, a.K, t * kd, kl, a.vec_b, a.in_bf16, tid);
+    else
+      stage_n_rows<TN>(st + b_off, a.B, a.K, t * kd, kl, a.N, n0, a.vec_b, a.in_bf16, tid);
+  };
 
-  for (int sm = m_lo; sm < m_hi; sm += SM) {
-    for (int sn = n_lo; sn < n_hi; sn += SN) {
-      float acc[RM][RN];
+  float acc[RM][RN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+
+  const int steps = simt_steps(a.K, kd);
+  for (int t = 0; t < a.stages - 1; ++t) {
+    if (t < steps) load(t, t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait_n(a.stages - 2);  // this thread's copies of step t landed
+    // every thread's copies of step t landed, and every thread is done with
+    // step t - 1, whose stage the next load refills
+    __syncthreads();
+    if (t + a.stages - 1 < steps) load(t + a.stages - 1, (t + a.stages - 1) % a.stages);
+    cp_async_commit();
+    const float* const As = smem + (t % a.stages) * stage;
+    const float* const Bs = As + b_off;
+#pragma unroll 2
+    for (int k4 = 0; k4 < kd; k4 += 4) {  // kd >= 8
+      float4 av[RM];
 #pragma unroll
       for (int i = 0; i < RM; ++i)
+        av[i] = *reinterpret_cast<const float4*>(As + (ty + 16 * i) * pk + k4);
+      if constexpr (TB) {
+        float4 bv[RN];
 #pragma unroll
-        for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
-
-      for (int kb = 0; kb < K; kb += bk) {
-        const int kend = min(kb + bk, K);
-        for (int k0 = kb; k0 < kend; k0 += KC) {
-          const int kc = min(KC, kend - k0);
-          // A slab (SM x kc), read along k, stored k-major
-          for (int e = tid; e < SM * kc; e += kThreads) {
-            const int r = e / kc, kk = e % kc;
-            const int gm = sm + r;
-            As[kk][r] = gm < m_hi ? to_f(A[(size_t)gm * K + k0 + kk]) : 0.f;
-          }
-          // B slab (kc x SN), read along n (or along k when transposed)
-          if (!trans_b) {
-            for (int e = tid; e < kc * SN; e += kThreads) {
-              const int kk = e / SN, c = e % SN;
-              const int gn = sn + c;
-              Bs[kk][c] = gn < n_hi ? to_f(B[(size_t)(k0 + kk) * N + gn]) : 0.f;
-            }
-          } else {
-            for (int e = tid; e < kc * SN; e += kThreads) {
-              const int c = e / kc, kk = e % kc;
-              const int gn = sn + c;
-              Bs[kk][c] = gn < n_hi ? to_f(B[(size_t)gn * K + k0 + kk]) : 0.f;
-            }
-          }
-          __syncthreads();
-#pragma unroll 4
-          for (int kk = 0; kk < kc; ++kk) {
-            float a[RM], b[RN];
+        for (int j = 0; j < RN; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(Bs + (tx + 16 * j) * pk + k4);
 #pragma unroll
-            for (int i = 0; i < RM; ++i) a[i] = As[kk][ty + i * TR];
+        for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-            for (int j = 0; j < RN; ++j) b[j] = Bs[kk][tx + j * TC];
+          for (int i = 0; i < RM; ++i)
 #pragma unroll
-            for (int i = 0; i < RM; ++i)
+            for (int j = 0; j < RN; ++j)
+              acc[i][j] = fmaf(lane4(av[i], kk), lane4(bv[j], kk), acc[i][j]);
+      } else {
 #pragma unroll
-              for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-          }
-          __syncthreads();
-        }
-      }
-
+        for (int kk = 0; kk < 4; ++kk) {
+          float4 bv[RN / 4];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const int gm = sm + ty + i * TR;
-        if (gm >= m_hi) continue;
+          for (int q = 0; q < RN / 4; ++q)
+            bv[q] = *reinterpret_cast<const float4*>(Bs + (k4 + kk) * (TN + kPad) + 64 * q +
+                                                     4 * tx);
 #pragma unroll
-        for (int j = 0; j < RN; ++j) {
-          const int gn = sn + tx + j * TC;
-          if (gn < n_hi) C[(size_t)gm * N + gn] = from_f<TOut>(acc[i][j]);
+          for (int i = 0; i < RM; ++i)
+#pragma unroll
+            for (int j = 0; j < RN; ++j)
+              acc[i][j] = fmaf(lane4(av[i], kk), lane4(bv[j / 4], j % 4), acc[i][j]);
         }
       }
     }
   }
-}
+  cp_async_wait<0>();
 
-struct SubTile {
-  int sm, sn;
-};
-// must list the template configurations launch() instantiates, in order
-constexpr int kConfigs = 9;
-constexpr SubTile kSubTiles[kConfigs] = {{64, 64}, {16, 256}, {256, 16},
-                                         {4, 1024}, {1, 1024}, {4, 64},
-                                         {64, 4}, {1, 256}, {16, 16}};
-
-struct Plan {
-  int tm, tn, config, ctas;
-};
-
-Plan make_plan(int M, int N, int bm, int bn, int order_nm, int sms) {
-  bm = bm < M ? bm : M;
-  bn = bn < N ? bn : N;
-  int tm = bm, tn = bn;
-  if ((long long)bm * bn < kThreads) {
-    const int fast = order_nm ? cdiv(M, bm) : cdiv(N, bn);
-    const long long ctas = (long long)cdiv(M, bm) * cdiv(N, bn);
-    long long g = kThreads / (bm * bn);
-    if (g > fast) g = fast;
-    if (g > ctas / (2 * sms)) g = ctas / (2 * sms);
-    if (g < 1) g = 1;
-    if (order_nm) tm = bm * (int)g; else tn = bn * (int)g;
-  }
-  int best = 0;
-  long long best_pad = -1;
-  for (int c = 0; c < kConfigs; ++c) {
-    const long long pad = (long long)cdiv(tm, kSubTiles[c].sm) * kSubTiles[c].sm *
-                          cdiv(tn, kSubTiles[c].sn) * kSubTiles[c].sn;
-    if (best_pad < 0 || pad < best_pad) {
-      best_pad = pad;
-      best = c;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= a.M) continue;
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      const int col = n0 + (TB ? tx + 16 * j : 64 * (j / 4) + 4 * tx + j % 4);
+      if (col < a.N) store_out(a, (size_t)row * a.N + col, acc[i][j]);
     }
   }
-  return Plan{tm, tn, best, cdiv(M, tm) * cdiv(N, tn)};
 }
 
-template <typename TIn, typename TOut>
-void launch(const Plan& p, const void* a, const void* b, void* c, int M, int K,
-            int N, int bk, int order_nm, int trans_b, cudaStream_t s) {
-  const TIn* A = static_cast<const TIn*>(a);
-  const TIn* B = static_cast<const TIn*>(b);
-  TOut* C = static_cast<TOut*>(c);
-  const dim3 grid(p.ctas), block(kThreads);
-#define LT_LAUNCH(TR, TC, RM, RN, KC)                                              \
-  tiled_matmul<TIn, TOut, TR, TC, RM, RN, KC><<<grid, block, 0, s>>>(              \
-      A, B, C, M, K, N, bk, p.tm, p.tn, order_nm, trans_b)
-  switch (p.config) {
-    case 0: LT_LAUNCH(16, 16, 4, 4, 32); break;
-    case 1: LT_LAUNCH(4, 64, 4, 4, 32); break;
-    case 2: LT_LAUNCH(64, 4, 4, 4, 32); break;
-    case 3: LT_LAUNCH(1, 256, 4, 4, 8); break;
-    case 4: LT_LAUNCH(1, 256, 1, 4, 8); break;
-    case 5: LT_LAUNCH(4, 64, 1, 1, 128); break;
-    case 6: LT_LAUNCH(64, 4, 1, 1, 128); break;
-    case 7: LT_LAUNCH(1, 256, 1, 1, 32); break;
-    default: LT_LAUNCH(16, 16, 1, 1, 128); break;
+// M <= 16 (a decode step, bound by reading B once): one MT x TN tile a CTA,
+// MT >= M.  Its 256 threads are KS = 1024 / TN groups of TN / 4; a ring stage
+// holds KD = 4 KS values of k, and group g multiplies values 4g..4g+3 of each
+// stage into its own MT x 4 partial tile (thread c of the group: columns
+// 4c..4c+3 with B (K, N), c + (TN / 4) j with B (N, K)).  The KS partial
+// tiles are summed once in shared memory, in group order: no atomics, each
+// output stored once.
+template <int MT, int TN, int TB>
+__global__ void __launch_bounds__(kThreads, 1) simt_matmul_decode(const SimtArgs a) {
+  using namespace hopper;
+  constexpr int CG = TN / 4, KS = kThreads / CG, KD = 4 * KS, PK = KD + kPad;
+  constexpr int KL = ilog2(KD), B_OFF = MT * PK, STAGE = simt_stage_floats(MT, TN, KD);
+  extern __shared__ float4 simt_smem[];
+  float* const smem = reinterpret_cast<float*>(simt_smem);
+  const int n0 = blockIdx.x * TN;
+  const int tid = threadIdx.x, c = tid % CG, g = tid / CG;
+
+  auto load = [&](int t, int s) {
+    float* const st = smem + s * STAGE;
+    stage_k_rows(st, a.A, a.M, 0, MT, a.K, t * KD, KL, a.vec_a, a.in_bf16, tid);
+    if constexpr (TB)
+      stage_k_rows(st + B_OFF, a.B, a.N, n0, TN, a.K, t * KD, KL, a.vec_b, a.in_bf16, tid);
+    else
+      stage_n_rows<TN>(st + B_OFF, a.B, a.K, t * KD, KL, a.N, n0, a.vec_b, a.in_bf16, tid);
+  };
+
+  float acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
+
+  const int steps = simt_steps(a.K, KD);
+  for (int t = 0; t < a.stages - 1; ++t) {
+    if (t < steps) load(t, t);
+    cp_async_commit();
   }
-#undef LT_LAUNCH
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait_n(a.stages - 2);
+    __syncthreads();
+    if (t + a.stages - 1 < steps) load(t + a.stages - 1, (t + a.stages - 1) % a.stages);
+    cp_async_commit();
+    const float* const As = smem + (t % a.stages) * STAGE;
+    const float* const Bs = As + B_OFF;
+    float4 av[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) av[m] = *reinterpret_cast<const float4*>(As + m * PK + 4 * g);
+    if constexpr (TB) {
+      float4 bv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        bv[j] = *reinterpret_cast<const float4*>(Bs + (c + CG * j) * PK + 4 * g);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[m][j] = fmaf(lane4(av[m], kk), lane4(bv[j], kk), acc[m][j]);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 bv = *reinterpret_cast<const float4*>(Bs + (4 * g + kk) * (TN + kPad) +
+                                                           4 * c);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(lane4(av[m], kk), lane4(bv, j), acc[m][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread is done with the ring
+
+  float* const part = smem;  // [KS][MT][TN]
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      part[(g * MT + m) * TN + (TB ? c + CG * j : 4 * c + j)] = acc[m][j];
+  __syncthreads();
+  for (int o = tid; o < MT * TN; o += kThreads) {
+    const int m = o / TN, col = o % TN;
+    if (m >= a.M || n0 + col >= a.N) continue;
+    float sum = 0.f;
+    for (int gg = 0; gg < KS; ++gg) sum += part[(gg * MT + m) * TN + col];
+    store_out(a, (size_t)m * a.N + n0 + col, sum);
+  }
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      sms < 1)
-    sms = 132;
-  return sms;
+template <int TM, int TN, int TB>
+int launch_simt(const SimtPlan& p, const SimtArgs& a, cudaStream_t s) {
+  const cudaError_t err = allow_smem<simt_matmul<TM, TN, TB>>();
+  if (err != cudaSuccess) return (int)err;
+  simt_matmul<TM, TN, TB><<<p.ctas, kThreads, simt_smem_bytes(p), s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int MT, int TN, int TB>
+int launch_simt_decode(const SimtPlan& p, const SimtArgs& a, cudaStream_t s) {
+  const cudaError_t err = allow_smem<simt_matmul_decode<MT, TN, TB>>();
+  if (err != cudaSuccess) return (int)err;
+  simt_matmul_decode<MT, TN, TB><<<p.ctas, kThreads, simt_smem_bytes(p), s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int TB>
+int launch_simt_tile(const SimtPlan& p, const SimtArgs& a, cudaStream_t s) {
+  if (p.ks > 1) {
+    switch (p.tm * 1000 + p.tn) {
+      case 4016: return launch_simt_decode<4, 16, TB>(p, a, s);
+      case 4032: return launch_simt_decode<4, 32, TB>(p, a, s);
+      case 4064: return launch_simt_decode<4, 64, TB>(p, a, s);
+      case 4128: return launch_simt_decode<4, 128, TB>(p, a, s);
+      case 16016: return launch_simt_decode<16, 16, TB>(p, a, s);
+      case 16032: return launch_simt_decode<16, 32, TB>(p, a, s);
+      case 16064: return launch_simt_decode<16, 64, TB>(p, a, s);
+      case 16128: return launch_simt_decode<16, 128, TB>(p, a, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (p.tm * 1000 + p.tn) {
+    case 64064: return launch_simt<64, 64, TB>(p, a, s);
+    case 64128: return launch_simt<64, 128, TB>(p, a, s);
+    case 128064: return launch_simt<128, 64, TB>(p, a, s);
+    case 128128: return launch_simt<128, 128, TB>(p, a, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -280,8 +530,7 @@ int sm_count() {
 
 constexpr int kWG = 128;        // threads of a warpgroup
 constexpr int kChunk = 64;      // k values of a 128-byte swizzle row
-constexpr int kTcSmem = 232448;                 // dynamic shared memory a block may use
-constexpr int kTcRing = kTcSmem - 1024;         // less the 1024-byte alignment slack
+constexpr int kTcRing = kSmem - 1024;           // less the 1024-byte alignment slack
 constexpr int kTcStages = 4;                    // ring stages when M > 64
 constexpr int kTcDeepStages = 16;               // at most, when M <= 64
 constexpr int kTcMaxKc = 4;                     // 64-value chunks a stage
@@ -328,29 +577,6 @@ struct TcArgs {
 // threads of a CTA: TM / 64 warpgroups over M, each KS warpgroups over K
 template <int TM, int KS>
 __host__ __device__ constexpr int tc_threads() { return TM / 64 * KS * kWG; }
-
-// wait until at most n of this thread's committed cp.async groups are in
-// flight (n <= 14, uniform over the CTA)
-__device__ __forceinline__ void cp_async_wait_n(int n) {
-  using namespace hopper;
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    case 6: cp_async_wait<6>(); break;
-    case 7: cp_async_wait<7>(); break;
-    case 8: cp_async_wait<8>(); break;
-    case 9: cp_async_wait<9>(); break;
-    case 10: cp_async_wait<10>(); break;
-    case 11: cp_async_wait<11>(); break;
-    case 12: cp_async_wait<12>(); break;
-    case 13: cp_async_wait<13>(); break;
-    default: cp_async_wait<14>(); break;
-  }
-}
 
 // TM / 64 warpgroups, each 64 rows of the TM x TN tile; with KS > 1 (TM =
 // 64 only) KS warpgroups share those rows and split K: warpgroup w takes
@@ -514,17 +740,8 @@ tc_matmul(const TcArgs a) {
 
 template <int TM, int TN, int TB, int KS>
 int launch_tc(const TcPlan& p, const TcArgs& a, cudaStream_t s) {
-  // the attribute is set once a device, at the most any plan asks for
-  static bool attr_set[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = allow_smem<tc_matmul<TM, TN, TB, KS>>();
   if (err != cudaSuccess) return (int)err;
-  if (dev >= 64 || !attr_set[dev]) {
-    err = cudaFuncSetAttribute(tc_matmul<TM, TN, TB, KS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) attr_set[dev] = true;
-  }
   const size_t smem = 1024 + (size_t)p.stages * p.kc * (TM + TN) * 128;
   tc_matmul<TM, TN, TB, KS><<<p.ctas, tc_threads<TM, KS>(), smem, s>>>(a);
   return (int)cudaGetLastError();
@@ -559,12 +776,12 @@ extern "C" {
 
 // How a launch is laid out, as kernels/matmul.py::launch_plan computes it:
 // out[0] = route (1 = "wgmma", 0 = "simt"), out[1..2] = CTA tile rows and
-// columns, out[3] = k chunks a ring stage ("wgmma") or the register sub-tile
-// configuration, an index into kSubTiles ("simt"), out[4] = ring stages
-// ("wgmma", else 0), out[5] = number of CTAs, out[6] = warpgroups that
-// split K ("wgmma", else 0).
+// columns, out[3] = k chunks a ring stage ("wgmma") or k values a ring stage
+// ("simt"), out[4] = ring stages, out[5] = number of CTAs, out[6] = the
+// warpgroups ("wgmma") or thread groups ("simt") that split K.
 int looptune_matmul_plan(int M, int K, int N, int bm, int bk, int bn, int order_nm,
                          int bf16, int* out) {
+  (void)order_nm;  // the grid order changes no plan, only the CTAs' order
   if (M < 1 || K < 1 || N < 1 || bm < 1 || bk < 1 || bn < 1)
     return (int)cudaErrorInvalidValue;
   if (tc_eligible(K, N, bf16)) {
@@ -572,8 +789,8 @@ int looptune_matmul_plan(int M, int K, int N, int bm, int bk, int bn, int order_
     const int v[7] = {1, p.tm, p.tn, p.kc, p.stages, p.ctas, p.ks};
     for (int i = 0; i < 7; ++i) out[i] = v[i];
   } else {
-    const Plan p = make_plan(M, N, bm, bn, order_nm, sm_count());
-    const int v[7] = {0, p.tm, p.tn, p.config, 0, p.ctas, 0};
+    const SimtPlan p = simt_plan(M, K, N, bm, bk, bn);
+    const int v[7] = {0, p.tm, p.tn, p.kd, p.stages, p.ctas, p.ks};
     for (int i = 0; i < 7; ++i) out[i] = v[i];
   }
   return 0;
@@ -599,20 +816,12 @@ int looptune_matmul(const void* a, const void* b, void* c, int M, int K, int N,
                       order_nm, out_bf16};
     return launch_tc_plan(p, args, trans_b, s);
   }
-  const Plan p = make_plan(M, N, bm, bn, order_nm, sm_count());
-  bk = bk < K ? bk : K;
-  if (in_bf16) {
-    if (out_bf16)
-      launch<__nv_bfloat16, __nv_bfloat16>(p, a, b, c, M, K, N, bk, order_nm, trans_b, s);
-    else
-      launch<__nv_bfloat16, float>(p, a, b, c, M, K, N, bk, order_nm, trans_b, s);
-  } else {
-    if (out_bf16)
-      launch<float, __nv_bfloat16>(p, a, b, c, M, K, N, bk, order_nm, trans_b, s);
-    else
-      launch<float, float>(p, a, b, c, M, K, N, bk, order_nm, trans_b, s);
-  }
-  return (int)cudaGetLastError();
+  const SimtPlan p = simt_plan(M, K, N, bm, bk, bn);
+  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
+  const SimtArgs args{a, b, c, M, K, N, p.kd, p.stages, order_nm, in_bf16, out_bf16,
+                      K % 4 == 0 && aligned(a),
+                      (trans_b ? K % 4 == 0 : N % 4 == 0) && aligned(b)};
+  return trans_b ? launch_simt_tile<1>(p, args, s) : launch_simt_tile<0>(p, args, s);
 }
 
 }  // extern "C"

@@ -11,14 +11,21 @@ takes it only for tensors that lie on the CPU.
 Two routes, by the launch's arguments alone (:func:`launch_plan`): bf16
 operands with K and N multiples of 8 run on the tensor cores ("wgmma":
 wgmma from a cp.async ring in shared memory, f32 accumulation), everything
-else, every f32 launch included, runs the SIMT kernel ("simt": f32 FMAs;
-TF32 would miss the f32 limit of 1e-5).  On "wgmma" the block, clamped to
-(M, K, N), maps to an m tile of 64 if bm <= 64 else 128, an n tile of the
-power of two >= bn in [64, 256], and ``clamp(ceil(bk / 64), 1, 4)`` 64-value
-k chunks a ring stage (fewer if three stages would not fit); the ring has 4
-stages.  When M <= 64 (decode, bound by reading B) K is split over two
-warpgroups of the CTA (n tile <= 128), a stage holds one chunk for each, and
-the ring has as many stages as fit (up to 16).
+else, every f32 launch included, runs the SIMT kernel ("simt": f32 FMAs
+from a cp.async ring; TF32 would miss the f32 limit of 1e-5).  On both the
+block, clamped to (M, K, N), maps to a CTA tile from a small family.
+"wgmma": an m tile of 64 if bm <= 64 else 128, an n tile of the power of
+two >= bn in [64, 256], and ``clamp(ceil(bk / 64), 1, 4)`` 64-value k chunks
+a ring stage (fewer if three stages would not fit); the ring has 4 stages.
+When M <= 64 (decode, bound by reading B) K is split over two warpgroups of
+the CTA (n tile <= 128), a stage holds one chunk for each, and the ring has
+as many stages as fit (up to 16).  "simt": an m tile of 64 if bm <= 64 else
+128, an n tile of 64 if bn <= 64 else 128, and a stage k depth of the power
+of two >= bk in [8, 64]; up to 4 ring stages in the shared memory (in a
+third of it at 64 x 64, three CTAs an SM).  When M <= 16 (decode) the m tile
+is 4 or 16, the n tile the power of two >= bn in [16, 128] that leaves at
+least 128 CTAs, and K is split over ``1024 / tn`` thread groups of the CTA,
+4 k values each a stage, in half the shared memory (up to 4 stages).
 """
 from __future__ import annotations
 
@@ -31,14 +38,18 @@ from . import _build
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-#: the tensor-core route's ring: shared memory a block may use (less the
-#: 1024-byte alignment slack), stages, the deep ring's cap, chunks a stage
-TC_SMEM = 232448 - 1024
+#: dynamic shared memory a block may use
+SMEM = 232448
+#: the tensor-core route's ring: shared memory (less the 1024-byte alignment
+#: slack), stages, the deep ring's cap, chunks a stage
+TC_SMEM = SMEM - 1024
 TC_STAGES, TC_DEEP_STAGES, TC_MAX_KC = 4, 16, 4
-#: the SIMT route's register sub-tiles (rows, columns), in the kernel's order
-SIMT_SUBTILES = ((64, 64), (16, 256), (256, 16), (4, 1024), (1, 1024), (4, 64),
-                 (64, 4), (1, 256), (16, 16))
-SIMT_THREADS = 256
+#: the SIMT route: threads a CTA, ring stages, the decode plan's largest M
+#: and its shared memory (two CTAs an SM), floats after each staged row
+SIMT_THREADS, SIMT_STAGES, SIMT_DECODE_M = 256, 4, 16
+SIMT_DECODE_CTAS = 128  # the decode plan's n tile leaves at least this many CTAs
+SIMT_DECODE_SMEM = SMEM // 2 - 1024
+SIMT_PAD = 4
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -149,13 +160,6 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _sm_count() -> int:
-    """The current card's SMs (the SIMT plan reads them), else an H100 SXM's."""
-    if torch.cuda.is_available():
-        return torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
-    return 132
-
-
 def route_for(k: int, n: int, dtype: torch.dtype) -> str:
     """The route a launch takes: "wgmma" for bf16 operands whose A and B
     rows all start on 16-byte boundaries (K and N multiples of 8), else
@@ -172,9 +176,10 @@ def launch_plan(m: int, k: int, n: int, bm: int = 128, bk: int = 128, bn: int = 
     "wgmma": the CTA ``tile`` (m, n), ``k_chunks`` 64-value chunks a ring
     stage, ``stages``, ``ctas`` and ``k_split``, the warpgroups that split K
     (each multiplies its own chunk of a stage; the partial tiles are summed
-    in shared memory).  "simt": the CTA ``tile`` after grouping
-    small blocks (which reads the card's SM count: the current card's, else
-    132), the register sub-tile ``config`` and ``ctas``."""
+    in shared memory).  "simt": the CTA ``tile``, ``k_depth`` k values a ring
+    stage, ``stages``, ``ctas`` and ``k_split``, the thread groups that split
+    K (1 unless M <= 16).  The grid order changes no plan, only the CTAs'
+    order."""
     if min(m, k, n, bm, bk, bn) < 1:
         raise ValueError(f"bad plan arguments {(m, k, n, bm, bk, bn)}")
     bm, bk, bn = min(bm, m), min(bk, k), min(bn, n)
@@ -194,22 +199,28 @@ def launch_plan(m: int, k: int, n: int, bm: int = 128, bk: int = 128, bn: int = 
         stages = min(TC_DEEP_STAGES if m <= 64 else TC_STAGES, fit, _cdiv(chunks, kc) + 2)
         return {"route": "wgmma", "tile": (tm, tn), "k_chunks": kc,
                 "stages": max(stages, 3), "ctas": _cdiv(m, tm) * _cdiv(n, tn), "k_split": ks}
-    # the SIMT kernel's make_plan: group small blocks along the fast grid
-    # dimension while two CTAs an SM remain, then the sub-tile that pads least
-    order_nm = grid_order == "nm"
-    tm, tn = bm, bn
-    if bm * bn < SIMT_THREADS:
-        fast = _cdiv(m, bm) if order_nm else _cdiv(n, bn)
-        ctas = _cdiv(m, bm) * _cdiv(n, bn)
-        g = min(SIMT_THREADS // (bm * bn), fast, ctas // (2 * _sm_count()))
-        g = max(g, 1)
-        if order_nm:
-            tm = bm * g
-        else:
-            tn = bn * g
-    pads = [_cdiv(tm, sm) * sm * _cdiv(tn, sn) * sn for sm, sn in SIMT_SUBTILES]
-    return {"route": "simt", "tile": (tm, tn), "config": pads.index(min(pads)),
-            "ctas": _cdiv(m, tm) * _cdiv(n, tn)}
+    if m <= SIMT_DECODE_M:  # one m tile; K split over groups of tn / 4 threads
+        tm, tn = (4 if m <= 4 else 16), 16
+        while tn < bn and tn < 128 and _cdiv(n, 2 * tn) >= SIMT_DECODE_CTAS:
+            tn *= 2
+        ks = 4 * SIMT_THREADS // tn
+        kd, budget = 4 * ks, SIMT_DECODE_SMEM
+    else:
+        tm, tn, kd = (64 if bm <= 64 else 128), (64 if bn <= 64 else 128), 8
+        while kd < bk and kd < 64:
+            kd *= 2
+        # 64 x 64: a third of the shared memory, three CTAs an SM
+        ks, budget = 1, (SMEM // 3 - 1024 if tm * tn <= 64 * 64 else SMEM)
+    return {"route": "simt", "tile": (tm, tn), "k_depth": kd,
+            "stages": min(SIMT_STAGES, budget // simt_stage_bytes(tm, tn, kd)),
+            "ctas": _cdiv(m, tm) * _cdiv(n, tn), "k_split": ks}
+
+
+def simt_stage_bytes(tm: int, tn: int, kd: int) -> int:
+    """Bytes of one SIMT ring stage: A ``[tm][kd + 4]`` f32, then B as
+    ``[kd][tn + 4]`` or ``[tn][kd + 4]``, sized for the larger of the two."""
+    return 4 * (tm * (kd + SIMT_PAD) + (kd + SIMT_PAD) * (tn + SIMT_PAD))
+
 
 
 def kernel_plan(m: int, k: int, n: int, bm: int = 128, bk: int = 128, bn: int = 128,
@@ -222,4 +233,5 @@ def kernel_plan(m: int, k: int, n: int, bm: int = 128, bk: int = 128, bn: int = 
     if out[0]:
         return {"route": "wgmma", "tile": (out[1], out[2]), "k_chunks": out[3],
                 "stages": out[4], "ctas": out[5], "k_split": out[6]}
-    return {"route": "simt", "tile": (out[1], out[2]), "config": out[3], "ctas": out[5]}
+    return {"route": "simt", "tile": (out[1], out[2]), "k_depth": out[3], "stages": out[4],
+            "ctas": out[5], "k_split": out[6]}

@@ -4,10 +4,10 @@
 
 :func:`rwkv6_chunk_scan` launches the CUDA kernel in ``csrc/rwkv6_scan.cu``
 (see the note there: what it replaces, what bounds it on the card and how
-the chunk loop and the state map onto one CTA per stream).
-:func:`rwkv6_chunk_scan_plain` is the same function in plain torch ops, the
-TPU kernel's chunk loop batched over streams; the wrapper takes it only for
-CPU tensors.
+its two passes split the work: the chunks' own products in parallel, then a
+walk of the state over the chunks).  :func:`rwkv6_chunk_scan_plain` is the
+same function in plain torch ops, the TPU kernel's chunk loop batched over
+streams; the wrapper takes it only for CPU tensors.
 
 The wrapper takes the model's layout: r, k, v and logw ``(B, S, H, N)``
 with the head dim contiguous (the ``(B, S, D)`` projections viewed as heads,
@@ -27,13 +27,16 @@ import torch
 from . import _build
 
 MAX_CHUNK = 128  # the kernel's chunk tile (csrc/rwkv6_scan.cu kMaxL)
+BLOCK = 64  # row blocks of the intra-chunk products (kBlk)
+SLICE_COLS = 32  # state columns a pass-2 CTA carries (kSliceCols)
+SCAN_THREADS = 256
 HEAD_DIMS = (4, 8, 16, 32, 64)  # the JAX kernel tests' and rwkv6-7b's
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.looptune_rwkv6_scan.argtypes = [p] * 8 + [i] * 5 + [ll] * 12 + [i, p]
+    lib.looptune_rwkv6_scan.argtypes = [p] * 9 + [i] * 5 + [ll] * 12 + [i, p]
     lib.looptune_rwkv6_scan.restype = i
 
 
@@ -41,14 +44,35 @@ def _lib() -> ctypes.CDLL:
     return _build.load("rwkv6_scan", _declare)
 
 
-def launch_plan(s: int, chunk: int = 64) -> dict:
-    """The chunk tile a launch uses for a sequence of ``s`` tokens: the
-    requested chunk clamped to ``s`` (as the TPU wrapper clamps it) and to
-    :data:`MAX_CHUNK`, and the number of chunks the CTA walks."""
-    if s < 1 or chunk < 1:
-        raise ValueError(f"need s >= 1 and chunk >= 1, got {(s, chunk)}")
+def launch_plan(s: int, chunk: int = 64, *, b: int = 1, h: int = 1, n: int = 64,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """How a launch over ``b * h`` streams of ``s`` tokens at head dim ``n``,
+    r/k/v of ``dtype``, is laid out.  Pure Python; the kernel computes the
+    same.
+
+    ``chunk``: the tile, the requested chunk clamped to ``s`` (as the TPU
+    wrapper clamps it) and to :data:`MAX_CHUNK`; ``n_chunks``.  Pass 1 runs
+    ``pass1_ctas`` = one CTA per (stream, chunk); pass 2 ``pass2_ctas`` = one
+    per (stream, slice of ``slice_cols`` state columns).  ``scratch_bytes``:
+    what pass 1 leaves for pass 2, the chunks' state increments and decays
+    and r_dec (B, S, H, N) f32, which the wrapper allocates; ``smem_bytes``:
+    each pass's dynamic shared memory."""
+    if min(s, chunk, b, h, n) < 1:
+        raise ValueError(f"need s, chunk, b, h, n >= 1, got {(s, chunk, b, h, n)}")
     tile = min(chunk, s, MAX_CHUNK)
-    return {"chunk": tile, "n_chunks": -(-s // tile)}
+    n_chunks = -(-s // tile)
+    rows = BLOCK * -(-tile // BLOCK)  # the tile's rows, in whole 64-row blocks
+    cols = min(n, SLICE_COLS)
+    # pass 1: r_dec, k_dec, v, then cum or A, the short vectors, and bf16 r
+    # and k as staged; pass 2: r_dec, the state's and the increment's
+    # slices, the decay, y's slice
+    pass1 = (3 * rows * (n + 4) + max(rows * (n + 4), rows * rows) + rows + 2 * n
+             + SCAN_THREADS + (rows * (n + 8) if dtype == torch.bfloat16 else 0))
+    pass2 = rows * (n + 4) + 2 * n * (cols + 4) + n + rows * (cols + 4)
+    return {"chunk": tile, "n_chunks": n_chunks, "pass1_ctas": b * h * n_chunks,
+            "pass2_ctas": b * h * (n // cols), "slice_cols": cols,
+            "scratch_bytes": 4 * (b * h * n_chunks * (n * n + n) + b * s * h * n),
+            "smem_bytes": (4 * pass1, 4 * pass2)}
 
 
 def rwkv6_chunk_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -157,24 +181,31 @@ def rwkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise on both.
     """
     b, s, h, n = _check(r, k, v, logw, u, s0)
-    tile = launch_plan(s, chunk)["chunk"]
+    plan = launch_plan(s, chunk, b=b, h=h, n=n, dtype=r.dtype)
+    tile = plan["chunk"]
     if r.device.type == "cpu":
         return rwkv6_chunk_scan_plain_heads(r, k, v, logw, u, chunk=tile, s0=s0)
     if r.device.type != "cuda":
         raise ValueError(f"rwkv6_chunk_scan runs on cuda or cpu tensors, got {r.device}")
     if not all(t.stride(3) == 1 for t in (r, k, v, logw)):
         raise ValueError("rwkv6_chunk_scan needs the head dim contiguous")
+    if r.dtype == torch.bfloat16 and not all(
+            t.data_ptr() % 4 == 0 and all(st % 2 == 0 for st in t.stride()[:3])
+            for t in (r, k, v)):
+        raise ValueError("rwkv6_chunk_scan stages bf16 rows in 4-byte pieces: r, k and v "
+                         "must start on 4-byte boundaries")
     u32 = u.float().contiguous()
     s0c = None if s0 is None else s0.float().contiguous()
     y = torch.empty((b, s, h, n), dtype=torch.float32, device=r.device)
     state = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
+    scratch = torch.empty(plan["scratch_bytes"] // 4, dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):
         err = _lib().looptune_rwkv6_scan(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u32.data_ptr(),
             None if s0c is None else s0c.data_ptr(), y.data_ptr(), state.data_ptr(),
-            b, s, h, n, tile, *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *logw.stride()[:3], int(r.dtype == torch.bfloat16), stream)
+            scratch.data_ptr(), b, s, h, n, tile, *r.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *logw.stride()[:3], int(r.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"rwkv6 scan launch failed: cudaError {err} "
                            f"(r {tuple(r.shape)}, chunk {tile})")
@@ -182,6 +213,7 @@ def rwkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, state
 
 
-#: kernel launches since the count was last set to 0 (the CPU path and the
-#: plain version do not count)
+#: wrapper calls that launched the kernel (each launches pass 1 and pass 2)
+#: since the count was last set to 0; the CPU path and the plain version do
+#: not count
 rwkv6_chunk_scan.launches = 0

@@ -213,7 +213,7 @@ def main(argv=None) -> int:
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
     if args.tune:
-        raise NotImplementedError("launch/tune is not ported yet (ROADMAP A12)")
+        raise NotImplementedError("launch/tune is not ported yet (ROADMAP A3)")
 
     cfg = get_config(args.arch)
     if not args.full:

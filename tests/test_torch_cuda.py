@@ -117,6 +117,34 @@ def test_routes_and_plans_on_the_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("trans_b", [False, True])
+def test_simt_route_at_the_model_shapes_on_the_card(trans_b):
+    """musicgen-large's six f32 contractions on the SIMT route, at the thin
+    blocks an f32 search picks, at 128^3 and at a decode block: against the
+    plain version at 1e-5, the kernel's own plan equal to launch_plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.matmul import kernel_plan, launch_plan
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for (m, k, n) in [(4, 2048, 2048), (4, 2048, 8192), (4, 8192, 2048), (1024, 2048, 2048),
+                      (1024, 2048, 8192), (1024, 8192, 2048)]:
+        a = torch.randn(m, k, generator=g, device="cuda")
+        b = torch.randn(*((n, k) if trans_b else (k, n)), generator=g, device="cuda")
+        for blk in [(1, 2048, 1), (4, 64, 64), (128, 128, 128)]:
+            plan = launch_plan(m, k, n, *blk)
+            assert plan["route"] == "simt" and plan == kernel_plan(m, k, n, *blk)
+            kw = dict(bm=blk[0], bk=blk[1], bn=blk[2], trans_b=trans_b)
+            before = dict(matmul.route_launches)
+            out = matmul(a, b, **kw)
+            torch.cuda.synchronize()
+            assert matmul.route_launches == {**before, "simt": before["simt"] + 1}
+            ref = matmul_plain(a, b, **kw)
+            err = ((out - ref).abs().max() / ref.abs().max()).item()
+            assert err <= 1e-5, ((m, k, n), blk, plan, err)
+
+
+@pytest.mark.cuda
 def test_card_executor_rewards_launch_the_kernel():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -285,6 +313,35 @@ def test_rwkv_scan_kernel_matches_plain_version_on_the_card(dtype, with_s0):
         # the JAX kernel test's tolerance; bf16 inputs are widened to f32 by both
         torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
         torch.testing.assert_close(st, want_s, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_rwkv_scan_kernel_at_the_model_shape_on_the_card(with_s0):
+    """rwkv6-7b's prefill scan, (4, 1024, 64, 64) bf16 r/k/v at chunk 128,
+    through strided views of one (B, S, 3D) projection as the model's
+    heads are: both passes (2048 and 512 CTAs) against the plain version
+    at 2e-4; one wrapper call counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.rwkv6_scan import (launch_plan, rwkv6_chunk_scan,
+                                                rwkv6_chunk_scan_plain_heads)
+
+    b, s, h, n = 4, 1024, 64, 64
+    g = torch.Generator(device="cuda").manual_seed(1)
+    proj = (0.5 * torch.randn(b, s, 3 * h * n, generator=g, device="cuda")).bfloat16()
+    r, k, v = (proj[..., i * h * n:(i + 1) * h * n].view(b, s, h, n) for i in range(3))
+    logw = -torch.exp(torch.randn(b, s, h, n, generator=g, device="cuda") - 2.0)
+    u = 0.3 * torch.randn(h, n, generator=g, device="cuda")
+    s0 = 0.1 * torch.randn(b, h, n, n, generator=g, device="cuda") if with_s0 else None
+    assert launch_plan(s, 128, b=b, h=h, n=n)["pass1_ctas"] == 2048
+    before = rwkv6_chunk_scan.launches
+    y, st = rwkv6_chunk_scan(r, k, v, logw, u, chunk=128, s0=s0)
+    torch.cuda.synchronize()
+    assert rwkv6_chunk_scan.launches == before + 1
+    want_y, want_s = rwkv6_chunk_scan_plain_heads(r, k, v, logw, u, chunk=128, s0=s0)
+    torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(st, want_s, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.cuda

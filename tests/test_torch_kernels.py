@@ -1,7 +1,7 @@
 """The port's kernel layer on the CPU: the tiled matmul's plain version over
 a shape/block/order sweep with tails, against the Pallas kernel in
-interpret mode (f32 and bf16 operands), its launch plan (route and
-tensor-core tile, in pure Python), ``_parse_matmul_spec`` and
+interpret mode (f32 and bf16 operands), its launch plan (route, and the
+tensor-core and SIMT tiles, in pure Python), ``_parse_matmul_spec`` and
 ``tuned_einsum``'s counters against the JAX package's, and the kernel
 build's library path (its hash of the headers a source includes).  The
 kernels themselves are held against their plain versions in
@@ -110,20 +110,62 @@ def test_launch_plan_maps_blocks_onto_warpgroup_tiles(mkn, blk, tile, kc, stages
     assert launch_plan(*mkn, *blk, "nm", dtype=torch.bfloat16) == plan
 
 
-def test_launch_plan_keeps_the_simt_plan():
-    """f32 keeps the SIMT kernel's plan: small blocks grouped along the fast
-    grid dimension while two CTAs an SM remain, then the register sub-tile
-    that pads least."""
-    assert launch_plan(4, 33, 96, 4, 64, 64) == {
-        "route": "simt", "tile": (4, 64), "config": 5, "ctas": 2}
-    assert launch_plan(1024, 2048, 2048, 1, 2048, 1) == {
-        "route": "simt", "tile": (1, 256), "config": 7, "ctas": 1024 * 8}
-    assert launch_plan(1024, 2048, 2048, 1, 2048, 1, "nm") == {
-        "route": "simt", "tile": (256, 1), "config": 6, "ctas": 4 * 2048}
-    # decode: grouping stops while two CTAs an SM remain
-    assert launch_plan(4, 2048, 2048, 1, 2048, 1) == {
-        "route": "simt", "tile": (1, 31), "config": 5, "ctas": 4 * 67}
-    assert launch_plan(1024, 2048, 2048)["tile"] == (128, 128)
+# the SIMT route (every f32 launch, bf16 off a multiple of 8): (m, k, n),
+# dtype, block -> tile, k values a ring stage, stages, CTAs, k-split groups
+SIMT_CASES = [
+    # musicgen-large's six contractions at the thin blocks an f32 search
+    # picks and at 128^3: a thin block no longer gives thin CTAs
+    ((1024, 2048, 2048), torch.float32, (1, 2048, 1), (64, 64), 64, 2, 512, 1),
+    ((1024, 2048, 8192), torch.float32, (4, 2048, 1), (64, 64), 64, 2, 2048, 1),
+    ((1024, 8192, 2048), torch.float32, (1, 8192, 1), (64, 64), 64, 2, 512, 1),
+    ((1024, 2048, 2048), torch.float32, (128, 128, 128), (128, 128), 64, 3, 128, 1),
+    ((1024, 2048, 8192), torch.float32, (128, 128, 128), (128, 128), 64, 3, 512, 1),
+    ((1024, 8192, 2048), torch.float32, (128, 16, 100), (128, 128), 16, 4, 128, 1),
+    ((1024, 2048, 8192), torch.float32, (65, 8, 64), (128, 64), 8, 4, 1024, 1),
+    # decode (M <= 16): one m tile, K split over 1024 / tn thread groups, the
+    # n tile no wider than leaves 128 CTAs to stream B
+    ((4, 2048, 2048), torch.float32, (1, 2048, 1), (4, 16), 256, 4, 128, 64),
+    ((4, 8192, 2048), torch.float32, (4, 2048, 1), (4, 16), 256, 4, 128, 64),
+    ((4, 2048, 8192), torch.float32, (1, 2048, 1), (4, 16), 256, 4, 512, 64),
+    ((4, 2048, 2048), torch.float32, (128, 128, 128), (4, 16), 256, 4, 128, 64),
+    ((4, 2048, 8192), torch.float32, (128, 128, 128), (4, 64), 64, 4, 128, 16),
+    ((4, 8192, 32768), torch.float32, (4, 16, 256), (4, 128), 32, 4, 256, 8),
+    ((16, 8192, 8192), torch.float32, (16, 64, 32), (16, 32), 128, 4, 256, 32),
+    ((9, 100, 33), torch.float32, (4, 8, 8), (16, 16), 256, 3, 3, 64),
+    # ragged M, K and N; blocks clamped to the shape
+    ((33, 200, 96), torch.float32, (32, 32, 32), (64, 64), 32, 4, 2, 1),
+    ((200, 1000, 200), torch.float32, (200, 1000, 200), (128, 128), 64, 3, 4, 1),
+    ((130, 70, 33), torch.float32, (4, 1, 64), (64, 64), 8, 4, 3, 1),
+    # f32 with K off a multiple of 4 (4-byte copies)
+    ((33, 37, 96), torch.float32, (64, 64, 64), (64, 64), 64, 2, 2, 1),
+    # bf16 off a multiple of 8 (loads through registers)
+    ((33, 36, 96), torch.bfloat16, (128, 128, 128), (64, 128), 64, 4, 1, 1),
+    ((200, 200, 98), torch.bfloat16, (128, 128, 128), (128, 128), 64, 3, 2, 1),
+    ((1, 1, 1), torch.bfloat16, (1, 1, 1), (4, 16), 256, 4, 1, 64),
+]
+
+
+@pytest.mark.parametrize("mkn,dtype,blk,tile,kd,stages,ctas,ks", SIMT_CASES)
+def test_launch_plan_keeps_the_simt_plan(mkn, dtype, blk, tile, kd, stages, ctas, ks):
+    """The SIMT route maps the block onto a CTA tile from a small family
+    (m 64/128, n 64/128, a stage k depth of 8-64), or, at M <= 16, onto the
+    decode plan; the ring fits in the 227 KB a block may use (a 64 x 64
+    tile's in a third of it, three CTAs an SM; the decode plan's in half of
+    it, two CTAs an SM); the route rules are unchanged; neither the grid
+    order nor the B layout changes the plan."""
+    from repro_torch.kernels.matmul import SIMT_DECODE_SMEM, SMEM, route_for, simt_stage_bytes
+
+    plan = launch_plan(*mkn, *blk, dtype=dtype)
+    assert plan == {"route": "simt", "tile": tile, "k_depth": kd, "stages": stages,
+                    "ctas": ctas, "k_split": ks}
+    assert plan["route"] == route_for(mkn[1], mkn[2], dtype)
+    assert launch_plan(*mkn, *blk, "nm", dtype=dtype) == plan
+    budget = (SIMT_DECODE_SMEM if ks > 1 else
+              SMEM // 3 - 1024 if tile == (64, 64) else SMEM)
+    ring = stages * simt_stage_bytes(*tile, kd)
+    assert 2 <= stages and ring <= budget <= SMEM
+    if ks > 1:  # the partial tiles, summed in the ring's place
+        assert ks * tile[1] == 1024 and kd == 4 * ks and 4 * ks * tile[0] * tile[1] <= ring
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -4,7 +4,9 @@
 what the CUDA kernel is held against on the card) against the Pallas kernel
 in interpret mode and the token-by-token ``rwkv6_ref`` over the JAX kernel
 test's ranges plus N = 64 at chunk 128, at 2e-4 (that test's tolerance);
-the wrapper's layout, carried state and ``"rwkv6"`` registry block; the
+the kernel's two-pass decomposition, written here in plain torch, against
+both, and its launch plan; the wrapper's layout, carried state and
+``"rwkv6"`` registry block; the
 time-mix and channel-mix against ``models/rwkv6.py``; the whole rwkv6-7b
 smoke model (prefill + 4 decode steps) against the JAX steps at 1e-4 in f32
 with equal greedy tokens; the converter's per-leaf dtypes; and the serve
@@ -147,12 +149,104 @@ def test_wrapper_takes_the_model_layout_on_cpu(dtype, with_s0):
 
 
 def test_launch_plan_clamps_the_chunk():
-    assert launch_plan(1024, 128) == {"chunk": 128, "n_chunks": 8}
-    assert launch_plan(70, 64) == {"chunk": 64, "n_chunks": 2}
-    assert launch_plan(5, 64) == {"chunk": 5, "n_chunks": 1}
-    assert launch_plan(300, 256) == {"chunk": MAX_CHUNK, "n_chunks": 3}
+    def tile(s, chunk):
+        plan = launch_plan(s, chunk)
+        return {"chunk": plan["chunk"], "n_chunks": plan["n_chunks"]}
+
+    assert tile(1024, 128) == {"chunk": 128, "n_chunks": 8}
+    assert tile(70, 64) == {"chunk": 64, "n_chunks": 2}
+    assert tile(5, 64) == {"chunk": 5, "n_chunks": 1}
+    assert tile(300, 256) == {"chunk": MAX_CHUNK, "n_chunks": 3}
     with pytest.raises(ValueError):
         launch_plan(0, 64)
+
+
+def test_launch_plan_reports_the_passes_at_the_model_shape():
+    """rwkv6-7b's prefill, (B, S, H, N) = (4, 1024, 64, 64) at chunk 128:
+    pass 1 one CTA per (stream, chunk), pass 2 one per (stream, 32 state
+    columns), the chunks' increments and decays and r_dec in scratch."""
+    assert launch_plan(1024, 128, b=4, h=64, n=64, dtype=torch.bfloat16) == {
+        "chunk": 128, "n_chunks": 8, "pass1_ctas": 2048, "pass2_ctas": 512,
+        "slice_cols": 32,
+        "scratch_bytes": 4 * (4 * 64 * 8 * (64 * 64 + 64) + 4 * 1024 * 64 * 64),
+        "smem_bytes": (208896, 71936)}
+    # f32 r, k and v are staged in place
+    assert launch_plan(1024, 128, b=4, h=64, n=64)["smem_bytes"] == (172032, 71936)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("s,chunk", [(1, 64), (5, 4), (37, 16), (70, 64), (300, 100),
+                                     (1024, 128), (200, 256)])
+def test_launch_plan_fits_every_head_dim_and_tile(n, s, chunk, dtype):
+    """Both passes fit the 227 KB a block may use at every head dim, tile
+    and dtype; pass 2 at most 75 KB (three CTAs an SM); the slices cover the
+    state's columns; the scratch holds an N x N increment and N decays a
+    chunk and stream, and r_dec for every token."""
+    plan = launch_plan(s, chunk, b=2, h=3, n=n, dtype=dtype)
+    pass1, pass2 = plan["smem_bytes"]
+    assert pass1 <= 232448 and pass2 <= 233472 // 3 - 1024
+    assert plan["slice_cols"] * plan["pass2_ctas"] == 2 * 3 * n
+    assert plan["pass1_ctas"] == 2 * 3 * plan["n_chunks"]
+    assert plan["scratch_bytes"] == 4 * (plan["pass1_ctas"] * (n * n + n) + 2 * s * 3 * n)
+    assert plan["chunk"] * plan["n_chunks"] >= s > plan["chunk"] * (plan["n_chunks"] - 1)
+
+
+def _chunk_parallel(r, k, v, logw, u, chunk, s0=None):
+    """The kernel's two passes in plain torch, f32.  Pass 1, every chunk at
+    once: cum, r_dec, k_dec, the intra-chunk output strict_lower(r_dec
+    k_dec^T) v + (sum r u k) v, the chunk's state increment e^{w_last}
+    k_dec^T v and decay e^{w_last}.  Pass 2, in chunk order from s0: the
+    inter-chunk term r_dec S_{c-1}, then S_c = diag(decay) S_{c-1} + dS_c."""
+    bh, s, n = r.shape
+    L = min(chunk, s)
+    nc = -(-s // L)
+    r, k, v, lw = (torch.nn.functional.pad(t.float(), (0, 0, 0, nc * L - s))
+                   .reshape(bh, nc, L, n) for t in (r, k, v, logw))
+    cum = torch.cumsum(lw, dim=2)
+    cum_ex = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], dim=2)
+    r_dec, k_dec = r * torch.exp(cum_ex), k * torch.exp(-cum)
+    strict = torch.ones(L, L, dtype=torch.bool).tril(-1)
+    att = torch.where(strict, r_dec @ k_dec.transpose(-1, -2), 0.0)
+    diag = (r * u.float()[:, None, None, :] * k).sum(-1, keepdim=True)
+    y = att @ v + diag * v                                   # pass 1: y_c
+    decay = torch.exp(cum[:, :, -1, :])                      # (BH, C, N)
+    d_state = decay[..., None] * (k_dec.transpose(-1, -2) @ v)
+    state = torch.zeros(bh, n, n) if s0 is None else s0.float()
+    for c in range(nc):                                      # pass 2
+        y[:, c] += r_dec[:, c] @ state
+        state = decay[:, c, :, None] * state + d_state[:, c]
+    return y.reshape(bh, nc * L, n)[:, :s], state
+
+
+@pytest.mark.parametrize("n", [4, 16, 64])
+@pytest.mark.parametrize("chunk", [4, 16, 64])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_chunk_parallel_passes_match_pallas_and_plain(n, chunk, with_s0):
+    """The two-pass decomposition the kernel computes equals the TPU
+    kernel's sequential chunk loop (Pallas, interpret mode) and the port's
+    plain version, at 2e-4 (f32; the tolerance of the JAX kernel test).
+    With s0, the Pallas kernel (which starts from zeros) scans a prefix of
+    two chunks first and its final state is s0: its outputs past the prefix
+    are the scan from s0."""
+    bh, s = 2, 70
+    pre = 2 * chunk if with_s0 else 0
+    arrs = _scan_inputs(bh, pre + s, n, seed=chunk * 7 + n + pre)
+    want_y, want_s = pallas_scan(*(jnp.asarray(a) for a in arrs), chunk=chunk, interpret=True)
+    r, k, v, logw, u = _t(*arrs)
+    s0 = None
+    if with_s0:
+        _, s0 = pallas_scan(*(jnp.asarray(a[:, :pre]) for a in arrs[:4]), jnp.asarray(arrs[4]),
+                            chunk=chunk, interpret=True)
+        s0 = torch.from_numpy(np.array(s0))
+    r, k, v, logw = (t[:, pre:] for t in (r, k, v, logw))
+    y, st = _chunk_parallel(r, k, v, logw, u, chunk, s0=s0)
+    plain_y, plain_s = rwkv6_chunk_scan_plain(r, k, v, logw, u, chunk=chunk, s0=s0)
+    for got_y, got_s in ((y, st), (plain_y, plain_s)):
+        np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y)[:, pre:], rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=TOL, atol=TOL)
+    torch.testing.assert_close(y, plain_y, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(st, plain_s, rtol=TOL, atol=TOL)
 
 
 def test_a_chunk_above_the_tile_runs_at_the_tile():
