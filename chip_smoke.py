@@ -9,10 +9,11 @@ line with its seconds:
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build  — nvcc builds the tiled-matmul, flash-attention, RWKV-6 scan and
    Mamba scan kernels from ``src/repro_torch`` and a copy of each scan
-   kernel, of the flash kernel and of the matmul with one term dropped (the
-   mutation checks below), in parallel, and reports ptxas' register lines
-   and the number of HGMMA (wgmma) instructions in the flash and matmul
-   libraries' SASS;
+   kernel, two of the flash kernel and two of the matmul with one term
+   dropped (the mutation checks below), in parallel, and reports ptxas'
+   register lines (for each instance of the Mamba scan and of flash's SIMT
+   kernel: registers and spills) and the number of HGMMA (wgmma)
+   instructions in the flash and matmul libraries' SASS;
 3. kernel — the matmul kernel against its plain torch version on the card
    over a sweep of shapes, blocks, grid orders, dtypes and transposed B,
    then its tensor-core route's bf16 cases (musicgen-large's six shapes at
@@ -28,11 +29,11 @@ line with its seconds:
    the JAX kernel tests' shapes, windows, softcaps, bf16, head dim 128 with
    GQA groups of 4, the tensor-core route's bf16 cases at head dims 64 and
    128 (ragged S != T, GQA 4, blind rows, softcaps, every kv tile, a
-   strided q view) and the two models' own shapes, each case with its route
-   and the kernel's own launch plan held equal to ``launch_plan``; then a
-   mutation check: the tensor-core kernel with the accumulator's alpha
-   rescale dropped must put most of that route's multi-tile cases outside
-   their limit;
+   strided q view), the same cases in f32 on the SIMT route, and the two
+   models' own shapes, each case with its route and the kernel's own launch
+   plan held equal to ``launch_plan``; then two mutation checks: the kernel
+   with the accumulator's alpha rescale dropped, on each route, must put
+   more than half of that route's multi-tile cases outside their limit;
    rwkv_scan — the RWKV-6 chunked-scan kernel (two passes: the chunks' own
    products in parallel, then the state's walk over the chunks) against its
    plain version over
@@ -42,7 +43,8 @@ line with its seconds:
    mamba_scan — the Mamba selective-scan kernel against its plain version
    over the JAX kernel test's ranges (S 1-40, C 8/20/32, N 4/8, chunks
    4/8/32, blocks 8/16/128), jamba's prefill shapes, f32 and bf16, with and
-   without a carried state, through strided B/C views, ragged S and C;
+   without a carried state, through strided B/C views, ragged S and C, each
+   case with the kernel's own launch plan held equal to ``launch_plan``;
 4. tune   — ``LoopTuner(policy="search", backend="torch")`` tunes the six
    dense contractions of musicgen-large (d_model 2048, d_ff 8192, vocab
    2048) at decode (M=4) and prefill (M=1024); every reward is a timed
@@ -92,18 +94,17 @@ line with its seconds:
    then the six contractions in bf16 at the model's tuned records, on the
    tensor-core route, with the profiler's device time, TFLOP/s and the bf16
    bound (bytes vs operations at 989 TFLOP/s);
-   then flash attention at the model's prefill shape against its plain
-   version, ``scaled_dot_product_attention`` (yardstick only) and its bound;
+   then flash attention at the models' prefill shapes, bf16 and f32 (the
+   SIMT route), against its plain version, ``scaled_dot_product_attention``
+   (yardstick only) and its bound, each with a block sweep;
    then the scan kernel at rwkv6-7b's prefill shape against its plain
    version and its bound (bytes vs the 4N^2 FLOP a token that any form of
    the recurrence does; no single PyTorch call computes the recurrence),
    with each pass's device time and the chunked form's FP32 floor;
-   flash attention also at jamba's prefill shape (head dim 128, GQA 32/8),
-   both bf16 on the tensor cores, and at musicgen's shape in f32 (the SIMT
-   route), each with its TFLOP/s;
    then the Mamba scan at jamba's prefill shape against its plain version
    and its bound (bytes, FP32 operations, or the exponentials at the SFU
-   rate and the card's top SM clock, whichever is largest).
+   rate and the card's top SM clock, whichever is largest), with its device
+   time and a block sweep.
 
 All four kernels' launch counts are set to 0 before phase 4 and read after
 phase 5, set to 0 again before the model's tuning and read right after its
@@ -177,10 +178,11 @@ MAMBA_LAYER_LIMIT = 2e-3  # one f32 layer, prefill vs recurrence: tests/test_moe
 # then differ by up to 1.08 whatever the kernel: only the last logits
 # (2.3e-2) are held to the limit there
 JAMBA_RECURRENCE_LIMIT = 0.11
-MAMBA_MUTANT_LINE = "const float decay = exp2f(dtv * a2[n]);  // e^{dt a_n}"
+MAMBA_MUTANT_LINE = "const float decay = ex2_approx(dtv * a2[n]);  // e^{dt a_n}"
 SFU_EXP_PER_CLOCK = 16  # exponentials a clock per SM (sm_90's MUFU rate)
 FLASH_SWEEP = [(64, 64), (128, 64), (64, 32), (128, 32), (64, 16), (128, 16)]  # other "fa" blocks, timed
 FLASH_MUTANT_LINE = "acc[c][i] *= (i & 2) ? alpha1 : alpha0;  // the accumulator's alpha rescale"
+SIMT_FLASH_MUTANT_LINE = "acc[i][c] *= alpha;  // the SIMT accumulator's alpha rescale"
 MATMUL_MUTANT_LINE = "const int kchunks = (a.K + kChunk - 1) / kChunk;  // 64-value chunks of K"
 SIMT_MUTANT_LINE = "return (K + kd - 1) / kd;  // k stages of the SIMT ring"
 # the tensor-core route's f32-out limit: the products of bf16 values are
@@ -234,6 +236,39 @@ def nvidia_smi_line(query: str = "name,power.limit") -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_by_function(log: str, keep: str) -> dict:
+    """ptxas -v output per kernel whose demangled name holds ``keep``: its
+    registers and its spill stores and loads (bytes)."""
+    import re
+    import shutil
+
+    out, name = {}, None
+    filt = shutil.which("cu++filt") or str(Path(shutil.which("nvcc") or
+                                                "/usr/local/cuda/bin/nvcc").parent / "cu++filt")
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            try:
+                name = subprocess.run([filt, name], capture_output=True, text=True,
+                                      check=True).stdout.strip()
+                name = name[:name.find(">(") + 1] if ">(" in name else name
+            except (OSError, subprocess.CalledProcessError):
+                pass
+            for noise in ("(anonymous namespace)::", "<unnamed>::", "void ", "(int)"):
+                name = name.replace(noise, "")
+            continue
+        if name is None or keep not in name:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            out.setdefault(name, {})["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -393,6 +428,7 @@ def attention_cases() -> list:
                   (2, 45, 45, 4, 1, 128, True, None, None, 64, 32, dt, False),
                   (1, 33, 50, 4, 1, 128, False, None, None, 16, 16, dt, False)]
     cases += TC_CASES
+    cases += [case[:11] + (torch.float32,) + case[12:] for case in TC_CASES]  # on route simt
     b, s, h, d = FA_SHAPE
     cases.append((b, s, s, h, h, d, True, None, None, 128, 128, torch.bfloat16, False))
     b, s, h, hkv, d = FA_JAMBA_SHAPE
@@ -468,10 +504,10 @@ def phase_attention(cases_f) -> None:
         raise SystemExit(f"{len(failures)} attention cases outside their limit or route")
 
 
-def phase_attention_mutant(cases_f, mutant: Path) -> None:
-    """The tensor-core kernel with the accumulator's alpha rescale dropped,
-    through the same wrapper, over every multi-tile case of that route: most
-    must fall outside their limit."""
+def phase_attention_mutant(cases_f, mutant: Path, route: str, dropped: str) -> None:
+    """The flash kernel with the accumulator's alpha rescale of ``route``
+    dropped, through the same wrapper, over every multi-tile case of that
+    route: more than half must fall outside their limit."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import _declare, launch_plan
 
@@ -481,19 +517,19 @@ def phase_attention_mutant(cases_f, mutant: Path) -> None:
     for case in attention_cases():
         (b, s, t, h, hkv, d, causal, window, softcap, bq, bk, dt, q_view) = case
         plan = launch_plan(s, t, bq, bk, d=d, dtype=dt)
-        if plan["route"] == "wgmma" and t > plan["kv_tile"]:
+        if plan["route"] == route and t > plan["kv_tile"]:
             picked.append(case)
     with _build.substitute("flash_attention", mutant, _declare):
         mut = [attention_case_check(case, g) for case in picked]
     for c in mut:
-        cases_f.write(json.dumps({"attention_mutant": c}) + "\n")
+        cases_f.write(json.dumps({f"attention_{route}_mutant": c}) + "\n")
     outside = sum(not c["ratio_to_limit"] <= 1.0 for c in mut)
-    emit("mutation", t0, kernel="flash_attention", dropped=FLASH_MUTANT_LINE,
-         wgmma_multi_tile_cases=len(mut), outside_limit=outside,
+    emit("mutation", t0, kernel="flash_attention", route=route, dropped=dropped,
+         multi_tile_cases=len(mut), outside_limit=outside,
          min_ratio_to_limit=min(c["ratio_to_limit"] for c in mut))
     if not outside > len(mut) / 2:
-        raise SystemExit(f"flash mutant: only {outside} of {len(mut)} multi-tile "
-                         f"tensor-core cases outside their limit")
+        raise SystemExit(f"flash {route} mutant: only {outside} of {len(mut)} multi-tile "
+                         f"cases outside their limit")
 
 
 def rwkv_cases() -> list:
@@ -621,11 +657,15 @@ def mamba_case_check(i: int, case) -> dict:
     """Case ``i``: the kernel against its plain version on the same inputs
     at the kernel's token tile, as allclose(rtol=MAMBA_LIMIT,
     atol=MAMBA_LIMIT) on y and the state."""
-    from repro_torch.kernels.mamba_scan import launch_plan, mamba_scan, mamba_scan_plain_model
+    from repro_torch.kernels.mamba_scan import (kernel_plan, launch_plan, mamba_scan,
+                                                mamba_scan_plain_model)
 
     b, s, c, n, chunk, bd, dt_, with_h0 = case
     x, dt, a, bm, cm, h0 = mamba_inputs(case, SEED + i)
     plan = launch_plan(s, c, chunk, bd)
+    if plan != kernel_plan(s, c, chunk, bd):
+        raise SystemExit(f"mamba {case}: launch_plan {plan} is not the kernel's "
+                         f"{kernel_plan(s, c, chunk, bd)}")
     y, h = mamba_scan(x, dt, a, bm, cm, chunk=chunk, bd=bd, h0=h0)
     yp, hp = mamba_scan_plain_model(x, dt, a, bm, cm, chunk=plan["l"], h0=h0)
     torch.cuda.synchronize()
@@ -1478,7 +1518,7 @@ def flash_timing_row(shape, card: str, g, flush, dt=torch.bfloat16) -> dict:
     sweep = [{"block": list(blk), "plan": launch_plan(s, s, *blk, d=d, dtype=dt),
               "ms": time_ms(lambda: flash_attention(q, k, v, causal=True, bq=blk[0], bk=blk[1]),
                             flush, 20)}
-             for blk in FLASH_SWEEP] if dt == torch.bfloat16 else []
+             for blk in FLASH_SWEEP]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA takes (B, H, S, D)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=hkv != h),
@@ -1500,14 +1540,14 @@ def flash_timing_row(shape, card: str, g, flush, dt=torch.bfloat16) -> dict:
 
 def phase_flash_timing(card: str, g) -> list:
     """Flash attention at musicgen-large's and jamba's prefill shapes in
-    bf16 (the tensor-core route, what the models run), and at musicgen's
-    shape in f32 (the SIMT route)."""
+    bf16 (the tensor-core route, what the models run), and at the same two
+    shapes in f32 (the SIMT route)."""
     t0 = time.perf_counter()
     flush = flush_buffer()
     b, s, h, d = FA_SHAPE
-    rows = [flash_timing_row(shape, card, g, flush) for shape in ((b, s, h, h, d),
-                                                                  FA_JAMBA_SHAPE)]
-    rows.append(flash_timing_row((b, s, h, h, d), card, g, flush, torch.float32))
+    rows = [flash_timing_row(shape, card, g, flush, dt)
+            for dt in (torch.bfloat16, torch.float32) for shape in ((b, s, h, h, d),
+                                                                    FA_JAMBA_SHAPE)]
     del flush
     emit("timing_flash", t0, shapes=rows)
     return rows
@@ -1582,6 +1622,8 @@ def phase_mamba_timing(card: str) -> dict:
                  flush, 20)
     plain_ms = time_ms(lambda: mamba_scan_plain_model(x, dt, a, bm, cm, chunk=plan["l"],
                                                       h0=h0), flush, 5)
+    device_ms = kernel_device_ms(
+        lambda: mamba_scan(x, dt, a, bm, cm, chunk=MAMBA_CHUNK, bd=MAMBA_BD, h0=h0), "mamba_scan")
     # the same call at other registry blocks: what a tuned "mamba" block
     # could move (tokens a tile, channels a CTA)
     sweep = []
@@ -1603,8 +1645,8 @@ def phase_mamba_timing(card: str) -> dict:
     exp_ms = terms / (SFU_EXP_PER_CLOCK * sms * clock_mhz * 1e6) * 1e3
     bound_ms = max(bytes_ms, fp32_ms, exp_ms)
     row = {"bscn": list(MAMBA_SHAPE), "dtype": "bfloat16", "block": [MAMBA_CHUNK, MAMBA_BD],
-           "plan": plan, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": "bytes" if bound_ms == bytes_ms else "operations",
+           "plan": plan, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes" if bound_ms == bytes_ms else "operations",
            "bound_kind": ("bytes" if bound_ms == bytes_ms else
                           "exponentials" if bound_ms == exp_ms else "fp32"),
            "bytes_ms": bytes_ms, "fp32_ms": fp32_ms, "exp_ms": exp_ms, "bytes": nbytes,
@@ -1631,17 +1673,19 @@ def main() -> int:
 
     # the mutation checks' copies of four kernels: the RWKV-6 scan with its
     # u-bonus term dropped, the Mamba scan with the decay of each staged
-    # tile's first token dropped, the tensor-core flash kernel with the
-    # accumulator's alpha rescale dropped, the tensor-core matmul with its
-    # last 64-value k chunk dropped
+    # tile's first token dropped, the flash kernel with the accumulator's
+    # alpha rescale dropped on each route, the matmul with the last k step
+    # of each route dropped
     mutants = {}
     for key, name, line, repl in (
             ("rwkv6_scan", "rwkv6_scan", MUTANT_LINE,
              "const float dg = 0.f;  // mutation: u-bonus dropped"),
             ("mamba_scan", "mamba_scan", MAMBA_MUTANT_LINE,
-             "const float decay = i == 0 ? 1.f : exp2f(dtv * a2[n]);  // mutation"),
+             "const float decay = i == 0 ? 1.f : ex2_approx(dtv * a2[n]);  // mutation"),
             ("flash_attention", "flash_attention", FLASH_MUTANT_LINE,
              "(void)0;  // mutation: no alpha rescale"),
+            ("flash_simt", "flash_attention", SIMT_FLASH_MUTANT_LINE,
+             "(void)alpha;  // mutation: no alpha rescale"),
             ("matmul", "matmul", MATMUL_MUTANT_LINE,
              "const int kchunks = (a.K + kChunk - 1) / kChunk - 1;  // mutation"),
             ("matmul_simt", "matmul", SIMT_MUTANT_LINE,
@@ -1677,7 +1721,12 @@ def main() -> int:
          flash_wgmma_warnings=warnings("flash_attention"),
          matmul_hgmma_in_sass=hgmma["matmul"], matmul_wgmma_warnings=warnings("matmul"),
          matmul_c7519_arrive_injected=sum(
-             "C7519" in ln for ln in str(_build.BUILD_INFO["matmul"]["log"]).splitlines()))
+             "C7519" in ln for ln in str(_build.BUILD_INFO["matmul"]["log"]).splitlines()),
+         # the two kernels redesigned last, kernel by kernel
+         mamba_scan_kernels=ptxas_by_function(str(_build.BUILD_INFO["mamba_scan"]["log"]),
+                                              "mamba_scan_fwd"),
+         flash_simt_kernels=ptxas_by_function(str(_build.BUILD_INFO["flash_attention"]["log"]),
+                                              "flash_fwd_simt"))
     for name, count in hgmma.items():
         if count == 0:
             raise SystemExit(f"the {name} library's SASS holds no HGMMA instruction")
@@ -1687,7 +1736,8 @@ def main() -> int:
         phase_matmul_mutant(cases_f, mutants["matmul"], "wgmma", MATMUL_MUTANT_LINE)
         phase_matmul_mutant(cases_f, mutants["matmul_simt"], "simt", SIMT_MUTANT_LINE)
         phase_attention(cases_f)
-        phase_attention_mutant(cases_f, mutants["flash_attention"])
+        phase_attention_mutant(cases_f, mutants["flash_attention"], "wgmma", FLASH_MUTANT_LINE)
+        phase_attention_mutant(cases_f, mutants["flash_simt"], "simt", SIMT_FLASH_MUTANT_LINE)
         phase_rwkv_scan(cases_f)
         phase_mamba_scan(cases_f)
 
@@ -1762,6 +1812,9 @@ def main() -> int:
         "bound_by": ("operations" if sum(r["ops_ms"] for r in fa_main)
                      >= sum(r["bytes_ms"] for r in fa_main) else "bytes"),
         "routes": sorted({r["route"] for r in fa_main}),
+        "by_route": {route: {k: sum(r[k] for r in fa if r["route"] == route)
+                             for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+                     for route in ("wgmma", "simt")},
         "shapes": fa,
     }, {
         "name": "rwkv6_scan",
@@ -1779,7 +1832,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
         "replaces": "src/repro/kernels/mamba_scan.py:25",
         **launches("mamba_scan"),
-        **{k: mb[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        **{k: mb[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                               "bound_kind", "bytes_ms", "fp32_ms", "exp_ms", "bscn",
                               "dtype", "block", "plan")},
         "library_ms": None,

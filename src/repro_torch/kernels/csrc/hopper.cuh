@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks, written by hand: 16- and 4-byte cp.async
-// with zero fill, the 128-byte shared-memory swizzle, wgmma matrix descriptors,
-// the warpgroup fences and wgmma.mma_async at bf16 x bf16 -> f32.  Header
+// with zero fill, a one-instruction ex2, the 128-byte shared-memory swizzle,
+// wgmma matrix descriptors, the warpgroup fences and wgmma.mma_async at
+// bf16 x bf16 -> f32.  Header
 // only; a source that includes it is built for sm_90a (wgmma exists only
 // there).  `kernels/_build.py` hashes this header with every source that
 // includes it.
@@ -64,6 +65,15 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// 2^x as one MUFU.EX2: ex2.approx.ftz.f32 (relative error ~2^-22; an input
+// below -126 flushes the result to +0, a subnormal input counts as 0).
+// exp2f without -use_fast_math wraps the same instruction in range fix-ups
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // this thread's generic-proxy writes to shared memory (cp.async's included)
 // become visible to the async proxy, through which wgmma reads its operands
 __device__ __forceinline__ void fence_proxy_async_shared() {

@@ -19,7 +19,11 @@ to (S, T), maps onto the CTA tile:
   at D = 64 and 32 at D = 128, the largest tiles that keep a thread within
   ~128 registers, so that two CTAs fit an SM (the note in the source has
   the measurements);
-* "simt": q tile ``8·clamp(⌈bq/8⌉, 1, 8)``, kv tile ``16·clamp(⌈bk/16⌉, 1, 4)``.
+* "simt": q tile 64 if bq <= 64 else 128 (256 threads, each with 4 or 8 q
+  rows of both products), kv tile the power of two >= bk in [16, 64], halved
+  while Q, two (K, V) ring stages and P would take more than
+  :data:`SIMT_SMEM_MAX` bytes of shared memory (:func:`simt_smem_bytes`):
+  128 × 32 at D = 128 for the default block.
 
 On both, ``bk`` also sets ``T_pad = ⌈T/bk⌉·bk``, what a row with no visible
 key is divided by.
@@ -42,6 +46,13 @@ _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (8, 16, 32, 64, 128)  # the JAX kernel tests', musicgen-large's, jamba's
 TC_HEAD_DIMS = (64, 128)  # bf16 at these runs on the tensor cores
 TC_KV_CAP = 4096  # the tensor-core kv tile is at most TC_KV_CAP // D keys
+SIMT_SMEM_MAX = 232448  # shared memory a CTA can have on the card
+
+
+def simt_smem_bytes(d: int, q_tile: int, kv_tile: int) -> int:
+    """Shared memory of a SIMT CTA: Q, two stages of K and V (rows padded by 4
+    floats) and P transposed, all f32 (``csrc/flash_attention.cu``)."""
+    return 4 * (q_tile * (d + 4) + 4 * kv_tile * (d + 4) + kv_tile * (q_tile + 4))
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -190,8 +201,12 @@ def launch_plan(s: int, t: int, bq: int = 128, bk: int = 128, *, d: int,
             kv_tile *= 2
         return {"route": "wgmma", "q_tile": 64 if bq <= 64 else 128, "kv_tile": kv_tile,
                 "t_pad": t_pad}
-    return {"route": "simt", "q_tile": 8 * max(1, min(-(-bq // 8), 8)),
-            "kv_tile": 16 * max(1, min(-(-bk // 16), 4)), "t_pad": t_pad}
+    q_tile, kv_tile = (64 if bq <= 64 else 128), 16
+    while kv_tile < min(bk, 64):
+        kv_tile *= 2
+    while kv_tile > 16 and simt_smem_bytes(d, q_tile, kv_tile) > SIMT_SMEM_MAX:
+        kv_tile //= 2
+    return {"route": "simt", "q_tile": q_tile, "kv_tile": kv_tile, "t_pad": t_pad}
 
 
 def kernel_plan(s: int, t: int, bq: int = 128, bk: int = 128, *, d: int,

@@ -29,7 +29,8 @@ import torch
 from . import _build
 
 MAX_L = 64     # tokens staged per tile (csrc/mamba_scan.cu kMaxL)
-MAX_CC = 256   # channels a CTA (kMaxCC)
+MAX_CC = 128   # channels a CTA (kMaxCC)
+LANES = 2      # threads a channel, each holding N / LANES states (kLanes)
 STATE_DIMS = (4, 8, 16)  # the JAX kernel test's and jamba's
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -38,6 +39,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.looptune_mamba_scan.argtypes = [p] * 8 + [i] * 6 + [ll] * 8 + [i, p]
     lib.looptune_mamba_scan.restype = i
+    lib.looptune_mamba_scan_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+    lib.looptune_mamba_scan_plan.restype = i
 
 
 def _lib() -> ctypes.CDLL:
@@ -49,12 +52,23 @@ def launch_plan(s: int, c: int, chunk: int = 32, bd: int = 128) -> dict:
     ``"mamba"`` block ``{l: chunk, c: bd}``, clamped to ``(S, C)`` as the
     TPU wrapper clamps it: ``l`` tokens staged a tile (at most
     :data:`MAX_L`), ``cc`` channels a CTA (a multiple of 32 up to
-    :data:`MAX_CC`), and the tile and CTA counts along S and C."""
+    :data:`MAX_CC`), ``threads`` a CTA (:data:`LANES` a channel), and the
+    tile and CTA counts along S and C.  Pure Python; the kernel computes
+    the same (``looptune_mamba_scan_plan``, held equal on the card)."""
     if min(s, c, chunk, bd) < 1:
         raise ValueError(f"need s, c, chunk, bd >= 1, got {(s, c, chunk, bd)}")
     tile = min(chunk, s, MAX_L)
     cc = 32 * max(1, min(-(-min(bd, c) // 32), MAX_CC // 32))
-    return {"l": tile, "cc": cc, "n_tiles": -(-s // tile), "n_ctas": -(-c // cc)}
+    return {"l": tile, "cc": cc, "threads": cc * LANES, "n_tiles": -(-s // tile),
+            "n_ctas": -(-c // cc)}
+
+
+def kernel_plan(s: int, c: int, chunk: int = 32, bd: int = 128) -> dict:
+    """The plan as the built kernel computes it (needs the library)."""
+    out = (ctypes.c_int * 5)()
+    if _lib().looptune_mamba_scan_plan(s, c, chunk, bd, out) != 0:
+        raise ValueError(f"bad plan arguments {(s, c, chunk, bd)}")
+    return dict(zip(("l", "cc", "threads", "n_tiles", "n_ctas"), out))
 
 
 def mamba_scan_plain(dtx: torch.Tensor, da: torch.Tensor, b: torch.Tensor,

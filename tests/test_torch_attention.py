@@ -22,8 +22,9 @@ from repro.models import layers as RL
 from repro_torch.core import ScheduleRegistry as TRegistry
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import (check_aligned, flash_attention,
-                                                 flash_attention_plain, launch_plan)
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, SIMT_SMEM_MAX, check_aligned,
+                                                 flash_attention, flash_attention_plain,
+                                                 launch_plan, simt_smem_bytes)
 from repro_torch.models import layers as TL
 
 TOL = {"float32": 3e-5, "bfloat16": 3e-2}
@@ -198,15 +199,17 @@ def test_launch_plan_route_by_dtype_and_head_dim(dtype, d, route):
 
 
 @pytest.mark.parametrize("block,tc64,tc128,simt", [
-    ((16, 16), (64, 16), (64, 16), (16, 16)),
+    ((16, 16), (64, 16), (64, 16), (64, 16)),
     ((64, 128), (64, 64), (64, 32), (64, 64)),
-    ((128, 128), (128, 64), (128, 32), (64, 64)),
-    ((128, 16), (128, 16), (128, 16), (64, 16)),
-    ((8, 64), (64, 64), (64, 32), (8, 64)),
-    ((100, 48), (128, 64), (128, 32), (64, 48)),
-    ((128, 32), (128, 32), (128, 32), (64, 32)),
-    ((512, 512), (128, 64), (128, 32), (64, 64))])
+    ((128, 128), (128, 64), (128, 32), (128, 32)),
+    ((128, 16), (128, 16), (128, 16), (128, 16)),
+    ((8, 64), (64, 64), (64, 32), (64, 64)),
+    ((100, 48), (128, 64), (128, 32), (128, 32)),
+    ((128, 32), (128, 32), (128, 32), (128, 32)),
+    ((512, 512), (128, 64), (128, 32), (128, 32))])
 def test_launch_plan_tile_for_block(block, tc64, tc128, simt):
+    """The SIMT column is f32 at D = 128, where a 128 x 64 tile's shared
+    memory (236,544 bytes) is over the card's 232,448 and the kv tile halves."""
     for d, want in ((64, tc64), (128, tc128)):
         tc = launch_plan(1024, 1024, *block, d=d, dtype=torch.bfloat16)
         assert (tc["q_tile"], tc["kv_tile"]) == want
@@ -259,3 +262,45 @@ def test_tensor_core_route_refuses_misaligned_views():
     odd = torch.zeros(2, 10, 4, 68, dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="16-byte"):
         check_aligned(odd)                                  # head stride 68
+
+
+# ---------------------------------------------------------------------------
+# the SIMT route's tiles (f32 at every D, bf16 at D <= 32)
+# ---------------------------------------------------------------------------
+
+# a block for each (q tile, kv tile) the SIMT plan picks: 64 or 128 rows by
+# 16, 32 or 64 keys
+SIMT_BLOCKS = [(16, 16), (64, 32), (64, 64), (100, 16), (128, 32), (128, 128)]
+
+
+@pytest.mark.parametrize("dtype,d", [("float32", 16), ("float32", 64), ("bfloat16", 32)])
+@pytest.mark.parametrize("block", SIMT_BLOCKS, ids=lambda b: "bq{}_bk{}".format(*b))
+def test_wrapper_at_each_simt_tile_matches_pallas(block, dtype, d):
+    """The wrapper at the blocks that reach each SIMT tile, against the Pallas
+    kernel in interpret mode at the same block: causal with a window (rows
+    69-79 see no key, so each is sum(v) over the block's padded kv range), a
+    softcap, GQA 2, S != T (3e-5 f32, 3e-2 bf16)."""
+    b, s, t, h, hkv = 1, 80, 50, 2, 1
+    plan = launch_plan(s, t, *block, d=d, dtype=getattr(torch, dtype))
+    assert plan["route"] == "simt" and plan["q_tile"] in (64, 128)
+    q, k, v = _inputs(b, s, t, h, hkv, d, dtype, seed=d + block[1])
+    kw = dict(causal=True, window=20, softcap=30.0, bq=block[0], bk=block[1])
+    out = flash_attention(_torch(q), _torch(k), _torch(v), **kw)
+    ref = pallas_flash(*(jnp.asarray(a) for a in (q, k, v)), interpret=True, **kw)
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_simt_plan_fits_the_shared_memory(d):
+    """The SIMT kv tile is the power of two >= bk in [16, 64], halved only
+    while the CTA's Q, K/V ring and P exceed the card's shared memory."""
+    for bq in (1, 16, 64, 65, 128, 512):
+        for bk in (1, 16, 17, 33, 64, 128, 1000):
+            plan = launch_plan(1024, 1024, bq, bk, d=d, dtype=torch.float32)
+            tq, tk = plan["q_tile"], plan["kv_tile"]
+            assert tq == (64 if bq <= 64 else 128) and tk in (16, 32, 64)
+            assert simt_smem_bytes(d, tq, tk) <= SIMT_SMEM_MAX
+            want = 16
+            while want < min(bk, 64):
+                want *= 2
+            assert tk == want or simt_smem_bytes(d, tq, 2 * tk) > SIMT_SMEM_MAX

@@ -442,3 +442,119 @@ def test_jamba_smoke_model_step_on_the_card():
         assert torch.isfinite(g_).all()
         err = (g_.cpu() - w_).abs().max() / w_.abs().max()
         assert err.item() <= 1e-4
+
+
+# (B, S, C, chunk, bd): S off the token tile and C off the CTA's channels,
+# at every CTA width (bd 32, 64, 128 and 256, which clamps to 128)
+MAMBA_RAGGED = [(2, 77, 100, 16, 64), (1, 130, 300, 64, 128), (3, 5, 33, 8, 32),
+                (2, 200, 130, 64, 256)]
+
+
+def _mamba_case(b, s, ch, n, dt_, g, *, offset=0, pad=0, rank=4, with_h0=False):
+    """x, dt (B, S, C) as views ``offset`` elements into a buffer with rows
+    of C + pad; a = -(1..N) e^{0.1 N(0, 1)}; b and c views of one (B, S,
+    rank + 2N) projection; h0 0.1 N(0, 1) or None."""
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    def view(t):
+        flat = torch.zeros(offset + b * s * (ch + pad), device="cuda", dtype=dt_)
+        out = flat[offset:].view(b, s, ch + pad)[..., :ch]
+        out.copy_(t)
+        return out
+
+    x = view(rand(b, s, ch).to(dt_))
+    dt = view(torch.exp(0.5 * rand(b, s, ch) - 3.5).to(dt_))
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda") * torch.exp(0.1 * rand(ch, n))
+    proj = (0.5 * rand(b, s, rank + 2 * n)).to(dt_)
+    h0 = 0.1 * rand(b, ch, n) if with_h0 else None
+    return x, dt, a, proj[..., rank:rank + n], proj[..., rank + n:], h0
+
+
+def _check_mamba_on_the_card(case_args, chunk, bd):
+    from repro_torch.kernels.mamba_scan import (kernel_plan, launch_plan, mamba_scan,
+                                                mamba_scan_plain_model)
+
+    x, dt, a, bm, cm, h0 = case_args
+    s, ch = x.shape[1], x.shape[2]
+    plan = launch_plan(s, ch, chunk, bd)
+    assert plan == kernel_plan(s, ch, chunk, bd)  # the kernel's own plan
+    before = mamba_scan.launches
+    y, h = mamba_scan(x, dt, a, bm, cm, chunk=chunk, bd=bd, h0=h0)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches == before + 1
+    want_y, want_h = mamba_scan_plain_model(x, dt, a, bm, cm, chunk=plan["l"], h0=h0)
+    # the JAX kernel test's tolerance; both widen to f32 at the load
+    torch.testing.assert_close(y, want_y, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(h, want_h, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_mamba_scan_kernel_over_ragged_shapes_and_state_dims_on_the_card(n, dtype, with_h0):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(n)
+    for (b, s, ch, chunk, bd) in MAMBA_RAGGED:
+        _check_mamba_on_the_card(
+            _mamba_case(b, s, ch, n, getattr(torch, dtype), g, with_h0=with_h0), chunk, bd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,pad", [(1, 3), (2, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_reads_operands_off_16_bytes_on_the_card(dtype, offset, pad):
+    """x and dt off a 16-byte boundary (bf16 at offset 1 off 4 bytes too: the
+    kernel then stages them through registers; at offset 2 with even rows by
+    4-byte copies), b and c at odd element offsets with odd row strides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(offset)
+    for (b, s, ch, chunk, bd) in MAMBA_RAGGED[:2]:
+        args = _mamba_case(b, s, ch, 16, getattr(torch, dtype), g, offset=offset, pad=pad,
+                           rank=3, with_h0=True)
+        assert args[0].data_ptr() % 16 and args[3].data_ptr() % 16
+        _check_mamba_on_the_card(args, chunk, bd)
+
+
+# (B, S, T, H, HKV, causal, window, softcap, bq, bk, odd_kv): each SIMT tile
+# (q 64/128 x kv 16/32/64), ragged S != T, GQA 4, a window whose rows
+# 113-119 see no key, softcaps, and k, v views with rows of D + 1 (4-byte
+# copies)
+SIMT_CASES = [(2, 100, 100, 4, 4, True, None, None, 128, 128, False),
+              (1, 70, 150, 8, 2, False, None, None, 64, 64, False),
+              (1, 150, 70, 8, 2, True, None, None, 128, 32, False),
+              (1, 120, 90, 4, 1, True, 24, None, 128, 16, False),
+              (2, 130, 130, 4, 2, True, None, 30.0, 64, 128, False),
+              (1, 200, 200, 4, 4, False, 40, 20.0, 16, 16, False),
+              (1, 33, 20, 2, 1, True, None, None, 100, 48, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("float32", d) for d in (8, 16, 32, 64, 128)] +
+                         [("bfloat16", d) for d in (8, 16, 32)])
+def test_flash_simt_route_on_the_card(dtype, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
+                                                     kernel_plan, launch_plan)
+
+    dt = getattr(torch, dtype)
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    g = torch.Generator(device="cuda").manual_seed(d)
+    for (b, s, t, h, hkv, causal, window, softcap, bq, bk, odd_kv) in SIMT_CASES:
+        q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(b, t, hkv, d + odd_kv, generator=g, device="cuda").to(dt)[..., :d]
+                for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap=softcap, bq=bq, bk=bk)
+        plan = launch_plan(s, t, bq, bk, d=d, dtype=dt)
+        assert plan["route"] == "simt" and plan == kernel_plan(s, t, bq, bk, d=d, dtype=dt)
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        ref = flash_attention_plain(q, k, v, **kw)
+        assert out.dtype == dt and out.shape == ref.shape
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)

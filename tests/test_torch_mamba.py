@@ -25,6 +25,7 @@ from repro_torch.core import ScheduleRegistry as TRegistry
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.mamba_scan import (
+    LANES,
     MAX_CC,
     MAX_L,
     launch_plan,
@@ -147,15 +148,57 @@ def test_wrapper_takes_the_model_layout_on_cpu(dtype, with_h0):
 
 
 def test_launch_plan_clamps_the_block():
-    assert launch_plan(1024, 8192, 64, 128) == {"l": 64, "cc": 128, "n_tiles": 16,
-                                                "n_ctas": 64}
-    assert launch_plan(40, 20, 32, 128) == {"l": 32, "cc": 32, "n_tiles": 2, "n_ctas": 1}
-    assert launch_plan(5, 8192, 32, 8) == {"l": 5, "cc": 32, "n_tiles": 1, "n_ctas": 256}
-    assert launch_plan(300, 1000, 256, 1000) == {"l": MAX_L, "cc": MAX_CC, "n_tiles": 5,
-                                                 "n_ctas": 4}
+    """Tokens a tile, channels a CTA (a multiple of 32 up to 128) and
+    LANES = 2 threads a channel."""
+    assert LANES == 2 and MAX_CC == 128
+    assert launch_plan(1024, 8192, 64, 128) == {"l": 64, "cc": 128, "threads": 256,
+                                                "n_tiles": 16, "n_ctas": 64}
+    assert launch_plan(40, 20, 32, 128) == {"l": 32, "cc": 32, "threads": 64, "n_tiles": 2,
+                                            "n_ctas": 1}
+    assert launch_plan(5, 8192, 32, 8) == {"l": 5, "cc": 32, "threads": 64, "n_tiles": 1,
+                                           "n_ctas": 256}
+    assert launch_plan(300, 1000, 256, 1000) == {"l": MAX_L, "cc": MAX_CC,
+                                                 "threads": MAX_CC * LANES, "n_tiles": 5,
+                                                 "n_ctas": 8}
     assert launch_plan(10, 100, 4, 33)["cc"] == 64
     with pytest.raises(ValueError):
         launch_plan(0, 8)
+
+
+@pytest.mark.parametrize("s,c,chunk,bd", [(1, 1, 1, 1), (1024, 8192, 64, 128),
+                                          (300, 1000, 256, 1000), (7, 33, 3, 31),
+                                          (64, 129, 64, 97), (2000, 50, 100, 64)])
+def test_launch_plan_covers_every_token_and_channel(s, c, chunk, bd):
+    plan = launch_plan(s, c, chunk, bd)
+    assert 1 <= plan["l"] <= min(s, MAX_L, chunk)
+    assert plan["n_tiles"] * plan["l"] >= s > (plan["n_tiles"] - 1) * plan["l"]
+    assert plan["cc"] % 32 == 0 and 32 <= plan["cc"] <= MAX_CC
+    assert plan["n_ctas"] * plan["cc"] >= c > (plan["n_ctas"] - 1) * plan["cc"]
+    # whole warps, and a channel's two lanes in one warp
+    assert plan["threads"] == LANES * plan["cc"] and plan["threads"] % 64 == 0
+
+
+# (S, C, N, chunk, bd): blocks that reach each token tile and CTA width
+# (chip_smoke.py's MAMBA_SWEEP among them), ragged S and C
+PLAN_CASES = [(70, 100, 16, 64, 128), (70, 100, 16, 64, 32), (70, 100, 16, 16, 128),
+              (45, 200, 8, 32, 256), (9, 40, 4, 64, 64)]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: "s{}_c{}_n{}_l{}_bd{}".format(*c))
+def test_wrapper_at_the_plan_tile_matches_pallas(case):
+    """The wrapper on the model's layout (strided b/c views) at the plan's
+    tile, against the Pallas kernel in interpret mode at the same block on
+    dtx and da formed in f32 (2e-4)."""
+    s, ch, n, chunk, bd = case
+    x, dt, a, b, c, _ = _model_inputs(2, s, ch, n, seed=s + ch)
+    a = a * torch.from_numpy(np.exp(0.1 * np.random.default_rng(n).standard_normal(
+        (ch, n))).astype(np.float32))
+    y, h = mamba_scan(x, dt, a, b, c, chunk=chunk, bd=bd)
+    dtx, da = (dt * x).numpy(), (dt[..., None] * a).numpy()
+    yp, hp = pallas_scan(jnp.asarray(dtx), jnp.asarray(da), jnp.asarray(b.numpy()),
+                         jnp.asarray(c.numpy()), chunk=chunk, bd=bd, interpret=True)
+    np.testing.assert_allclose(y.numpy(), yp, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(h.numpy(), hp, rtol=TOL, atol=TOL)
 
 
 def test_a_chunk_above_the_tile_runs_at_the_tile():
