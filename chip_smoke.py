@@ -52,6 +52,21 @@ line with its seconds:
 5. serve  — one layer's worth of ``tuned_einsum`` calls (wq/wk/wv, gate,
    up, down, logits) under ``serving(registry)``, decode and prefill,
    checked against ``matmul_ref``;
+   policy — the policy path: APEX-DQN with the paper's network (flat state
+   320, dueling head, hidden (256, 256), 8 actors on the ε ladder, the
+   card executor's 10 actions) trains on a seeded subsample of the paper's
+   matmul train split (dims 64-256), every reward a timed launch of the
+   tiled-matmul kernel (f32, the SIMT route); its greedy policy is
+   evaluated on 8 held-out matmuls of the test split; DQN trains briefly
+   with the graph encoder (the message passing on the card); the APEX
+   checkpoint is reloaded through ``LoopTuner.from_checkpoint`` (its
+   calibration must be ``recorded``; its greedy actions must equal the
+   trained policy's on 64 states, and a CPU load's on those clear of
+   ties), tunes musicgen-large's six f32 contractions by greedy rollout
+   (each beside the search's block and seconds), and its records are
+   served through ``tuned_einsum`` against ``matmul_plain`` at their
+   blocks; last, ``LoopTuner(policy="search", surrogate="auto")`` tunes the
+   same six at phase tune's budget, beside the measured-only search;
    model  — the second path: musicgen-large at full width (48 layers,
    d_model 2048, bf16, random weights from a seed) served by
    ``launch/serve.py``'s continuous-batching loop with the six contractions
@@ -107,8 +122,8 @@ line with its seconds:
    time and a block sweep.
 
 All four kernels' launch counts are set to 0 before phase 4 and read after
-phase 5, set to 0 again before the model's tuning and read right after its
-serve run, and set to 0 before rwkv6-7b's and jamba's serve runs and read
+phase 5, set to 0 again before the policy phase and read after it, set to
+0 before the model's tuning and read right after its serve run, and set to 0 before rwkv6-7b's and jamba's serve runs and read
 right after each; each path must launch its own kernels and no other.
 Launches made to
 compare, trace, check or time do not count.  Per-case detail goes to
@@ -193,6 +208,16 @@ SIMT_MUTANT_LINE = "return (K + kd - 1) / kd;  // k stages of the SIMT ring"
 # about 2.5 times the K = 8192 reading.  The SIMT route keeps 1e-5, and bf16
 # out is 1e-2 on both
 TC_F32_LIMIT = 3e-5
+# the policy path: APEX-DQN (the paper's network: flat state 320, dueling
+# head, hidden (256, 256), 8 actors) trained on card-timed rewards over a
+# seeded subsample of the paper's matmul train split, evaluated on held-out
+# matmuls of its test split, then tuning musicgen-large's six contractions
+POLICY_TRAIN = 96          # train-split contractions the actors draw from
+POLICY_EVAL = 8            # held-out test-split contractions
+APEX_ITERATIONS = 300      # one episode of 10 actions per actor each
+DQN_ITERATIONS = 8         # the graph-encoder DQN: the trunk on the card
+POLICY_PROBE = 64          # states on which reloaded policies must act alike
+TIE_GAP = 1e-3             # 100x the f32 score tolerance (1e-5 relative)
 
 
 def reset_launches() -> None:
@@ -799,6 +824,189 @@ def phase_serve(registry, wts, g) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the policy path: train on card-timed rewards, tune and serve from the
+# checkpoint, and the surrogate-guided search
+# ---------------------------------------------------------------------------
+
+
+def kernel_spy(backend) -> dict:
+    """Count the tiled-matmul launches of each contraction's rewards on
+    ``backend``: its ``run_once`` is wrapped to read the wrapper's count
+    around each timed call."""
+    from repro_torch.kernels.matmul import matmul
+
+    per: dict = {}
+    run_once = backend.run_once
+
+    def counted(nest):
+        before = matmul.launches
+        run_once(nest)
+        name = nest.contraction.name
+        per[name] = per.get(name, 0) + matmul.launches - before
+
+    backend.run_once = counted
+    return per
+
+
+def probe_states(benches, actions, n: int) -> tuple:
+    """Observations and legal masks of ``n`` states reached by seeded random
+    walks (features depend on the nest only, so the analytical backend
+    walks them)."""
+    from repro_torch.core import VecLoopTuneEnv
+
+    venv = VecLoopTuneEnv(benches, "tpu", 8, actions=actions, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    obs, masks = [venv.reset()], [venv.action_mask()]
+    while sum(len(o) for o in obs) < n:
+        a = [int(rng.choice(np.flatnonzero(m))) for m in masks[-1]]
+        o, _, d, _ = venv.step(a)
+        obs.append(venv.reset() if d.all() else o)
+        masks.append(venv.action_mask())
+    return np.concatenate(obs)[:n], np.concatenate(masks)[:n]
+
+
+def phase_policy(out_dir: Path, tune_rows: list, g) -> dict:
+    from repro_torch.core import (CPU_SPLITS, ApexConfig, DQNConfig, EncoderConfig,
+                                  LoopTuneEnv, LoopTuner, build_action_space, evaluate_policy,
+                                  make_act_from_checkpoint, make_backend, matmul_benchmark,
+                                  train_apex, train_dqn)
+    from repro_torch.core.dataset import matmul_dataset, train_test_split
+    from repro_torch.kernels.matmul import matmul
+
+    t0 = time.perf_counter()
+    train, test = train_test_split(matmul_dataset(), seed=SEED)
+    rng = np.random.default_rng(SEED)
+    train = [train[i] for i in rng.choice(len(train), POLICY_TRAIN, replace=False)]
+    held = [test[i] for i in rng.choice(len(test), POLICY_EVAL, replace=False)]
+    actions = build_action_space(CPU_SPLITS)
+    backend = make_backend("torch")
+    per = kernel_spy(backend)
+    env = LoopTuneEnv(train, backend, actions=actions, seed=SEED)
+
+    # 1. APEX-DQN on rewards timed on the card (f32, the SIMT route)
+    t1, l1 = time.perf_counter(), matmul.launches
+    res = train_apex(lambda i: env, APEX_ITERATIONS, ApexConfig(n_actors=8, seed=SEED))
+    ms = backend.measure_stats()
+    train_row = {
+        "iterations": APEX_ITERATIONS, "updates": res.extra["updates"],
+        "episode_reward_mean_first": res.rewards[0], "episode_reward_mean_last": res.rewards[-1],
+        "episode_reward_mean_first30": float(np.mean(res.rewards[:30])),
+        "episode_reward_mean_last30": float(np.mean(res.rewards[-30:])),
+        "rewards": res.rewards[::10], "seconds": time.perf_counter() - t1,
+        "reward_launches": matmul.launches - l1, "measurements": ms["measurements"],
+        "noisy": ms["noisy"], "contractions_measured": len(per),
+        "peak_gflops": env.peak, "state_dim": res.meta["state_dim"],
+        "n_actions": res.meta["n_actions"]}
+    print(json.dumps({"phase": "policy_train", **train_row}), flush=True)
+    unlaunched = sorted(k for k, v in per.items() if v == 0)
+
+    # 2. the greedy policy on held-out matmuls
+    t1 = time.perf_counter()
+    ev = evaluate_policy(LoopTuneEnv(held, backend, actions=actions), res.act,
+                         list(range(len(held))))
+    eval_row = {"contractions": [list(c.iter_sizes.values()) for c in held],
+                "speedup_geomean": ev["speedup_geomean"], "speedups": ev["speedups"],
+                "time_mean_s": ev["time_mean_s"], "seconds": time.perf_counter() - t1}
+    print(json.dumps({"phase": "policy_eval", **eval_row}), flush=True)
+
+    # 3. a second encoder: the graph trunk's message passing on the card
+    t1 = time.perf_counter()
+    dqn = train_dqn(LoopTuneEnv(train, backend, actions=actions, seed=SEED), DQN_ITERATIONS,
+                    DQNConfig(encoder=EncoderConfig(kind="graph"), seed=SEED))
+    dqn_row = {"iterations": DQN_ITERATIONS, "updates": dqn.extra["updates"],
+               "rewards": dqn.rewards, "state_dim": dqn.meta["state_dim"],
+               "seconds": time.perf_counter() - t1}
+    print(json.dumps({"phase": "policy_dqn_graph", **dqn_row}), flush=True)
+
+    # 4. the checkpoint: reload it, act alike, tune and serve from it
+    path = out_dir / "policy_apex.pkl"
+    res.save(str(path))
+    tuner = LoopTuner.from_checkpoint(str(path), backend="torch")
+    tune_per = kernel_spy(tuner.backend)
+    obs, mask = probe_states(train[:8], actions, POLICY_PROBE)
+    trained = np.asarray(res.act(obs, mask))
+    reloaded = np.asarray(tuner.act(obs, mask))
+    with torch.no_grad():
+        dev = next(res.params.parameters()).device
+        scores = res.params(torch.as_tensor(obs, device=dev)).cpu().numpy()
+    top2 = np.sort(np.where(mask, scores, -np.inf), axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > TIE_GAP * np.abs(scores).max(axis=1)
+    on_cpu = np.asarray(make_act_from_checkpoint(str(path), device="cpu")(obs, mask))
+    benches = [matmul_benchmark(*mkn) for mkn in CONTRACTIONS]
+    search = {tuple(r["mkn"]): r for r in tune_rows}
+    rows = []
+    t1, l1 = time.perf_counter(), matmul.launches
+    for i, e in enumerate(tuner.tune_many(benches)):
+        mkn = CONTRACTIONS[i]
+        rows.append({"mkn": list(mkn), "block": e.get("block"), "grid_order": e.get("grid_order"),
+                     "actions": e["actions"], "base_gflops": e["base_gflops"],
+                     "tuned_gflops": e["gflops"], "tune_s": e["tune_time_s"],
+                     "kernel_launches": tune_per.get(benches[i].name, 0),
+                     "search_block": search[mkn]["block"], "search_gflops": search[mkn]["tuned_gflops"],
+                     "search_tune_s": search[mkn]["tune_s"]})
+        print(json.dumps({"phase": "policy_tune_entry", **rows[-1]}), flush=True)
+    tune_s, tune_launches = time.perf_counter() - t1, matmul.launches - l1
+    records = record_checks(tuner.registry, g, torch.float32)
+
+    # 5. surrogate-guided search at phase tune's budget, beside measured-only
+    t1 = time.perf_counter()
+    guided = LoopTuner(policy="search", surrogate="auto", backend="torch")
+    guided_per = kernel_spy(guided.backend)
+    n = len(benches)
+    guided_rows, mark = [], [guided.cache.misses, 0]
+
+    def on_entry(i: int, entry: dict) -> None:
+        sc = guided.stats()["surrogate"]
+        mkn = CONTRACTIONS[i]
+        guided_rows.append({"mkn": list(mkn), "best_gflops": entry["gflops"],
+                            "evals": guided.cache.misses - mark[0],
+                            "skipped": sc.get("skipped", 0) - mark[1],
+                            "block": entry.get("block"),
+                            "kernel_launches": guided_per.get(benches[i].name, 0),
+                            "search_gflops": search[mkn]["tuned_gflops"],
+                            "search_evals": search[mkn]["evals"]})
+        mark[:] = [guided.cache.misses, sc.get("skipped", 0)]
+
+    guided.tune_many(benches, weights=[1.0] * n, budget_s=TUNE_BUDGET_S * n,
+                     eval_budget=TUNE_MAX_EVALS * n, on_entry=on_entry)
+    sur = guided.stats()["surrogate"]
+    row = {"train": train_row, "eval": eval_row, "dqn_graph": dqn_row,
+           "calibration": tuner.calibration, "probe_states": len(obs),
+           "probe_clear_of_ties": int(clear.sum()),
+           "reload_differs": int((trained != reloaded).sum()),
+           "cpu_differs_clear": int((on_cpu != trained)[clear].sum()),
+           "tune": rows, "tune_s": tune_s, "tune_launches": tune_launches,
+           "tune_s_per_contraction": tune_s / n,
+           "search_tune_s_per_contraction": sum(r["tune_s"] for r in tune_rows) / n,
+           "records": records, "surrogate_search": guided_rows,
+           "surrogate": sur, "surrogate_search_s": time.perf_counter() - t1}
+    emit("policy", t0, **{k: v for k, v in row.items() if k not in ("train", "eval",
+                                                                      "dqn_graph", "tune")})
+    checks = {
+        "every measured training contraction launched the kernel":
+            not unlaunched and train_row["reward_launches"] > 0,
+        "rewards finite": bool(np.isfinite(res.rewards).all()),
+        "the graph DQN trained": dqn_row["updates"] > 0,
+        "calibration recorded": tuner.calibration["mode"] == "recorded",
+        "reloaded policy acts as trained": row["reload_differs"] == 0,
+        "cpu load acts alike clear of ties": row["cpu_differs_clear"] == 0,
+        "every contraction's tune launched the kernel":
+            all(r["kernel_launches"] > 0 for r in rows + guided_rows),
+        "tuned >= base": all(r["tuned_gflops"] >= r["base_gflops"] > 0 and r["block"]
+                             for r in rows),
+        "every record served, routed, within its limit": all(
+            r["rel_err"] <= r["limit"] and r["routed"] == 1 and r["misses"] == 0
+            for r in records),
+        "the surrogate fitted and skipped candidates":
+            sur.get("n_fits", 0) > 0 and sur.get("skipped", 0) > 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"policy phase failed: {bad} (unlaunched: {unlaunched[:8]})")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # the model path: musicgen-large at full width, served through both kernels
 # ---------------------------------------------------------------------------
 
@@ -848,40 +1056,43 @@ def device_times(prof, wall_s: float, path: Path) -> dict:
             "idle_share": 1.0 - busy_ms / (wall_s * 1e3)}
 
 
-def record_checks(registry, g) -> list:
-    """Each bf16 record the model serves, through ``tuned_einsum`` at the
-    model's shapes and forms (the logits form with f32 out), against
-    ``matmul_plain`` on the same operands at the record's block."""
+def record_checks(registry, g, dt=torch.bfloat16) -> list:
+    """Each record of type ``dt`` the model serves (bf16 unless told
+    otherwise), through ``tuned_einsum`` at the model's shapes and forms
+    (the logits form with f32 out), against ``matmul_plain`` on the same
+    operands at the record's block."""
     from repro_torch.core.registry import current_hardware
     from repro_torch.kernels import ops
     from repro_torch.kernels.matmul import launch_plan, matmul_plain
 
-    bf16, rows = torch.bfloat16, []
+    rows = []
     for m, seq in ((DECODE_M, 1), (PREFILL_M, PREFILL_M // DECODE_M)):
         for spec, (k, n), odt in (("bsk,kn->bsn", (D_MODEL, D_MODEL), None),
                                   ("bsk,kn->bsn", (D_MODEL, D_FF), None),
                                   ("bsk,kn->bsn", (D_FF, D_MODEL), None),
                                   ("bsd,vd->bsv", (D_MODEL, VOCAB), torch.float32)):
-            x = torch.randn(DECODE_M, seq, k, generator=g, device="cuda").to(bf16)
+            x = torch.randn(DECODE_M, seq, k, generator=g, device="cuda").to(dt)
             trans_b = spec.endswith("vd->bsv")
             w = torch.randn(*((n, k) if trans_b else (k, n)), generator=g,
-                            device="cuda").to(bf16)
+                            device="cuda").to(dt)
             ops.reset_serving_stats()
             with ops.serving(registry):
                 out = ops.tuned_einsum(spec, x, w, out_dtype=odt)
-            routed = ops.serving_stats(reset=True)["routed"]
+            stats = ops.serving_stats(reset=True)
             block, order = ops._entry_schedule(registry.get(
-                "mm", (m, k, n), "bfloat16", hardware=current_hardware(), exact=True))
+                "mm", (m, k, n), str(dt).removeprefix("torch."),
+                hardware=current_hardware(), exact=True))
             plain = matmul_plain(x.reshape(m, k), w, bm=block["m"], bk=block["k"],
                                  bn=block["n"], grid_order=order,
-                                 out_dtype=odt or bf16, trans_b=trans_b)
+                                 out_dtype=odt or dt, trans_b=trans_b)
             torch.cuda.synchronize()
-            odt = odt or bf16
+            odt = odt or dt
             route = launch_plan(m, k, n, block["m"], block["k"], block["n"], order,
-                                dtype=bf16)["route"]
+                                dtype=dt)["route"]
             rows.append({"spec": spec, "mkn": [m, k, n], "out": str(odt),
                          "block": [block["m"], block["k"], block["n"]], "order": order,
-                         "route": route, "routed": routed, "limit": limit_for(odt, route),
+                         "route": route, "routed": stats["routed"],
+                         "misses": stats["misses"], "limit": limit_for(odt, route),
                          "rel_err": rel_err(out.reshape(m, n), plain)})
     return rows
 
@@ -1358,21 +1569,22 @@ def kernel_device_ms(fn, name: str, reps: int = 10) -> float:
     ``reps``."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    path = ROOT / "build" / "kernel_trace.json"
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
-    path.unlink()
-    durs = [float(e["dur"]) for e in events
-            if e.get("ph") == "X" and str(e.get("cat", "")).lower() in DEVICE_CATS
-            and name in e.get("name", "")]
-    if not durs:
-        raise SystemExit(f"the trace holds no {name} kernel")
-    return sum(durs) / len(durs) / 1e3
+    for _ in range(3):  # a trace can come back without its device rows: trace again
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        path = ROOT / "build" / "kernel_trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        path.unlink()
+        durs = [float(e["dur"]) for e in events
+                if e.get("ph") == "X" and str(e.get("cat", "")).lower() in DEVICE_CATS
+                and name in e.get("name", "")]
+        if durs:
+            return sum(durs) / len(durs) / 1e3
+    raise SystemExit(f"three traces hold no {name} kernel")
 
 
 def time_ms(fn, flush: torch.Tensor, reps: int) -> float:
@@ -1749,6 +1961,14 @@ def main() -> int:
     by_path = {"tune_serve": read_launches()}  # ... and ends here
     check_path_launches("tune_serve", by_path["tune_serve"], ("tiled_matmul",))
     del wts
+    reset_launches()  # the policy path starts here
+    phase_policy(out_dir, tune_rows, g)
+    by_path["policy"] = read_launches()  # ... and ends here
+    check_path_launches("policy", by_path["policy"], ("tiled_matmul",))
+    # the policy path's executors and their operands on the card sit in
+    # reference cycles (the launch spies): free them before the model path
+    gc.collect()
+    torch.cuda.empty_cache()
 
     model, model_registry = phase_model(out_dir)  # the second path (counts set to 0 and read inside)
     gc.collect()

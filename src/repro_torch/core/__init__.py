@@ -1,10 +1,9 @@
 """LoopTune core, ported to PyTorch: the loop-nest IR, cursor actions and
 features, the reward backends (analytical TPU model, NumPy interpreter and
-the card executor), the traditional searches and the :class:`LoopTuner`
-that persists tuned schedules for the kernel layer.
-
-The trainers, the learned surrogate, the worker pool and the measurement
-farm are not ported yet (ROADMAP.md).
+the card executor), the vectorised environment, the policy networks and
+encoders, the DQN and APEX-DQN trainers, the learned surrogate, the
+traditional searches and the :class:`LoopTuner` that persists tuned
+schedules for the kernel layer.
 """
 from .actions import (
     Action,
@@ -15,6 +14,7 @@ from .actions import (
     is_legal,
     legal_mask,
 )
+from .apex_dqn import ApexConfig, train_apex
 from .backend import (
     Backend,
     backend_name,
@@ -30,6 +30,19 @@ from .dataset import (
     mixed_ops_dataset,
     small_dataset,
     train_test_split,
+)
+from .dqn import DQNConfig, train_dqn
+from .encoders import (
+    EncoderConfig,
+    FlatEncoder,
+    GraphEncoder,
+    Network,
+    build_network,
+    checkpoint_meta,
+    get_encoder,
+    make_policy_act,
+    make_score_fn,
+    register_encoder,
 )
 from .env import LoopTuneEnv
 from .features import MAX_LOOPS, STATE_DIM, encode, normalize, stride_bin
@@ -62,7 +75,29 @@ from .measure import (
     measure_settings,
     measurement_of,
 )
+from .networks import (
+    MASK_SENTINEL,
+    masked_argmax,
+    masked_fill,
+    masked_logits,
+    params_from_numpy,
+    params_to_numpy,
+)
 from .registry import ScheduleRegistry, card_boundary, schedule_to_blockspec
+from .replay import PrioritizedReplay, ReplayBuffer, SumTree
+from .rl_common import (
+    TrainResult,
+    collect_vec_rollout,
+    epsilon_greedy_batch,
+    epsilon_ladder,
+    evaluate_policy,
+    greedy_rollout,
+    greedy_rollout_vec,
+    load_checkpoint,
+    load_params,
+    make_masked_act,
+    sample_masked,
+)
 from .schedule_cache import LRUCache, ScheduleCache
 from .search import (
     SEARCHES,
@@ -72,6 +107,12 @@ from .search import (
     random_search,
     run_all_searches,
 )
+from .surrogate import (
+    SurrogateDataset,
+    SurrogateModel,
+    SurrogateScorer,
+    make_surrogate,
+)
 from .torch_backend import (
     CompiledKernelCache,
     TorchBackend,
@@ -79,6 +120,7 @@ from .torch_backend import (
     match_kernel_route,
     register_kernel_route,
 )
-from .tuner import LoopTuner
+from .tuner import LoopTuner, load_policy, make_act_from_checkpoint
+from .vec_env import VecLoopTuneEnv
 
 __all__ = [k for k in dir() if not k.startswith("_")]

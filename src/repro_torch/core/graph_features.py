@@ -70,15 +70,18 @@ def unpack_graph(x, max_loops: int):
 def build_adjacency(mask, section, iter_id, pos, xp=np):
     """Typed adjacency ``(..., N_EDGE_TYPES, M, M)`` from node annotations.
 
-    ``xp`` is the array namespace (numpy or jax.numpy) so the same code runs
-    at featurization time and inside the jitted graph encoder.  All planes
-    are symmetric, zero on the diagonal and zero anywhere a padding node is
-    involved — permuting node slots (with their annotations) permutes the
-    adjacency consistently, which is what makes the encoder
-    permutation-robust.
+    ``xp`` is the array namespace (numpy or torch) so the same code runs at
+    featurization time and inside the graph encoder, on the host or the
+    card.  All planes are symmetric, zero on the diagonal and zero anywhere
+    a padding node is involved — permuting node slots (with their
+    annotations) permutes the adjacency consistently, which is what makes
+    the encoder permutation-robust.
     """
     m2 = mask[..., :, None] * mask[..., None, :]
-    off_diag = m2 * (1.0 - xp.eye(mask.shape[-1], dtype=mask.dtype))
+    eye = xp.eye(mask.shape[-1], dtype=mask.dtype)
+    if xp is not np:  # torch: the identity on the mask's device
+        eye = eye.to(mask.device)
+    off_diag = m2 * (1.0 - eye)
     same_sec = section[..., :, None] == section[..., None, :]
     adjacent = xp.abs(pos[..., :, None] - pos[..., None, :]) == 1.0
     same_it = iter_id[..., :, None] == iter_id[..., None, :]

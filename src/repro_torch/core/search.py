@@ -12,32 +12,25 @@ batched: all children of a frontier node are scored through one
 ``Backend.evaluate_batch`` call (cache-deduped), so measurement cost is
 amortized exactly like the vectorized RL rollouts.
 
-Every search accepts ``surrogate`` for the JAX package's signature, but only
-None / ``"off"`` (measured-only search) so far: the learned cost model that
-pre-ranks frontiers comes with the policy slice (ROADMAP.md), and any other
-value raises ``NotImplementedError``.
+Every search additionally accepts ``surrogate`` ("auto" | "off" | a shared
+:class:`~repro_torch.core.surrogate.SurrogateScorer`): two-stage frontier
+scoring where the learned cost model ranks the frontier and only the top
+slice of cache misses is charged against the budget and measured for real
+(``surrogate.py``).  Measured GFLOPS stream back into the model, which
+re-fits periodically — evaluations saved compound as the search proceeds.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .actions import apply_action, is_legal
 from .env import LoopTuneEnv
 from .loop_ir import LoopNest
-
-
-def check_surrogate(surrogate) -> None:
-    """Measured-only search: None / ``"off"`` are the accepted values; the
-    learned surrogate is not ported yet."""
-    if surrogate is None or surrogate == "off":
-        return
-    raise NotImplementedError(
-        f"surrogate={surrogate!r}: the learned surrogate is not ported yet "
-        "(ROADMAP.md, policy path); use surrogate='off'")
+from .surrogate import SurrogateScorer, make_surrogate
 
 
 @dataclass
@@ -75,6 +68,10 @@ class SearchResult:
             # base) without manufacturing a huge ratio from a tiny base
             return 1.0
         return self.best_gflops / max(self.base_gflops, 1e-9)
+
+    # two-stage scoring observability (None when the search ran without a
+    # surrogate): dataset size, fit count, frontier candidates skipped
+    surrogate_stats: Optional[Dict[str, Any]] = None
 
     @property
     def cache_hit_rate(self) -> float:
@@ -149,14 +146,31 @@ def _score_frontier(
     env: LoopTuneEnv,
     nests: Sequence[LoopNest],
     budget: _Budget,
+    surrogate: Optional[SurrogateScorer] = None,
+    root: bool = False,
+    prune: bool = True,
 ) -> Tuple[List[int], np.ndarray]:
-    """Score a frontier through one cached ``evaluate_batch`` call charged
-    against the budget (which may truncate the tail — dropped candidates
-    simply stay unscored, and unscored candidates are never expanded).
-    Returns ``(indices, gflops)`` where ``gflops[j]`` is the measured score
-    of ``nests[indices[j]]``."""
-    gs = _eval_batch(env, nests, budget)
-    return list(range(len(gs))), gs
+    """Two-stage frontier scoring.  Returns ``(indices, gflops)`` where
+    ``gflops[j]`` is the *measured* score of ``nests[indices[j]]``.
+
+    Stage 1 (cheap): the surrogate ranks the frontier and keeps cache hits
+    plus the top slice of misses.  Stage 2 (real): the survivors go through
+    one cached ``evaluate_batch`` call, charged against the budget (which may
+    truncate the tail — dropped candidates simply stay unscored, and
+    unscored candidates are never expanded).  Fresh measurements are fed
+    back to the surrogate.  With ``surrogate=None`` stage 1 keeps everything;
+    ``prune=False`` also keeps everything but still feeds the measurements
+    back (greedy's full-frontier verification pass).
+    """
+    if surrogate is None:
+        gs = _eval_batch(env, nests, budget)
+        return list(range(len(gs))), gs
+    order = (surrogate.select(env, nests, root=root) if prune
+             else list(range(len(nests))))
+    gs = _eval_batch(env, [nests[i] for i in order], budget)
+    order = order[: len(gs)]
+    surrogate.observe([nests[i] for i in order], gs)
+    return order, gs
 
 
 def _children(env: LoopTuneEnv, nest: LoopNest) -> List[Tuple[int, LoopNest]]:
@@ -192,7 +206,7 @@ def _cache_counters(env: LoopTuneEnv) -> Tuple:
 
 
 def _mk_result(name, env, base, best_g, best_seq, best_nest, budget, trace,
-               cache0=(0, 0, 0, 0, 0.0, 0, 0)):
+               cache0=(0, 0, 0, 0, 0.0, 0, 0), surrogate=None):
     h0, m0, e0, z0, cs0, ch0, cm0 = cache0
     cs1, ch1, cm1 = _compile_counters(env)
     return SearchResult(
@@ -211,6 +225,7 @@ def _mk_result(name, env, base, best_g, best_seq, best_nest, budget, trace,
         compile_s=round(cs1 - cs0, 4),
         compile_hits=ch1 - ch0,
         compile_misses=cm1 - cm0,
+        surrogate_stats=surrogate.stats() if surrogate is not None else None,
     )
 
 
@@ -231,7 +246,9 @@ def greedy_search(
     cache0 = _cache_counters(env)
     env.reset(benchmark_idx)
     base = env.current_gflops
-    check_surrogate(surrogate)
+    # the scorer (a network on its device) is built before the budget clock
+    # starts: building the cost model is setup, not search time
+    scorer = make_surrogate(surrogate, env)
     budget = _Budget(budget_s, max_evals)
     nest = env.nest.clone()
     cur_g = base
@@ -239,20 +256,27 @@ def greedy_search(
     seq: List[int] = []
     trace = [(0.0, base)]
 
-    def expand(n: LoopNest, depth: int) -> Tuple[float, List[int]]:
+    def expand(n: LoopNest, depth: int, sc,
+               prune: bool = True) -> Tuple[float, List[int]]:
         """Best achievable gflops within `depth` more actions (dfs)."""
         g_here = _eval(env, n, budget)
         if depth == 0 or budget.exhausted():
             return g_here, []
         kids = _children(env, n)
-        # one batched backend call for the frontier; only scored children
-        # are expanded (unscored ones are out of budget), and the recursion
-        # below then hits the cache for each scored child's own evaluation
-        kept, _ = _score_frontier(env, [child for _, child in kids], budget)
+        # two-stage frontier scoring: one batched backend call for the kept
+        # slice; only scored children are expanded (unscored ones were either
+        # surrogate-pruned or out of budget), and the recursion below then
+        # hits the cache for each scored child's own evaluation.  The ROOT
+        # frontier (depth == lookahead) is greedy's per-step commitment, so
+        # it gets the scorer's gentler ``root_keep_frac`` prune; the
+        # exponentially larger lookahead levels take the full prune.
+        kept, _ = _score_frontier(env, [child for _, child in kids],
+                                  budget, sc, root=depth == lookahead,
+                                  prune=prune)
         best, bseq = g_here, []
         for j in kept:
             ai, child = kids[j]
-            g_c, s_c = expand(child, depth - 1)
+            g_c, s_c = expand(child, depth - 1, sc, prune)
             if g_c > best:
                 best, bseq = g_c, [ai] + s_c
             if budget.exhausted():
@@ -262,7 +286,17 @@ def greedy_search(
     for _ in range(steps):
         if budget.exhausted():
             break
-        g_best, sub = expand(nest, lookahead)
+        g_best, sub = expand(nest, lookahead, scorer)
+        if ((not sub or g_best <= cur_g + 1e-12)
+                and scorer is not None and scorer.active
+                and not budget.exhausted()):
+            # the surrogate claims a local optimum — greedy would terminate,
+            # so verify against the FULL frontier before stopping (children
+            # the surrogate kept are cache hits now; only the pruned
+            # remainder is paid for, and its measurements feed the model the
+            # exact frontier it just mis-ranked).  The surrogate can never
+            # end a greedy search earlier than measured search would.
+            g_best, sub = expand(nest, lookahead, scorer, prune=False)
         if not sub or g_best <= cur_g + 1e-12:
             break  # greedy terminates when no better state within lookahead
         ai = sub[0]
@@ -273,7 +307,7 @@ def greedy_search(
             best_g, best_nest, best_seq = cur_g, nest.clone(), list(seq)
         trace.append((budget.elapsed(), best_g))
     return _mk_result(f"greedy{lookahead}", env, base, best_g, best_seq,
-                      best_nest, budget, trace, cache0)
+                      best_nest, budget, trace, cache0, scorer)
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +328,8 @@ def beam_search(
     cache0 = _cache_counters(env)
     env.reset(benchmark_idx)
     base = env.current_gflops
-    check_surrogate(surrogate)
+    # the scorer is built before the budget clock starts (setup, not search)
+    scorer = make_surrogate(surrogate, env)
     budget = _Budget(budget_s, max_evals)
     root = env.nest.clone()
     best_g, best_nest, best_seq = base, root.clone(), []
@@ -311,10 +346,10 @@ def beam_search(
             fresh.append((ai, child, k))
         if not fresh:
             return []
-        # the node's frontier in one batched call (out-of-budget children
-        # stay unvisited)
+        # two-stage scoring of the node's frontier in one batched call
+        # (surrogate-pruned or out-of-budget children stay unvisited)
         kept, gs = _score_frontier(env, [child for _, child, _ in fresh],
-                                   budget)
+                                   budget, scorer)
         scored = []
         for j, g in zip(kept, gs):
             ai, child, k = fresh[j]
@@ -348,7 +383,9 @@ def beam_search(
             if budget.exhausted() or not frontier:
                 break
             # gather the ENTIRE layer's fresh children and score them through
-            # one batched call
+            # one two-stage call: the surrogate ranks the full layer frontier
+            # (not per-node slices), so keep_frac bites even when each node
+            # contributes only a few children
             cand: List[Tuple[int, LoopNest, Tuple, List[int], int]] = []
             seen_layer = set()
             for pi, (n, seq) in enumerate(frontier):
@@ -360,7 +397,8 @@ def beam_search(
                     cand.append((ai, child, k, seq, pi))
             if not cand:
                 break
-            kept, gs = _score_frontier(env, [c[1] for c in cand], budget)
+            kept, gs = _score_frontier(env, [c[1] for c in cand],
+                                       budget, scorer)
             # beam semantics as before layer-batching: each parent node
             # contributes at most its top `width` children, then the global
             # top width^2 bounds the next frontier
@@ -378,7 +416,7 @@ def beam_search(
             nxt.sort(key=lambda t: -t[0])
             frontier = [(n, s) for _, n, s in nxt[: width * width]]
     return _mk_result(f"beam{width}{order}", env, base, best_g, best_seq,
-                      best_nest, budget, trace, cache0)
+                      best_nest, budget, trace, cache0, scorer)
 
 
 # ---------------------------------------------------------------------------
@@ -394,13 +432,19 @@ def random_search(
     max_evals: Optional[int] = None,
     seed: int = 0,
     surrogate=None,
+    n_probe: int = 4,
 ) -> SearchResult:
-    """Uniform random action sequences (single-sample draw, bit-identical
-    to the JAX package's measured-only random search for a fixed ``seed``)."""
+    """Uniform random action sequences.  With a surrogate, each step becomes
+    two-stage: ``n_probe`` random candidate actions are drawn, the surrogate
+    ranks their children, and only the best-predicted one is measured — the
+    same one-real-eval-per-step cost, spent on a better-directed step.
+    Without a surrogate the action draw is single-sample and bit-identical
+    to the JAX package's for a fixed ``seed``."""
     cache0 = _cache_counters(env)
     env.reset(benchmark_idx)
     base = env.current_gflops
-    check_surrogate(surrogate)
+    # the scorer is built before the budget clock starts (setup, not search)
+    scorer = make_surrogate(surrogate, env)
     budget = _Budget(budget_s, max_evals)
     rng = np.random.default_rng(seed)
     root = env.nest.clone()
@@ -413,17 +457,29 @@ def random_search(
             legal = [ai for ai, a in enumerate(env.actions) if is_legal(nest, a)]
             if not legal:
                 break
-            ai = int(rng.choice(legal))
+            if scorer is not None and scorer.active and len(legal) > 1:
+                cand = rng.choice(legal, size=min(n_probe, len(legal)),
+                                  replace=False)
+                kids = []
+                for ci in cand:
+                    child = nest.clone()
+                    apply_action(child, env.actions[int(ci)])
+                    kids.append(child)
+                ai = int(cand[int(np.argmax(scorer.model.predict(kids)))])
+            else:
+                ai = int(rng.choice(legal))
             apply_action(nest, env.actions[ai])
             seq.append(ai)
             g = _eval(env, nest, budget)
+            if scorer is not None and np.isfinite(g):
+                scorer.observe([nest], [g])
             if g > best_g:
                 best_g, best_nest, best_seq = g, nest.clone(), list(seq)
             if budget.exhausted():
                 break
         trace.append((budget.elapsed(), best_g))
     return _mk_result("random", env, base, best_g, best_seq, best_nest,
-                      budget, trace, cache0)
+                      budget, trace, cache0, scorer)
 
 
 # ---------------------------------------------------------------------------
@@ -450,8 +506,10 @@ def run_all_searches(
     surrogate=None,
     backend=None,
 ) -> Dict[str, SearchResult]:
-    """Run the full paper suite.  ``surrogate``: None/"off" (measured-only;
-    nothing else is ported yet).
+    """Run the full paper suite.  ``surrogate``: None/"off" (measured-only,
+    the default), "auto" (each search trains its own cost model from
+    scratch — fair per-search eval counts, like ``fresh_cache``), or a
+    shared :class:`SurrogateScorer` (learning accumulates across searches).
     ``backend`` selects the reward executor by registry name
     ("numpy" | "torch" | "tpu" | "auto"; see ``core.backend.make_backend``) —
     the suite then runs on a sibling of ``env`` wired to that executor

@@ -180,12 +180,15 @@ class CompiledKernelCache(LRUCache):
 # ---------------------------------------------------------------------------
 
 
-def _resolve_device(device) -> torch.device:
+def resolve_device(device) -> torch.device:
+    """``device`` (``None`` means ``"cuda"``) as a ``torch.device``; a CUDA
+    device raises where there is no card — the executor and the networks
+    never drop to the CPU unless the caller asks for it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "the card executor needs a CUDA device and none is available; "
-            "pass device='cpu' to run its plain versions on the CPU")
+            "a CUDA device is needed and none is available; pass device='cpu' "
+            "to run on the CPU (the kernels' plain versions)")
     return dev
 
 
@@ -195,7 +198,7 @@ def execute_torch(nest: LoopNest, arrays: Dict[str, np.ndarray],
     """Execute the schedule through a freshly lowered function; returns the
     output as NumPy.  ``route`` forces a registered kernel route (e.g.
     ``"matmul"``); None uses the slab path."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     c = nest.contraction
     if route is not None:
         if not _KERNEL_ROUTES[route][0](c):
@@ -248,7 +251,7 @@ class TorchBackend(MeasuredBackend):
     ):
         if kernel not in ("auto", "on", "off"):
             raise ValueError(f"kernel must be auto|on|off, got {kernel!r}")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         super().__init__(policy=policy, repeats=repeats, measure=measure)
         torch.backends.cuda.matmul.allow_tf32 = False
         self.vec_cap = vec_cap

@@ -558,3 +558,121 @@ def test_flash_simt_route_on_the_card(dtype, d):
         ref = flash_attention_plain(q, k, v, **kw)
         assert out.dtype == dt and out.shape == ref.shape
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the policy path on the card
+# ---------------------------------------------------------------------------
+
+
+def _queued_updates(n_updates: int, rows: int):
+    """Queue ``n_updates`` APEX learner updates of ``rows`` transitions on
+    the card, as a trainer leaves them, without reading anything back."""
+    import numpy as np
+
+    from repro_torch.core import EncoderConfig, build_network
+    from repro_torch.core.dqn import batch_to_device, q_update
+    from repro_torch.core.networks import make_adam
+
+    net = build_network("dueling", EncoderConfig(), 10)
+    online, target = net.init(0), net.init(1)
+    opt = make_adam(online, 1e-3)
+    rng = np.random.default_rng(0)
+    batch = batch_to_device((rng.standard_normal((rows, 320)), rng.integers(0, 10, rows),
+                             rng.standard_normal(rows), rng.standard_normal((rows, 320)),
+                             np.zeros(rows), rng.random((rows, 10)) < 0.8,
+                             np.full(rows, 0.97)), net.device)
+    w = torch.ones(rows, device=net.device)
+    torch.cuda.synchronize()
+    for _ in range(n_updates):
+        q_update(online, target, opt, batch, w)
+    return net.device
+
+
+@pytest.mark.cuda
+def test_reward_after_learner_updates_times_an_idle_card():
+    """A reward's clock is a host clock around a launch that synchronises
+    only after it, so queued learner work would land in it: the trainers
+    synchronise after each burst of updates (``rl_common.sync_device``),
+    after which the stream is idle and a reward lies within the spread of
+    the same reward timed on an idle card.  Unsynchronised, the first timed
+    launch absorbs the queue."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import time
+
+    from repro_torch.core import LoopNest, TorchBackend, matmul_benchmark
+    from repro_torch.core.rl_common import sync_device
+
+    be = TorchBackend()
+    # large enough that the kernel, not the host's ~60 us of launch and
+    # clock, sets the reward (at 256^3 the host's noise alone moved a
+    # synchronised reward 35 % off the idle one)
+    nest = LoopNest(matmul_benchmark(2048, 2048, 2048))
+    be.measure(nest)  # lowered and warm
+    idle = be.measure(nest)
+    # batches far above a trainer's 64 rows, so that the card falls behind
+    # the host and the updates stay queued when the loop returns
+    sync_device(_queued_updates(20, 262144))
+    assert torch.cuda.current_stream().query()
+    after = be.measure(nest)
+    slack = max(idle.spread, be.policy.spread_threshold)
+    assert after.best_s <= idle.best_s * (1 + slack), (after, idle)
+    _queued_updates(20, 262144)
+    t0 = time.perf_counter()
+    be.run_once(nest)
+    leaked = time.perf_counter() - t0
+    assert leaked > 10 * idle.times[-1], (leaked, idle)
+
+
+@pytest.mark.cuda
+def test_train_apex_rewards_launch_the_kernel_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import numpy as np
+
+    from repro_torch.core import (CPU_SPLITS, ApexConfig, LoopTuneEnv, build_action_space,
+                                  matmul_benchmark, train_apex)
+
+    env = LoopTuneEnv([matmul_benchmark(*s) for s in ((64, 128, 96), (128, 64, 160))],
+                      "torch", actions=build_action_space(CPU_SPLITS))
+    before = matmul.launches
+    res = train_apex(lambda i: env, 3, ApexConfig(hidden=(64, 64), n_actors=4,
+                                                  warmup_steps=40))
+    assert matmul.launches > before
+    assert res.extra["updates"] > 0 and np.isfinite(res.rewards).all()
+    assert res.meta["backend"] == "torch" and next(res.params.parameters()).is_cuda
+
+
+@pytest.mark.cuda
+def test_load_policy_on_the_card_acts_as_on_the_cpu(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import numpy as np
+
+    from repro_torch.core import (ApexConfig, LoopTuneEnv, VecLoopTuneEnv, load_policy,
+                                  matmul_benchmark, train_apex)
+
+    benches = [matmul_benchmark(*s) for s in ((64, 128, 96), (128, 64, 160), (96, 96, 96))]
+    res = train_apex(lambda i: LoopTuneEnv(benches, "tpu"), 4,
+                     ApexConfig(hidden=(64, 64), n_actors=4, warmup_steps=40))
+    path = str(tmp_path / "apex.pkl")
+    res.save(path)
+    venv = VecLoopTuneEnv(benches, "tpu", 8)
+    rng = np.random.default_rng(0)
+    obs, masks = [venv.reset()], [venv.action_mask()]
+    for _ in range(9):
+        o, _, _, _ = venv.step([int(rng.choice(np.flatnonzero(m))) for m in masks[-1]])
+        obs.append(o)
+        masks.append(venv.action_mask())
+    obs, mask = np.concatenate(obs), np.concatenate(masks)
+    on_card, _, _ = load_policy(path, device="cuda")
+    on_cpu, _, _ = load_policy(path, device="cpu")
+    with torch.no_grad():
+        q = res.params(torch.as_tensor(obs, dtype=torch.float32, device="cuda")).cpu().numpy()
+    top2 = np.sort(np.where(mask, q, -np.inf), axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 1e-3 * np.abs(q).max(axis=1)
+    assert clear.sum() >= len(obs) // 2
+    np.testing.assert_array_equal(np.asarray(on_card(obs, mask))[clear],
+                                  np.asarray(on_cpu(obs, mask))[clear])
+    np.testing.assert_array_equal(np.asarray(on_card(obs, mask)), np.asarray(res.act(obs, mask)))
