@@ -80,7 +80,8 @@ def main() -> int:
                        "block": [128, 128],
                        "plan": FA.kernel_plan(s, s, d=d, dtype=torch.float32),
                        "ratio_to_limit": ratio, "ms": ms,
-                       "device_ms": CS.kernel_device_ms(call(), "flash_fwd"),
+                       **dict(zip(("device_ms", "device_ms_source"),
+                                  CS.kernel_device_ms(call(), "flash_fwd"))),
                        "tflops": flops / ms / 1e9,
                        "sdpa_ms": CS.time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                                           enable_gqa=hkv != h), flush, 20),

@@ -92,7 +92,8 @@ def main() -> int:
             row = {"form": name, "bscn": list(SHAPE), "block": list(BLOCK),
                    "plan": plan(name, BLOCK), "ratio_to_limit": ratio,
                    "ms": CS.time_ms(call(BLOCK), flush, 20),
-                   "device_ms": CS.kernel_device_ms(call(BLOCK), "mamba_scan"),
+                   **dict(zip(("device_ms", "device_ms_source"),
+                              CS.kernel_device_ms(call(BLOCK), "mamba_scan"))),
                    "sweep": [{"block": list(blk), "plan": plan(name, blk),
                               "ms": CS.time_ms(call(blk), flush, 20)} for blk in CS.MAMBA_SWEEP]}
         print(json.dumps(row), flush=True)

@@ -67,12 +67,29 @@ line with its seconds:
    served through ``tuned_einsum`` against ``matmul_plain`` at their
    blocks; last, ``LoopTuner(policy="search", surrogate="auto")`` tunes the
    same six at phase tune's budget, beside the measured-only search;
+   actor_critic — the actor-critic trainers on the same contractions: PPO
+   (20 iterations), A2C (80) and IMPALA (40), 6,400 env steps each, every
+   reward a timed launch of the tiled-matmul kernel (f32, the SIMT route),
+   each evaluated on the held-out matmuls beside APEX-DQN's rows; IMPALA's
+   actor must differ from its learner after the updates since its last
+   sync; the PPO checkpoint is reloaded through
+   ``LoopTuner.from_checkpoint`` (calibration ``recorded``, greedy actions
+   equal to the trained policy's on 64 states) and tunes musicgen-large's
+   six f32 contractions through ``launch/tune``'s ``tune_records`` with a
+   journal and a registry file; the records read back from that file are
+   served through ``tuned_einsum`` against ``matmul_plain``, and a resumed
+   ``tune_records`` must skip all six without a launch;
    model  — the second path: musicgen-large at full width (48 layers,
-   d_model 2048, bf16, random weights from a seed) served by
-   ``launch/serve.py``'s continuous-batching loop with the six contractions
-   tuned again under the model's dtype: every dense site launches the
-   tiled-matmul kernel and every prefill attention the flash-attention
-   kernel.  Each bf16 record is then held, through ``tuned_einsum`` at the
+   d_model 2048, bf16, random weights from a seed) tuned through the entry
+   point, ``launch/tune``'s ``tune_model`` at the serving shapes (its
+   harvest runs one prefill and one decode step under an empty registry:
+   the harvested keys must be the six contractions in bf16 with the counts
+   the config implies; the budget splits by FLOP share), into a registry
+   file, then served from that file as read back by ``launch/serve.py``'s
+   continuous-batching loop: every dense site launches the tiled-matmul
+   kernel and every prefill attention (the harvest's one prefill included)
+   the flash-attention kernel.  Each bf16 record is then held, through
+   ``tuned_einsum`` at the
    model's shapes, against ``matmul_plain`` at the record's block; the last
    logits and first decode logits against the same steps with
    ``registry=None`` (dense on ``torch.matmul``), and one prefill wave and
@@ -107,7 +124,9 @@ line with its seconds:
    ``torch.matmul`` (the library yardstick only), and the bound (bytes over
    3.35 TB/s vs FP32 operations over the FP32 peak);
    then the six contractions in bf16 at the model's tuned records, on the
-   tensor-core route, with the profiler's device time, TFLOP/s and the bf16
+   tensor-core route, with the profiler's device time (CUDA events around
+   the call where three traces come back without the kernel's rows; each
+   row names its ``device_ms_source``), TFLOP/s and the bf16
    bound (bytes vs operations at 989 TFLOP/s);
    then flash attention at the models' prefill shapes, bf16 and f32 (the
    SIMT route), against its plain version, ``scaled_dot_product_attention``
@@ -122,9 +141,11 @@ line with its seconds:
    time and a block sweep.
 
 All four kernels' launch counts are set to 0 before phase 4 and read after
-phase 5, set to 0 again before the policy phase and read after it, set to
-0 before the model's tuning and read right after its serve run, and set to 0 before rwkv6-7b's and jamba's serve runs and read
-right after each; each path must launch its own kernels and no other.
+phase 5, set to 0 again before the policy phase and read after it, and
+before the actor-critic phase and read after it, set to 0 before the
+model's ``tune_model`` and read right after its serve run, and set to 0
+before rwkv6-7b's and jamba's serve runs and read right after each; each
+path must launch its own kernels and no other.
 Launches made to
 compare, trace, check or time do not count.  Per-case detail goes to
 ``chiprun_out/chip_smoke_cases.jsonl``.  Any failure exits non-zero before
@@ -865,20 +886,28 @@ def probe_states(benches, actions, n: int) -> tuple:
     return np.concatenate(obs)[:n], np.concatenate(masks)[:n]
 
 
-def phase_policy(out_dir: Path, tune_rows: list, g) -> dict:
-    from repro_torch.core import (CPU_SPLITS, ApexConfig, DQNConfig, EncoderConfig,
-                                  LoopTuneEnv, LoopTuner, build_action_space, evaluate_policy,
-                                  make_act_from_checkpoint, make_backend, matmul_benchmark,
-                                  train_apex, train_dqn)
+def policy_data() -> tuple:
+    """The policy phases' contractions and actions: ``POLICY_TRAIN`` drawn
+    (seed ``SEED``) from the paper's matmul train split, ``POLICY_EVAL``
+    held out from its test split, the card executor's action space."""
+    from repro_torch.core import CPU_SPLITS, build_action_space
     from repro_torch.core.dataset import matmul_dataset, train_test_split
-    from repro_torch.kernels.matmul import matmul
 
-    t0 = time.perf_counter()
     train, test = train_test_split(matmul_dataset(), seed=SEED)
     rng = np.random.default_rng(SEED)
     train = [train[i] for i in rng.choice(len(train), POLICY_TRAIN, replace=False)]
     held = [test[i] for i in rng.choice(len(test), POLICY_EVAL, replace=False)]
-    actions = build_action_space(CPU_SPLITS)
+    return train, held, build_action_space(CPU_SPLITS)
+
+
+def phase_policy(out_dir: Path, tune_rows: list, g) -> dict:
+    from repro_torch.core import (ApexConfig, DQNConfig, EncoderConfig, LoopTuneEnv,
+                                  LoopTuner, evaluate_policy, make_act_from_checkpoint,
+                                  make_backend, matmul_benchmark, train_apex, train_dqn)
+    from repro_torch.kernels.matmul import matmul
+
+    t0 = time.perf_counter()
+    train, held, actions = policy_data()
     backend = make_backend("torch")
     per = kernel_spy(backend)
     env = LoopTuneEnv(train, backend, actions=actions, seed=SEED)
@@ -1003,6 +1032,138 @@ def phase_policy(out_dir: Path, tune_rows: list, g) -> dict:
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise SystemExit(f"policy phase failed: {bad} (unlaunched: {unlaunched[:8]})")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the actor-critic path: PPO, A2C and IMPALA on card-timed rewards, then
+# the PPO checkpoint tunes through launch/tune's journaled tune_records
+# ---------------------------------------------------------------------------
+
+AC_TRAINERS = (("ppo", 20), ("a2c", 80), ("impala", 40))  # iterations: 6,400 env steps each
+
+
+def phase_actor_critic(out_dir: Path, apex: dict, g) -> dict:
+    from repro_torch.core import (A2CConfig, ImpalaConfig, LoopTuneEnv, LoopTuner, PPOConfig,
+                                  evaluate_policy, make_backend, matmul_benchmark, train_a2c,
+                                  train_impala, train_ppo)
+    from repro_torch.core.registry import ScheduleRegistry
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.tune import TuneJournal, tune_records
+
+    t0 = time.perf_counter()
+    train, held, actions = policy_data()
+    backend = make_backend("torch")
+    per = kernel_spy(backend)
+    trainers = {"ppo": (train_ppo, PPOConfig), "a2c": (train_a2c, A2CConfig),
+                "impala": (train_impala, ImpalaConfig)}
+    rows, results = {}, {}
+    for algo, iterations in AC_TRAINERS:
+        fn, cfg_cls = trainers[algo]
+        cfg = cfg_cls(seed=SEED)
+        env = LoopTuneEnv(train, backend, actions=actions, seed=SEED)  # its own cache
+        ms0 = backend.measure_stats()
+        t1, l1 = time.perf_counter(), matmul.launches
+        res = results[algo] = fn(lambda i: env, iterations, cfg)
+        seconds, ms = time.perf_counter() - t1, backend.measure_stats()
+        t1 = time.perf_counter()
+        ev = evaluate_policy(LoopTuneEnv(held, backend, actions=actions), res.act,
+                             list(range(len(held))))
+        tenth = max(1, iterations // 10)
+        rows[algo] = {
+            "algo": algo, "iterations": iterations,
+            "env_steps": iterations * cfg.n_envs * cfg.rollout_len,
+            "updates": res.extra["updates"], "seconds": seconds,
+            "s_per_iteration": seconds / iterations,
+            "episode_reward_mean_first": res.rewards[0],
+            "episode_reward_mean_last": res.rewards[-1],
+            "episode_reward_mean_first_tenth": float(np.mean(res.rewards[:tenth])),
+            "episode_reward_mean_last_tenth": float(np.mean(res.rewards[-tenth:])),
+            "rewards": res.rewards[::tenth], "reward_launches": matmul.launches - l1,
+            "measurements": ms["measurements"] - ms0["measurements"],
+            "noisy": ms["noisy"] - ms0["noisy"], "noisy_frac": res.extra["noisy_frac"],
+            "held_speedup_geomean": ev["speedup_geomean"], "held_speedups": ev["speedups"],
+            "eval_s": time.perf_counter() - t1}
+        print(json.dumps({"phase": "actor_critic_train", **rows[algo]}), flush=True)
+    unlaunched = sorted(k for k, v in per.items() if v == 0)
+    impala = results["impala"]
+    actor_differs = any(not torch.equal(a, p) for a, p in
+                        zip(impala.extra["actor"].parameters(), impala.params.parameters()))
+
+    # the PPO checkpoint tunes musicgen-large's six f32 contractions through
+    # launch/tune's journaled tune_records, into a registry file
+    ppo = results["ppo"]
+    path = out_dir / "actor_critic_ppo.pkl"
+    ppo.save(str(path))
+    reg_path = out_dir / "actor_critic_registry.json"
+    jpath = Path(f"{reg_path}.journal.jsonl")
+    for f in (reg_path, jpath):
+        f.unlink(missing_ok=True)
+    tuner = LoopTuner.from_checkpoint(str(path), backend="torch",
+                                      registry=ScheduleRegistry(str(reg_path)))
+    tune_per = kernel_spy(tuner.backend)
+    obs, mask = probe_states(train[:8], actions, POLICY_PROBE)
+    reload_differs = int((np.asarray(ppo.act(obs, mask)) != np.asarray(tuner.act(obs, mask))).sum())
+    flops = [2.0 * m * k * n for m, k, n in CONTRACTIONS]
+    records = [{"m": m, "k": k, "n": n, "dtype": "float32", "flop_share": f / sum(flops)}
+               for (m, k, n), f in zip(CONTRACTIONS, flops)]
+    journal = TuneJournal(str(jpath))
+    t1, l1 = time.perf_counter(), matmul.launches
+    entries, n_skipped = tune_records(records, tuner=tuner, registry=tuner.registry,
+                                      registry_path=str(reg_path),
+                                      budget_s=TUNE_BUDGET_S * len(records), journal=journal)
+    tune_s, tune_launches = time.perf_counter() - t1, matmul.launches - l1
+    tune_rows = [{"mkn": [r["m"], r["k"], r["n"]], "block": e.get("block"),
+                  "grid_order": e.get("grid_order"), "actions": e["actions"],
+                  "base_gflops": e["base_gflops"], "tuned_gflops": e["gflops"],
+                  "kernel_launches": tune_per.get(matmul_benchmark(r["m"], r["k"], r["n"]).name, 0)}
+                 for r, e in zip(records, entries)]
+    journal_lines = len(jpath.read_text().splitlines())
+    served = record_checks(ScheduleRegistry(str(reg_path)), g, torch.float32)  # read back
+    l1 = matmul.launches
+    resumed, n_resumed = tune_records(records, tuner=tuner, registry=tuner.registry,
+                                      registry_path=str(reg_path),
+                                      budget_s=TUNE_BUDGET_S * len(records), journal=journal,
+                                      resume=True)
+    resume_launches = matmul.launches - l1
+    apex_row = {"seconds": apex["train"]["seconds"],
+                "episode_reward_mean_first": apex["train"]["episode_reward_mean_first"],
+                "episode_reward_mean_last": apex["train"]["episode_reward_mean_last"],
+                "held_speedup_geomean": apex["eval"]["speedup_geomean"],
+                "noisy_frac": apex["train"]["noisy"] / max(apex["train"]["measurements"], 1)}
+    row = {"trainers": {a: {k: rows[a][k] for k in (
+               "seconds", "episode_reward_mean_first", "episode_reward_mean_last",
+               "held_speedup_geomean", "noisy_frac", "updates", "reward_launches")}
+               for a in rows}, "apex_dqn": apex_row,
+           "impala_actor_differs": actor_differs, "calibration": tuner.calibration,
+           "probe_states": len(obs), "reload_differs": reload_differs,
+           "tune": tune_rows, "tune_s": tune_s, "tune_launches": tune_launches,
+           "n_skipped": n_skipped, "journal_lines": journal_lines, "records": served,
+           "resume_skipped": n_resumed, "resume_launches": resume_launches,
+           "contractions_measured": len(per)}
+    emit("actor_critic", t0, **row)
+    checks = {
+        "every measured training contraction launched the kernel":
+            not unlaunched and all(r["reward_launches"] > 0 for r in rows.values()),
+        "rewards finite": all(np.isfinite(res.rewards).all() for res in results.values()),
+        "every trainer updated": all(r["updates"] > 0 for r in rows.values()),
+        "impala's actor differs from its learner after updates between syncs": actor_differs,
+        "calibration recorded": tuner.calibration["mode"] == "recorded",
+        "reloaded policy acts as trained": reload_differs == 0,
+        "every contraction's tune launched the kernel, tuned >= base":
+            all(r["kernel_launches"] > 0 and r["tuned_gflops"] >= r["base_gflops"] > 0
+                and r["block"] for r in tune_rows),
+        "one journal line a contraction": journal_lines == len(records) and n_skipped == 0,
+        "every record read back served, routed, on simt, within its limit": all(
+            r["rel_err"] <= r["limit"] and r["routed"] == 1 and r["misses"] == 0
+            and r["route"] == "simt" for r in served),
+        "resume skips all, launching nothing":
+            n_resumed == len(records) and resume_launches == 0
+            and all(e.get("resumed") for e in resumed),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"actor_critic phase failed: {bad} (unlaunched: {unlaunched[:8]})")
     return row
 
 
@@ -1154,47 +1315,83 @@ def model_agreement(cfg, registry, out_dir: Path) -> dict:
             "traces": traces}
 
 
+def expected_harvest(cfg) -> dict:
+    """The dense sites' ``(m, k, n, dtype)`` keys and counts that one
+    prefill and one decode step of ``cfg`` (every layer attention + dense
+    MLP) look up at phase model's shapes, from the config: per layer q, k,
+    v and o, gate and up, down; once the logits against the (vocab, d)
+    head."""
+    if any(spec.mixer != "attn" or spec.ffn != "dense" for spec in cfg.period):
+        raise SystemExit(f"{cfg.name}: expected attention + dense MLP layers")
+    d, layers = cfg.d_model, cfg.n_layers
+    q, kv = cfg.n_heads * cfg.head_dim_, cfg.n_kv_heads * cfg.head_dim_
+    sites = (((d, q), layers), ((d, kv), 2 * layers), ((q, d), layers),
+             ((d, cfg.d_ff), 2 * layers), ((cfg.d_ff, d), layers), ((d, cfg.vocab), 1))
+    out: dict = {}
+    for m in (SERVE["batch"], SERVE["batch"] * SERVE["prompt_len"]):
+        for (k, n), count in sites:
+            key = (m, k, n, str(cfg.dtype))
+            out[key] = out.get(key, 0) + count
+    return out
+
+
 def phase_model(out_dir: Path) -> tuple:
     from repro_torch.configs import get_config
-    from repro_torch.core import LoopTuner, matmul_benchmark
-    from repro_torch.core.registry import current_hardware
+    from repro_torch.core.registry import ScheduleRegistry, current_hardware
     from repro_torch.kernels import ops
     from repro_torch.kernels.matmul import launch_plan, matmul
     from repro_torch.launch import serve as SV
+    from repro_torch.launch.tune import tune_model
 
     t0 = time.perf_counter()
     cfg = get_config("musicgen-large")
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()  # this path starts here
-    tuner = LoopTuner(policy="search", backend="torch", surrogate="off")
     n = len(CONTRACTIONS)
-    tuner.tune_many([matmul_benchmark(*mkn) for mkn in CONTRACTIONS],
-                    dtypes=["bfloat16"] * n, weights=[1.0] * n,
-                    budget_s=TUNE_BUDGET_S * n, eval_budget=TUNE_MAX_EVALS * n)
-    tune_s, tune_launches = time.perf_counter() - t0, read_launches()["tiled_matmul"]
+    reg_path = out_dir / "model_registry.json"
+    jpath = Path(f"{reg_path}.journal.jsonl")
+    for f in (reg_path, jpath):
+        f.unlink(missing_ok=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # this path starts here: the entry point harvests and tunes
+    report = tune_model(cfg, smoke=False, registry_path=str(reg_path),
+                        journal_path=str(jpath), batch=SERVE["batch"],
+                        prompt_len=SERVE["prompt_len"], max_len=SERVE["max_len"],
+                        budget_s=TUNE_BUDGET_S * n, eval_budget=TUNE_MAX_EVALS * n)
+    tune_s, at_tune = time.perf_counter() - t0, read_launches()
+    tune_launches = at_tune["tiled_matmul"]
     tune_routes = dict(matmul.route_launches)
-    summary = SV.serve_once(cfg, seed=SEED, registry=tuner.registry, device="cuda",
-                            **SERVE)
+    registry = ScheduleRegistry(str(reg_path))  # the table as read back from disk
+    summary = SV.serve_once(cfg, seed=SEED, registry=registry, device="cuda", **SERVE)
     launches = read_launches()  # ... and ends here
+    harvested = {(c["m"], c["k"], c["n"], c["dtype"]): c["count"]
+                 for c in report["contractions"]}
+    expected = expected_harvest(cfg)
+    # the FLOP-share split of the eval budget (tune_records, then tune_many)
+    share_evals = {"x".join(map(str, (c["m"], c["k"], c["n"]))):
+                   max(2, int(round(TUNE_MAX_EVALS * n * c["flop_share"])))
+                   for c in report["contractions"]}
     serve_routes = {r: matmul.route_launches[r] - tune_routes[r] for r in tune_routes}
     peak_bytes = torch.cuda.max_memory_allocated()
     stats = summary["registry"]["serving"]
     waves = summary["prefill_waves"]
-    records = record_checks(tuner.registry, torch.Generator(device="cuda").manual_seed(SEED))
+    records = record_checks(registry, torch.Generator(device="cuda").manual_seed(SEED))
     tuned = {}
     for mkn in CONTRACTIONS:
-        block, order = ops._entry_schedule(tuner.registry.get(
+        block, order = ops._entry_schedule(registry.get(
             "mm", mkn, "bfloat16", hardware=current_hardware(), exact=True))
         blk = (block["m"], block["k"], block["n"])
         tuned["x".join(map(str, mkn))] = {
             "block": list(blk), "grid_order": order,
             "plan": launch_plan(*mkn, *blk, order, dtype=torch.bfloat16)}
-    agree = model_agreement(cfg, tuner.registry, out_dir)
+    agree = model_agreement(cfg, registry, out_dir)
     worst = max(agree["prefill_last_logits_rel_err"], agree["decode_logits_rel_err"])
     row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "heads": cfg.n_heads, "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff,
            "vocab": cfg.vocab, "dtype": cfg.dtype, "params": cfg.param_count(),
            **SERVE, "tune_s": tune_s, "tune_launches": tune_launches,
+           "harvest": report["contractions"], "n_harvested": report["n_harvested"],
+           "flop_share_covered": report["flop_share_covered"],
+           "max_evals_by_flop_share": share_evals,
+           "harvest_flash_launches": at_tune["flash_attention"],
            "launches": launches, "prefill_waves": waves,
            "prefill_ms_per_wave": summary["prefill_ms"],
            "decode_steps": summary["decode_steps"],
@@ -1218,8 +1415,14 @@ def phase_model(out_dir: Path) -> tuple:
                 for r in records),
         "misses == 0": stats["misses"] == 0,
         "routed == hits > 0": stats["routed"] == stats["hits"] > 0,
-        "flash launches == layers x waves":
-            launches["flash_attention"] == cfg.n_layers * waves > 0,
+        "harvested keys and counts == the six contractions' from the config":
+            harvested == expected
+            and set(expected) == {(*mkn, "bfloat16") for mkn in CONTRACTIONS},
+        "flop_share_covered == 1": abs(report["flop_share_covered"] - 1.0) <= 1e-12,
+        "flash launches while serving == layers x waves":
+            launches["flash_attention"] - at_tune["flash_attention"] == cfg.n_layers * waves > 0,
+        "flash launches in the harvest == layers (one prefill)":
+            at_tune["flash_attention"] == cfg.n_layers,
         "matmul launches while serving == routed":
             launches["tiled_matmul"] - tune_launches == stats["routed"],
         "every reward launch of the bf16 tune on wgmma":
@@ -1232,8 +1435,9 @@ def phase_model(out_dir: Path) -> tuple:
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise SystemExit(f"model phase failed: {bad}")
-    return row, tuner.registry
+        raise SystemExit(f"model phase failed: {bad} (harvested {harvested}, "
+                         f"expected {expected})")
+    return row, registry
 
 
 # ---------------------------------------------------------------------------
@@ -1561,15 +1765,37 @@ def flush_buffer() -> torch.Tensor:
     return torch.empty(512 * 1024 * 1024 // 4, device="cuda")
 
 
-def kernel_device_ms(fn, name: str, reps: int = 10) -> float:
-    """Mean device ms of the rows of the kernel whose name holds ``name`` in
-    a ``torch.profiler`` chrome trace of ``reps`` back-to-back calls of
-    ``fn``: the device's own time, with no host time and no flush in it.
-    The mean is taken over the rows the trace holds, which can be fewer than
-    ``reps``."""
+SPIN_CYCLES = 4_000_000  # ~2 ms at the H100's top SM clock
+
+
+def events_device_ms(fn, reps: int = 10) -> float:
+    """Mean ms that a call of ``fn`` holds the stream: CUDA events around
+    ``reps`` back-to-back calls, all queued behind a spin kernel so that the
+    host's launch time is hidden and not timed.  Every kernel the call
+    launches is in it, with the gaps between them; no flush."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace can come back without its device rows: trace again
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def kernel_device_ms(fn, name: str, reps: int = 10) -> tuple:
+    """(mean device ms, its source) of ``reps`` back-to-back calls of ``fn``.
+    Source ``"trace"``: the mean over the rows of the kernel whose name holds
+    ``name`` in a ``torch.profiler`` chrome trace, the device's own time with
+    no host time and no flush in it (the rows can be fewer than ``reps``).
+    A trace can come back without its device rows, and once it has, the
+    traces after it in the process may too: after three such traces the
+    source is ``"cuda_events"``, ``events_device_ms`` of the whole call."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1583,8 +1809,10 @@ def kernel_device_ms(fn, name: str, reps: int = 10) -> float:
                 if e.get("ph") == "X" and str(e.get("cat", "")).lower() in DEVICE_CATS
                 and name in e.get("name", "")]
         if durs:
-            return sum(durs) / len(durs) / 1e3
-    raise SystemExit(f"three traces hold no {name} kernel")
+            return sum(durs) / len(durs) / 1e3, "trace"
+    print(f"chip_smoke: three traces hold no {name} kernel; timed with CUDA events",
+          file=sys.stderr, flush=True)
+    return events_device_ms(fn, reps), "cuda_events"
 
 
 def time_ms(fn, flush: torch.Tensor, reps: int) -> float:
@@ -1683,7 +1911,7 @@ def phase_timing_bf16(registry, card: str, g) -> list:
         if not err <= limit_for(torch.bfloat16):
             raise SystemExit(f"bf16 kernel vs plain at {(m, k, n)} block {kw}: rel err {err}")
         ms = time_ms(lambda: matmul(a, b, **kw), flush, 20)
-        device_ms = kernel_device_ms(lambda: matmul(a, b, **kw), "tc_matmul")
+        device_ms, device_src = kernel_device_ms(lambda: matmul(a, b, **kw), "tc_matmul")
         plain_ms = time_ms(lambda: matmul_plain(a, b, **kw), flush, 3)
         library_ms = time_ms(lambda: torch.matmul(a, b), flush, 20)
         ops_ms = 2 * m * k * n / peak * 1e3
@@ -1691,7 +1919,8 @@ def phase_timing_bf16(registry, card: str, g) -> list:
         plan = launch_plan(m, k, n, *blk, order, dtype=torch.bfloat16)
         row = {"mkn": [m, k, n], "dtype": "bfloat16", "route": plan["route"],
                "block": list(blk), "grid_order": order, "plan": plan, "ms": ms,
-               "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "device_ms": device_ms, "device_ms_source": device_src,
+               "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": max(ops_ms, bytes_ms), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                "tflops": 2 * m * k * n / ms / 1e9, "max_abs_err": max_abs, "rel_err": err}
@@ -1724,7 +1953,8 @@ def flash_timing_row(shape, card: str, g, flush, dt=torch.bfloat16) -> dict:
     if not max_abs <= lim + lim * plain.float().abs().max().item():
         raise SystemExit(f"flash attention at {shape} {dt}: max abs err {max_abs}")
     ms = time_ms(lambda: flash_attention(q, k, v, causal=True), flush, 20)
-    device_ms = kernel_device_ms(lambda: flash_attention(q, k, v, causal=True), "flash_fwd")
+    device_ms, device_src = kernel_device_ms(lambda: flash_attention(q, k, v, causal=True),
+                                             "flash_fwd")
     plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True), flush, 5)
     # the same call at other "fa" blocks: what the block mapping moves
     sweep = [{"block": list(blk), "plan": launch_plan(s, s, *blk, d=d, dtype=dt),
@@ -1743,7 +1973,7 @@ def flash_timing_row(shape, card: str, g, flush, dt=torch.bfloat16) -> dict:
     plan = launch_plan(s, s, d=d, dtype=dt)
     return {"bshkd": list(shape), "dtype": str(dt).replace("torch.", ""), "causal": True,
             "route": plan["route"], "plan": plan, "ms": ms, "device_ms": device_ms,
-            "plain_ms": plain_ms, "block_sweep": sweep,
+            "device_ms_source": device_src, "plain_ms": plain_ms, "block_sweep": sweep,
             "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "peak_flops": peak,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -1784,9 +2014,14 @@ def phase_rwkv_timing(card: str) -> dict:
                  flush, 20)
     plain_ms = time_ms(lambda: rwkv_plain(r, k, v, logw, u, s0, RWKV_CHUNK), flush, 5)
     del flush
-    device_ms = {name: kernel_device_ms(
-        lambda: rwkv6_chunk_scan(r, k, v, logw, u, chunk=RWKV_CHUNK, s0=s0), name)
-        for name in ("rwkv6_chunk_intra", "rwkv6_state_walk")}
+    device_ms = {}
+    for name in ("rwkv6_chunk_intra", "rwkv6_state_walk"):
+        ms_pass, src = kernel_device_ms(
+            lambda: rwkv6_chunk_scan(r, k, v, logw, u, chunk=RWKV_CHUNK, s0=s0), name)
+        if src != "trace":  # CUDA events time the whole call, both passes
+            device_ms = {"call": ms_pass, "source": src}
+            break
+        device_ms[name] = ms_pass
     plan = launch_plan(s, RWKV_CHUNK, b=b, h=h, n=n, dtype=torch.bfloat16)
     L = plan["chunk"]
     # bytes: r, k, v (bf16), logw, u, s0 read once; y and the state written once
@@ -1834,7 +2069,7 @@ def phase_mamba_timing(card: str) -> dict:
                  flush, 20)
     plain_ms = time_ms(lambda: mamba_scan_plain_model(x, dt, a, bm, cm, chunk=plan["l"],
                                                       h0=h0), flush, 5)
-    device_ms = kernel_device_ms(
+    device_ms, device_src = kernel_device_ms(
         lambda: mamba_scan(x, dt, a, bm, cm, chunk=MAMBA_CHUNK, bd=MAMBA_BD, h0=h0), "mamba_scan")
     # the same call at other registry blocks: what a tuned "mamba" block
     # could move (tokens a tile, channels a CTA)
@@ -1857,7 +2092,8 @@ def phase_mamba_timing(card: str) -> dict:
     exp_ms = terms / (SFU_EXP_PER_CLOCK * sms * clock_mhz * 1e6) * 1e3
     bound_ms = max(bytes_ms, fp32_ms, exp_ms)
     row = {"bscn": list(MAMBA_SHAPE), "dtype": "bfloat16", "block": [MAMBA_CHUNK, MAMBA_BD],
-           "plan": plan, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+           "plan": plan, "ms": ms, "device_ms": device_ms, "device_ms_source": device_src,
+           "plain_ms": plain_ms,
            "bound_ms": bound_ms, "bound_by": "bytes" if bound_ms == bytes_ms else "operations",
            "bound_kind": ("bytes" if bound_ms == bytes_ms else
                           "exponentials" if bound_ms == exp_ms else "fp32"),
@@ -1962,10 +2198,15 @@ def main() -> int:
     check_path_launches("tune_serve", by_path["tune_serve"], ("tiled_matmul",))
     del wts
     reset_launches()  # the policy path starts here
-    phase_policy(out_dir, tune_rows, g)
+    policy = phase_policy(out_dir, tune_rows, g)
     by_path["policy"] = read_launches()  # ... and ends here
     check_path_launches("policy", by_path["policy"], ("tiled_matmul",))
-    # the policy path's executors and their operands on the card sit in
+    gc.collect()
+    reset_launches()  # the actor-critic path starts here
+    phase_actor_critic(out_dir, policy, g)
+    by_path["actor_critic"] = read_launches()  # ... and ends here
+    check_path_launches("actor_critic", by_path["actor_critic"], ("tiled_matmul",))
+    # the policy paths' executors and their operands on the card sit in
     # reference cycles (the launch spies): free them before the model path
     gc.collect()
     torch.cuda.empty_cache()

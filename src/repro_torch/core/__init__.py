@@ -1,9 +1,9 @@
 """LoopTune core, ported to PyTorch: the loop-nest IR, cursor actions and
 features, the reward backends (analytical TPU model, NumPy interpreter and
 the card executor), the vectorised environment, the policy networks and
-encoders, the DQN and APEX-DQN trainers, the learned surrogate, the
-traditional searches and the :class:`LoopTuner` that persists tuned
-schedules for the kernel layer.
+encoders, the DQN, APEX-DQN, PPO, A2C and IMPALA trainers, the learned
+surrogate, the traditional searches and the :class:`LoopTuner` that
+persists tuned schedules for the kernel layer.
 """
 from .actions import (
     Action,
@@ -14,6 +14,7 @@ from .actions import (
     is_legal,
     legal_mask,
 )
+from .a2c import A2CConfig, train_a2c
 from .apex_dqn import ApexConfig, train_apex
 from .backend import (
     Backend,
@@ -46,6 +47,7 @@ from .encoders import (
 )
 from .env import LoopTuneEnv
 from .features import MAX_LOOPS, STATE_DIM, encode, normalize, stride_bin
+from .impala import ImpalaConfig, train_impala, vtrace
 from .graph_features import (
     GRAPH_MAX_LOOPS,
     N_EDGE_TYPES,
@@ -83,6 +85,7 @@ from .networks import (
     params_from_numpy,
     params_to_numpy,
 )
+from .ppo import PPOConfig, gae, train_ppo
 from .registry import ScheduleRegistry, card_boundary, schedule_to_blockspec
 from .replay import PrioritizedReplay, ReplayBuffer, SumTree
 from .rl_common import (

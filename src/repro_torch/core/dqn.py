@@ -31,7 +31,7 @@ from .measure import measure_settings
 from .networks import make_adam, masked_logits
 from .replay import ReplayBuffer
 from .rl_common import (TrainResult, collect_vec_rollout, epsilon_greedy_batch,
-                        make_masked_act, sync_device)
+                        make_masked_act, sync_device, to_device)
 from .vec_env import VecLoopTuneEnv
 
 
@@ -94,15 +94,9 @@ def q_update(online: nn.Module, target: nn.Module, opt: torch.optim.Optimizer,
 
 def batch_to_device(sample, device: torch.device):
     """A replay sample ``(s, a, r, s2, done, mask2, disc)`` as tensors on
-    the device (one copy each)."""
-    s, a, r, s2, done, mask2, disc = sample
-
-    def t(x, dt):
-        return torch.as_tensor(np.asarray(x), dtype=dt, device=device)
-
-    return (t(s, torch.float32), t(a, torch.int64), t(r, torch.float32),
-            t(s2, torch.float32), t(done, torch.float32), t(mask2, torch.bool),
-            t(disc, torch.float32))
+    the device (one copy each): the actions int64, the mask bool, the rest
+    float32."""
+    return to_device(sample, device)
 
 
 def train_dqn(

@@ -104,6 +104,38 @@ def make_adam(module: nn.Module, lr: float) -> torch.optim.Adam:
                             eps=1e-8)
 
 
+def clipped_step(module: nn.Module, opt: torch.optim.Optimizer,
+                 loss: torch.Tensor, max_norm: float) -> None:
+    """Backward, clip the gradients by their global norm and step: the
+    actor-critic trainers' update.  The clip is the JAX package's, ``scale
+    = min(1, max_norm / (norm + 1e-8))`` (``clip_grad_norm_`` adds 1e-6),
+    computed on the device: nothing is read back."""
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    grads = [p.grad for p in module.parameters() if p.grad is not None]
+    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    scale = torch.clamp(max_norm / (norm + 1e-8), max=1.0)
+    for g in grads:
+        g.mul_(scale)
+    opt.step()
+
+
+def actor_critic_terms(module: nn.Module, s: torch.Tensor, a: torch.Tensor,
+                       mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(log π(a|s), V(s), mean entropy)`` of an actor-critic module over
+    a batch, with illegal actions masked by the sentinel, as the JAX
+    trainers' losses compute them."""
+    logits, value = module(s)
+    logits = masked_logits(logits, mask)
+    logp_all = torch.log_softmax(logits, dim=-1)
+    logp = logp_all.gather(1, a[:, None])[:, 0]
+    probs = torch.softmax(logits, dim=-1)
+    entropy = -torch.where(mask, probs * logp_all,
+                           torch.zeros_like(probs)).sum(-1).mean()
+    return logp, value, entropy
+
+
 # ---------------------------------------------------------------------------
 # Carrying parameters between the packages
 # ---------------------------------------------------------------------------

@@ -70,6 +70,18 @@ def sync_device(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def to_device(arrays, device: torch.device):
+    """numpy arrays as tensors on ``device``: bool masks stay bool, integer
+    actions become int64 (``gather``'s index), the rest float32."""
+    out = []
+    for x in arrays:
+        x = np.asarray(x)
+        dt = (torch.bool if x.dtype == bool else
+              torch.int64 if np.issubdtype(x.dtype, np.integer) else torch.float32)
+        out.append(torch.as_tensor(x, dtype=dt, device=device))
+    return tuple(out)
+
+
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """Full checkpoint dict: algo, params, rewards, meta (``meta`` is empty
     for pre-metadata checkpoints, which load fine with flat defaults)."""

@@ -1,1 +1,1 @@
-"""Launchers of the port (serving; tuning and training follow)."""
+"""Launchers of the port: serving and the tuning pre-pass (training follows)."""

@@ -10,8 +10,11 @@ decode step is the ``serve_step`` of ``models/steps.py``.
 run under ``kernels.ops.serving``, so every dense site looks its workload
 signature up in the tuned-schedule table, and a hit on the card launches
 the tiled-matmul kernel at the tuned block.  The table comes from
-:class:`~repro_torch.core.tuner.LoopTuner` (``tuner.save(path)``);
-``--tune``, which harvests the contractions itself, is not ported yet.
+:class:`~repro_torch.core.tuner.LoopTuner` (``tuner.save(path)``) or from
+``launch/tune``; ``--tune --registry PATH`` runs that pre-pass first at
+this run's own ``--batch``, ``--prompt-len`` and ``--max-len`` (so the
+harvested keys are the ones served), with ``--tune-budget-s`` seconds in
+all.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large \\
         --full --requests 8 --batch 4 --prompt-len 256 --gen-len 16 \\
@@ -208,21 +211,39 @@ def main(argv=None) -> int:
     ap.add_argument("--registry", default=None,
                     help="tuned-schedule registry JSON to serve with")
     ap.add_argument("--tune", action="store_true",
-                    help="tune the serving contractions first (not ported yet)")
+                    help="run the tuning pre-pass before serving "
+                         "(requires --registry)")
+    ap.add_argument("--tune-budget-s", type=float, default=4.0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
-    if args.tune:
-        raise NotImplementedError("launch/tune is not ported yet (ROADMAP A3)")
 
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.smoke()
+
+    registry = None
+    if args.registry:
+        registry = ScheduleRegistry(args.registry)
+        if args.tune:
+            from repro_torch.launch.tune import tune_model
+            report = tune_model(
+                cfg, registry=registry, registry_path=args.registry,
+                budget_s=args.tune_budget_s, smoke=False,  # cfg already set
+                batch=args.batch, prompt_len=args.prompt_len,
+                max_len=args.max_len, device=args.device)
+            print("[serve] tuned:", json.dumps(
+                {k: report[k] for k in ("n_harvested", "n_tuned",
+                                        "flop_share_covered",
+                                        "registry_size", "tune_time_s")}),
+                flush=True)
+    elif args.tune:
+        ap.error("--tune requires --registry")
+
     summary = serve_once(
         cfg, requests=args.requests, batch=args.batch,
         prompt_len=args.prompt_len, gen_len=args.gen_len,
-        max_len=args.max_len, seed=args.seed,
-        registry=ScheduleRegistry(args.registry) if args.registry else None,
+        max_len=args.max_len, seed=args.seed, registry=registry,
         device=args.device)
     print("[serve] done:", json.dumps(summary), flush=True)
     return 0

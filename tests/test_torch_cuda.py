@@ -676,3 +676,51 @@ def test_load_policy_on_the_card_acts_as_on_the_cpu(tmp_path):
     np.testing.assert_array_equal(np.asarray(on_card(obs, mask))[clear],
                                   np.asarray(on_cpu(obs, mask))[clear])
     np.testing.assert_array_equal(np.asarray(on_card(obs, mask)), np.asarray(res.act(obs, mask)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["ppo", "a2c", "impala"])
+def test_actor_critic_trainers_launch_the_kernel_on_the_card(algo):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    import numpy as np
+
+    from repro_torch import core as C
+
+    train, cfg = {"ppo": (C.train_ppo, C.PPOConfig(hidden=(64, 64), n_envs=4, rollout_len=8)),
+                  "a2c": (C.train_a2c, C.A2CConfig(hidden=(64, 64), n_envs=4)),
+                  "impala": (C.train_impala, C.ImpalaConfig(hidden=(64, 64), n_envs=4,
+                                                            rollout_len=8))}[algo]
+    env = C.LoopTuneEnv([C.matmul_benchmark(*s) for s in ((64, 128, 96), (128, 64, 160))],
+                        "torch", actions=C.build_action_space(C.CPU_SPLITS))
+    before = matmul.launches
+    res = train(lambda i: env, 3, cfg)
+    assert matmul.launches > before
+    assert res.extra["updates"] > 0 and np.isfinite(res.rewards).all()
+    assert res.meta["backend"] == "torch" and next(res.params.parameters()).is_cuda
+
+
+@pytest.mark.cuda
+def test_tune_model_then_serve_from_its_file_on_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.configs import get_config
+    from repro_torch.core.registry import ScheduleRegistry, current_hardware
+    from repro_torch.launch.serve import serve_once
+    from repro_torch.launch.tune import tune_model
+
+    cfg = get_config("musicgen-large").smoke()
+    path = str(tmp_path / "reg.json")
+    before = matmul.launches
+    report = tune_model(cfg, registry_path=path, batch=2, prompt_len=8, max_len=16,
+                        budget_s=2.0, eval_budget=64)
+    assert report["n_tuned"] == report["n_harvested"] == 8 and matmul.launches > before
+    reg = ScheduleRegistry(path)
+    for c in report["contractions"]:
+        entry = reg.get("mm", (c["m"], c["k"], c["n"]), c["dtype"],
+                        hardware=current_hardware(), exact=True)
+        assert entry and entry["backend"] == "torch"
+    summary = serve_once(cfg, requests=2, batch=2, prompt_len=8, gen_len=2, max_len=16,
+                         registry=reg)
+    serving = summary["registry"]["serving"]
+    assert serving["misses"] == 0 and serving["routed"] == serving["hits"] > 0

@@ -239,8 +239,9 @@ def test_serve_main_on_cpu(capsys):
     assert SV.main(["--requests", "2", "--batch", "2", "--prompt-len", "4",
                     "--gen-len", "2", "--max-len", "8", "--device", "cpu"]) == 0
     assert '"requests": 2' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A3\)"):
+    with pytest.raises(SystemExit):  # --tune needs a registry to tune into
         SV.main(["--tune", "--device", "cpu"])
+    assert "--tune requires --registry" in capsys.readouterr().err
 
 
 def test_model_modules_import_neither_jax_nor_the_jax_package():
