@@ -79,6 +79,26 @@ line with its seconds:
    journal and a registry file; the records read back from that file are
    served through ``tuned_einsum`` against ``matmul_plain``, and a resumed
    ``tune_records`` must skip all six without a launch;
+   fleet — the tuner measuring out of process, in four phases:
+   pool: ``LoopTuner(backend=make_backend("torch", measure="pool"))`` tunes
+   the six f32 contractions with every reward timed in one spawned worker
+   on ``cuda:0`` (the worker built as a spy that counts its own launches and
+   writes them under ``chiprun_out/``); the worker must be among the card's
+   compute processes, launch the kernel for each contraction while the
+   parent launches none, and every measurement come from it; the records
+   are served as in phase actor_critic; pool_faults: one spawned worker
+   through a faulty spy: a schedule that ends its worker on every attempt
+   must resolve as a failed record, one that hangs once past a 5 s budget
+   must be killed and re-measured, the others measured on the card;
+   kernel_store: two spawned workers with an empty build directory share
+   an empty kernel store, and exactly one may run nvcc on matmul.cu (one
+   compiles.log event), then a fresh worker with the same store none;
+   farm: ``repro_torch.launch.measure_farm --backend torch --measure pool``
+   as a subprocess serves ``tune_records_fleet`` with two clients: no
+   degradation, tickets balanced, records stamped ``torch`` and the card,
+   served as above, and SIGTERM drains it to exit 0.  After the path's
+   counts are read, the pool's rewards are set beside in-process timings
+   of the same schedules (``pool_against_inproc``, reported);
    model  — the second path: musicgen-large at full width (48 layers,
    d_model 2048, bf16, random weights from a seed) tuned through the entry
    point, ``launch/tune``'s ``tune_model`` at the serving shapes (its
@@ -142,7 +162,9 @@ line with its seconds:
 
 All four kernels' launch counts are set to 0 before phase 4 and read after
 phase 5, set to 0 again before the policy phase and read after it, and
-before the actor-critic phase and read after it, set to 0 before the
+before the actor-critic phase and read after it, before the fleet path and
+read after its farm phase (its workers' launches, counted by their spies,
+added to the parent's), set to 0 before the
 model's ``tune_model`` and read right after its serve run, and set to 0
 before rwkv6-7b's and jamba's serve runs and read right after each; each
 path must launch its own kernels and no other.
@@ -156,8 +178,13 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
+import queue
+import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -167,6 +194,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
+
+from repro_torch.core.backend import register_backend  # noqa: E402
 
 D_MODEL, D_FF, VOCAB = 2048, 8192, 2048  # musicgen-large (configs/musicgen_large.py)
 DECODE_M, PREFILL_M = 4, 4 * 256
@@ -1165,6 +1194,491 @@ def phase_actor_critic(out_dir: Path, apex: dict, g) -> dict:
     if bad:
         raise SystemExit(f"actor_critic phase failed: {bad} (unlaunched: {unlaunched[:8]})")
     return row
+
+
+# ---------------------------------------------------------------------------
+# the fleet path: the tuner measuring out of process, through the worker
+# pool (one spawned worker a card), then through a farm with two clients
+# ---------------------------------------------------------------------------
+
+FAULT_TASK_TIMEOUT_S = 5.0  # pool_faults' hung-kill budget (start-up excluded)
+FARM_START_S = 300.0        # the farm's first line: torch, the card, its port
+
+
+def _spy_backend(spy_dir: str, **kw):
+    """The card executor, counting the tiled-matmul launches of each
+    contraction's measurements in this (worker) process, and the seconds
+    spent measuring.  The counts go to ``spy_dir/worker-<pid>.json`` at
+    most once a second and when the worker exits, outside the timed runs."""
+    from multiprocessing import util
+
+    from repro_torch.core.torch_backend import TorchBackend
+    from repro_torch.kernels.matmul import matmul
+
+    backend = TorchBackend(**kw)
+    per: dict = {}
+    state = {"measure_s": 0.0, "write_s": 0.0, "written": 0.0}
+    measure = backend.measure
+    out = Path(spy_dir) / f"worker-{os.getpid()}.json"
+
+    def dump() -> None:
+        t0 = time.perf_counter()
+        tmp = out.with_suffix(".tmp")
+        tmp.write_text(json.dumps({"pid": os.getpid(), "device": str(backend.device),
+                                   "launches": per, "measure_s": state["measure_s"],
+                                   "write_s": state["write_s"]}))
+        os.replace(tmp, out)
+        state["written"] = time.perf_counter()
+        state["write_s"] += state["written"] - t0
+
+    def counted(nest, worker=-1):
+        before, t0 = matmul.launches, time.perf_counter()
+        m = measure(nest, worker)
+        state["measure_s"] += time.perf_counter() - t0
+        name = nest.contraction.name
+        per[name] = per.get(name, 0) + matmul.launches - before
+        if time.perf_counter() - state["written"] > 1.0:
+            dump()
+        return m
+
+    backend.measure = counted
+    util.Finalize(backend, dump, exitpriority=10)  # the last counts, at a clean exit
+    return backend
+
+
+def _faulty_backend(spy_dir: str, poison: str, hang: str, token: str, **kw):
+    """The spy, with two faults: the schedule whose structure key reads
+    ``poison`` ends its worker (``os._exit``) on every attempt, the one
+    reading ``hang`` sleeps past the hung budget once (while ``token``
+    exists)."""
+    backend = _spy_backend(spy_dir, **kw)
+    measure = backend.measure
+
+    def faulty(nest, worker=-1):
+        key = repr(nest.structure_key())
+        if key == poison:
+            os._exit(3)
+        if key == hang and os.path.exists(token):
+            os.unlink(token)
+            time.sleep(3600)
+        return measure(nest, worker)
+
+    backend.measure = faulty
+    return backend
+
+
+# registered at the top level: a spawned pool worker re-imports this file
+# (as __mp_main__) and so finds them in its own registry
+register_backend("smoke_spy", _spy_backend)
+register_backend("smoke_faulty", _faulty_backend)
+
+
+def spy_launches(spy_dir: Path) -> dict:
+    """The spies' counts: per worker process, and summed per contraction."""
+    workers = [json.loads(p.read_text()) for p in sorted(spy_dir.glob("worker-*.json"))]
+    per: dict = {}
+    for w in workers:
+        for name, n in w["launches"].items():
+            per[name] = per.get(name, 0) + n
+    return {"workers": workers, "per_contraction": per, "total": sum(per.values()),
+            "measure_s": sum(w["measure_s"] for w in workers),
+            "write_s": sum(w["write_s"] for w in workers)}
+
+
+def fresh_dir(path: Path) -> Path:
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def compute_pids() -> list:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return sorted(int(x) for x in out.split())
+
+
+def replay(bench, names: list, actions: list):
+    """The schedule a record's action names build from the untuned nest."""
+    from repro_torch.core import LoopNest, apply_action
+
+    by_name = {a.name: a for a in actions}
+    nest = LoopNest(bench)
+    for name in names:
+        apply_action(nest, by_name[name])
+    return nest
+
+
+def phase_pool(out_dir: Path, g) -> dict:
+    """The tune -> serve path with every reward measured in one spawned
+    worker on the card: ``LoopTuner(backend=make_backend("torch",
+    measure="pool"))``, the worker built as the spy (its launches counted in
+    the worker), the parent launching nothing while it tunes."""
+    from repro_torch.core import LoopNest, LoopTuner, make_backend, matmul_benchmark
+    from repro_torch.kernels.matmul import matmul
+
+    t0 = time.perf_counter()
+    spy_dir = fresh_dir(out_dir / "fleet_spy" / "pool")
+    backend = make_backend("torch", measure="pool")
+    spec, kw, method = backend.pool_spec()
+    backend.pool_spec = lambda: ("smoke_spy", {**kw, "spy_dir": str(spy_dir)}, method)
+    workers: list = []
+    record = backend._record
+
+    def noted(nest, m):
+        workers.append(m.worker)
+        return record(nest, m)
+
+    backend._record = noted
+    pool_s = [0.0]
+    measure_batch = backend.measure_batch
+
+    def timed(nests):
+        t = time.perf_counter()
+        try:
+            return measure_batch(nests)
+        finally:
+            pool_s[0] += time.perf_counter() - t
+
+    backend.measure_batch = timed
+    tuner = LoopTuner(backend=backend, policy="search", surrogate="off")
+    benches = [matmul_benchmark(*mkn) for mkn in CONTRACTIONS]
+    n = len(benches)
+    entries: list = []
+    apps_before = compute_pids()
+    # the pool starts at its first measurement: start it here, so the tune
+    # below is timed with a ready worker (its start-up is reported apart)
+    t1 = time.perf_counter()
+    backend.measure(LoopNest(benches[0]))
+    first_measure_s = time.perf_counter() - t1
+    l0, t1 = matmul.launches, time.perf_counter()
+    tuner.tune_many(benches, weights=[1.0] * n, budget_s=TUNE_BUDGET_S * n,
+                    eval_budget=TUNE_MAX_EVALS * n,
+                    on_entry=lambda i, e: entries.append((i, e)))
+    tune_s, parent_launches = time.perf_counter() - t1, matmul.launches - l0
+    pool = backend.measure_stats()["pool"]
+    apps = compute_pids()
+    rows = [{"mkn": list(CONTRACTIONS[i]), "block": e.get("block"),
+             "grid_order": e.get("grid_order"), "base_gflops": e["base_gflops"],
+             "tuned_gflops": e["gflops"], "actions": e["actions"]}
+            for i, e in sorted(entries, key=lambda t: t[0])]
+    served = record_checks(tuner.registry, g, torch.float32)
+    # the pool's recorded rewards beside in-process timings of the same
+    # schedules (the untuned and the tuned nest of each contraction)
+    nests = [nest for i, b in enumerate(benches)
+             for nest in (replay(b, [], tuner.actions), replay(b, rows[i]["actions"], tuner.actions))]
+    pooled = [backend.measurement_for(nest) for nest in nests]
+    backend.close()  # the worker exits cleanly: its spy writes its last counts
+    spy = spy_launches(spy_dir)
+    for r, b in zip(rows, benches):
+        r["worker_launches"] = spy["per_contraction"].get(b.name, 0)
+    info = pool["worker_info"][0]
+    row = {"first_measure_s": first_measure_s, "tune_s": tune_s, "pool_s": pool_s[0],
+           "worker_measure_s": spy["measure_s"],
+           "spy_write_s": spy["write_s"], "parent_launches": parent_launches,
+           "worker": {k: info.get(k) for k in ("pid", "device", "startup_s", "executor_s",
+                                               "builds")},
+           "compute_pids_before": apps_before, "compute_pids": apps,
+           "pool": {k: v for k, v in pool.items() if k != "worker_info"},
+           "measurements": len(workers), "measurement_workers": sorted(set(workers)),
+           "worker_launches": spy["total"], "spy": spy["workers"], "tune": rows,
+           "records": served}
+    emit("pool", t0, **row)
+    checks = {
+        "one worker, on cuda:0": pool["workers"] == 1 and info.get("device") == "cuda:0",
+        # nvidia-smi reads pids in the host's namespace, which a container's
+        # need not match (they can all read 1): the worker is the one
+        # compute process the pool added to the card
+        "the worker is one more compute process on the card":
+            len(apps) == len(apps_before) + 1,
+        "every contraction's rewards launched the kernel in the worker":
+            all(r["worker_launches"] > 0 for r in rows),
+        "the parent launched nothing while tuning": parent_launches == 0,
+        "every measurement came from worker 0": bool(workers) and set(workers) == {0},
+        "tuned >= base": all(r["tuned_gflops"] >= r["base_gflops"] > 0 and r["block"]
+                             for r in rows),
+        "every record served, routed, on simt, within its limit": all(
+            r["rel_err"] <= r["limit"] and r["routed"] == 1 and r["misses"] == 0
+            and r["route"] == "simt" for r in served),
+        "no worker died or hung": pool["respawns"] == 0 and pool["hung_killed"] == 0,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"pool phase failed: {bad}")
+    row["compare"] = (benches, nests, pooled)
+    return row
+
+
+def pool_against_inproc(benches, nests, pooled) -> list:
+    """In-process timings of the schedules the pool measured (after the
+    fleet path's counts are read: these launches compare, they do not
+    count)."""
+    from repro_torch.core import make_backend
+
+    inproc = make_backend("torch")
+    out = []
+    for i, b in enumerate(benches):
+        for kind, nest, m in (("base", nests[2 * i], pooled[2 * i]),
+                              ("tuned", nests[2 * i + 1], pooled[2 * i + 1])):
+            local = inproc.measure(nest)
+            out.append({"mkn": list(CONTRACTIONS[i]), "schedule": kind,
+                        "pool_gflops": m.gflops if m is not None else None,
+                        "inproc_gflops": local.gflops,
+                        "ratio": (m.gflops / local.gflops) if m is not None else None})
+    return out
+
+
+def phase_pool_faults(out_dir: Path) -> dict:
+    """One spawned worker on the card through the faulty spy: a schedule
+    that ends its worker on every attempt resolves as a failed record, one
+    that hangs once past the hung budget is killed and re-measured, and the
+    batch's other schedules are measured on the card."""
+    from repro_torch.core import (CPU_SPLITS, LoopNest, WorkerPool, apply_action,
+                                  build_action_space, is_legal, make_backend,
+                                  matmul_benchmark)
+
+    t0 = time.perf_counter()
+    spy_dir = fresh_dir(out_dir / "fleet_spy" / "pool_faults")
+    token = spy_dir / "hang-once"
+    token.write_text("once")
+    bench = matmul_benchmark(DECODE_M, D_MODEL, D_MODEL)
+    actions = build_action_space(CPU_SPLITS)
+    rng = np.random.default_rng(SEED)
+    nests, seen = [], set()
+    while len(nests) < 4:
+        nest = LoopNest(bench)
+        for _ in range(3):
+            legal = [a for a in actions if is_legal(nest, a)]
+            apply_action(nest, legal[int(rng.integers(len(legal)))])
+        if nest.structure_key() not in seen:
+            seen.add(nest.structure_key())
+            nests.append(nest)
+    kw = make_backend("torch").pool_spec()[1]
+    pool = WorkerPool("smoke_faulty", {**kw, "spy_dir": str(spy_dir),
+                                       "poison": repr(nests[0].structure_key()),
+                                       "hang": repr(nests[1].structure_key()),
+                                       "token": str(token)},
+                      n_workers=1, start_method="spawn", max_task_retries=1,
+                      task_timeout_s=FAULT_TASK_TIMEOUT_S)
+    try:
+        ms = pool.measure_batch(nests)
+        stats = pool.stats()
+    finally:
+        pool.close()
+    spy = spy_launches(spy_dir)
+    row = {"task_timeout_s": FAULT_TASK_TIMEOUT_S, "max_task_retries": 1,
+           "measurements": [{"role": role, "gflops": m.gflops, "noisy": m.noisy,
+                             "remeasured": m.remeasured, "worker": m.worker,
+                             "repeats": m.repeats}
+                            for role, m in zip(("poison", "hang_once", "ok", "ok"), ms)],
+           "stats": {k: v for k, v in stats.items() if k != "worker_info"},
+           "startup_s": [w["startup_s"] for w in stats["worker_info"] if w],
+           "worker_launches": spy["total"], "spy": spy["workers"]}
+    emit("pool_faults", t0, **row)
+    checks = {
+        "the poison schedule is a failed record": ms[0].gflops == 0.0 and ms[0].noisy
+            and ms[0].remeasured and stats["failed_tasks"] == 1,
+        "the hung worker was killed and the schedule re-measured":
+            stats["hung_killed"] >= 1 and ms[1].gflops > 0,
+        "dead workers respawned": stats["respawns"] >= 2,
+        "the other schedules measured on the card":
+            all(m.gflops > 0 and m.worker == 0 for m in ms[1:]) and spy["total"] > 0
+            and all(w["device"] == "cuda:0" for w in spy["workers"]),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"pool_faults phase failed: {bad}")
+    return row
+
+
+def phase_kernel_store(out_dir: Path) -> dict:
+    """Two spawned workers with an empty build directory share an empty
+    kernel store: exactly one runs nvcc on matmul.cu (one compiles.log
+    event) and the other loads the library from the store; then a fresh
+    worker with another empty build directory and the same store runs no
+    nvcc."""
+    from repro_torch.core import (LoopNest, WorkerPool, make_backend, matmul_benchmark,
+                                  open_store)
+    from repro_torch.core.kernel_store import key_digest
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    root = fresh_dir(out_dir / "fleet_store")
+    cache = root / "store"
+    src = _build.CSRC / "matmul.cu"
+    digest = key_digest(_build.store_key(src, _build._lib_path(src)))
+    kw = {**make_backend("torch").pool_spec()[1], "cache_dir": str(cache)}
+    nests = [LoopNest(matmul_benchmark(DECODE_M, D_MODEL, D_MODEL))]
+    rounds = {}
+    saved = os.environ.get(_build.BUILD_DIR_ENV)
+    try:
+        for name, n_workers in (("two_workers", 2), ("fresh_process", 1)):
+            # the workers inherit the build directory from the environment
+            os.environ[_build.BUILD_DIR_ENV] = str(fresh_dir(root / f"build_{name}"))
+            t1 = time.perf_counter()
+            with WorkerPool("torch", kw, n_workers=n_workers, start_method="spawn") as pool:
+                if not pool.wait_ready(timeout_s=900.0):
+                    raise SystemExit(f"kernel_store: the {name} workers never started")
+                ms = pool.measure_batch(nests * n_workers)
+                stats = pool.stats()
+            events = open_store(str(cache), _build.fingerprint()).compile_events()
+            rounds[name] = {
+                "seconds": time.perf_counter() - t1,
+                "matmul_sources": sorted(w["builds"]["matmul"]["source"]
+                                         for w in stats["worker_info"]),
+                "nvcc_s": [w["builds"]["matmul"]["seconds"] for w in stats["worker_info"]],
+                "startup_s": [w["startup_s"] for w in stats["worker_info"]],
+                "compile_events": sum(e["key"] == digest for e in events),
+                "gflops": [m.gflops for m in ms]}
+    finally:
+        if saved is None:
+            os.environ.pop(_build.BUILD_DIR_ENV, None)
+        else:
+            os.environ[_build.BUILD_DIR_ENV] = saved
+    row = {"rounds": rounds, "nvcc_runs_per_source": {
+        "matmul": rounds["fresh_process"]["compile_events"]}}
+    emit("kernel_store", t0, **row)
+    two, fresh = rounds["two_workers"], rounds["fresh_process"]
+    checks = {
+        "one nvcc across two workers, the other loaded the library":
+            two["matmul_sources"] == ["nvcc", "store"] and two["compile_events"] == 1,
+        "a fresh process runs no nvcc": fresh["matmul_sources"] == ["store"]
+            and fresh["compile_events"] == 1,
+        "every worker measured on the card":
+            all(g > 0 for r in rounds.values() for g in r["gflops"]),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"kernel_store phase failed: {bad}")
+    return row
+
+
+def _read_lines(stream, lines: "queue.Queue") -> None:
+    for line in stream:
+        lines.put(line)
+    lines.put(None)
+
+
+def phase_farm(out_dir: Path, g, inproc_tune_s: float) -> dict:
+    """A farm subprocess (``repro_torch.launch.measure_farm --backend torch
+    --measure pool``) serves ``tune_records_fleet`` with two clients tuning
+    the six contractions; its records are served here, and SIGTERM drains
+    it."""
+    from repro_torch.core import LoopNest, make_backend, matmul_benchmark
+    from repro_torch.core.registry import ScheduleRegistry, current_hardware
+    from repro_torch.kernels.matmul import matmul
+    from repro_torch.launch.measure_farm import farm_status
+    from repro_torch.launch.tune import TuneJournal, tune_records_fleet
+
+    t0 = time.perf_counter()
+    farm_dir = fresh_dir(out_dir / "fleet_farm")
+    reg_path = farm_dir / "registry.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.measure_farm", "--addr", "127.0.0.1:0",
+         "--backend", "torch", "--measure", "pool"],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=_read_lines, args=(proc.stdout, lines), daemon=True).start()
+    out: list = []
+    try:
+        first = lines.get(timeout=FARM_START_S)
+        if not first or not first.startswith("[farm] listening on"):
+            raise SystemExit(f"farm did not start: {first!r}")
+        out.append(first)
+        addr = first.split()[3]
+        # the farm's pool starts at its first request: one request first, so
+        # the fleet's tune is timed with a ready worker
+        warm = make_backend("remote", addr=addr, fallback="torch", client_id="warm-up")
+        t1 = time.perf_counter()
+        warm.measure(LoopNest(matmul_benchmark(*CONTRACTIONS[0])))
+        first_request_s, warm_farm = time.perf_counter() - t1, warm.farm_stats()
+        warm.close()
+        records = [{"m": m, "k": k, "n": n, "dtype": "float32",
+                    "flop_share": 1.0 / len(CONTRACTIONS)} for m, k, n in CONTRACTIONS]
+        l0, t1 = matmul.launches, time.perf_counter()
+        entries, n_skipped, clients = tune_records_fleet(
+            records, n_clients=2, farm=addr, backend="torch", registry_path=str(reg_path),
+            budget_s=TUNE_BUDGET_S * len(records),
+            eval_budget=TUNE_MAX_EVALS * len(records),
+            journal=TuneJournal(str(reg_path) + ".journal.jsonl"))
+        tune_s, parent_launches = time.perf_counter() - t1, matmul.launches - l0
+        status = farm_status(addr)
+        registry = ScheduleRegistry(str(reg_path))
+        stamped = [registry.get("mm", (m, k, n), "float32", exact=True)
+                   for m, k, n in CONTRACTIONS]
+        served = record_checks(registry, g, torch.float32)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        while (line := lines.get(timeout=30)) is not None:
+            out.append(line)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    (out_dir / "fleet_farm" / "farm_stdout.txt").write_text("".join(out))
+    farms = [c["farm"] for c in clients]
+    row = {"addr": addr, "first_request_s": first_request_s, "tune_s": tune_s,
+           "inproc_tune_s": inproc_tune_s,
+           "tune_s_over_inproc": tune_s / inproc_tune_s, "parent_launches": parent_launches,
+           "clients": [{k: c["farm"][k] for k in (
+               "client_id", "requests", "retries", "degradations", "degraded_batches",
+               "tickets_submitted", "tickets_collected", "tickets_resubmitted",
+               "inflight_tickets_peak", "overlap_ratio", "farm_rtt_s",
+               "remote_backend", "remote_hardware")} | {"wall_s": c["wall_s"],
+                                                        "n_tuned": c["n_tuned"]}
+                       for c in clients],
+           "farm": {k: status.get(k) for k in (
+               "requests", "served_nests", "pool_batches", "coalesced_batches",
+               "tickets_submitted", "tickets_collected", "tickets_acked", "errors",
+               "backend", "hardware", "service_s_per_nest")},
+           "stamps": [[e.get("backend"), e.get("hardware")] if e else None for e in stamped],
+           "tune": [{"mkn": list(mkn), "block": e.get("block"), "base_gflops":
+                     e.get("base_gflops"), "tuned_gflops": e.get("gflops")}
+                    for mkn, e in zip(CONTRACTIONS, entries)],
+           "records": served, "farm_rc": rc,
+           "farm_drained": any("SIGTERM: draining" in ln for ln in out)
+           and any(ln.startswith("[farm] stopped") for ln in out)}
+    emit("farm", t0, **row)
+    card = current_hardware()
+    checks = {
+        "the farm served requests, no client degraded": status["requests"] > 0
+            and all(f["degradations"] == 0 and f["degraded_batches"] == 0
+                    for f in farms + [warm_farm]),
+        "tickets balanced": sum(f["tickets_submitted"] for f in farms)
+            == sum(f["tickets_collected"] for f in farms) > 0,
+        "every measurement came from the farm's card executor":
+            all(f["remote_backend"] == "torch" and f["remote_hardware"] == card for f in farms),
+        "records stamped torch and the card": all(
+            e is not None and e["backend"] == "torch" and e["hardware"] == card
+            for e in stamped) and n_skipped == 0 and len(entries) == len(records),
+        "tuned >= base": all(e["gflops"] >= e["base_gflops"] > 0 for e in entries),
+        "the parent launched nothing while the farm tuned": parent_launches == 0,
+        "every record served, routed, on simt, within its limit": all(
+            r["rel_err"] <= r["limit"] and r["routed"] == 1 and r["misses"] == 0
+            and r["route"] == "simt" for r in served),
+        "SIGTERM drained the farm, exit 0": rc == 0 and row["farm_drained"],
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"farm phase failed: {bad}")
+    return row
+
+
+def phase_fleet(out_dir: Path, g, inproc_tune_s: float) -> dict:
+    """The fleet path's four phases.  Returns their rows and the path's
+    launches: the parent's (serving the tuned records) and the workers'
+    (every reward of the pool phases), which their spies counted."""
+    pool = phase_pool(out_dir, g)
+    compare = pool.pop("compare")
+    faults = phase_pool_faults(out_dir)
+    store = phase_kernel_store(out_dir)
+    farm = phase_farm(out_dir, g, inproc_tune_s)
+    parent = read_launches()
+    workers = pool["worker_launches"] + faults["worker_launches"]
+    launches = {**parent, "tiled_matmul": parent["tiled_matmul"] + workers}
+    return {"pool": pool, "pool_faults": faults, "kernel_store": store, "farm": farm,
+            "parent_launches": parent, "worker_launches": workers, "launches": launches,
+            "compare": compare}
 
 
 # ---------------------------------------------------------------------------
@@ -2206,6 +2720,17 @@ def main() -> int:
     phase_actor_critic(out_dir, policy, g)
     by_path["actor_critic"] = read_launches()  # ... and ends here
     check_path_launches("actor_critic", by_path["actor_critic"], ("tiled_matmul",))
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()  # the fleet path starts here (its workers count their own)
+    fleet = phase_fleet(out_dir, g, sum(r["tune_s"] for r in tune_rows))
+    by_path["fleet"] = fleet["launches"]  # ... and ends here
+    check_path_launches("fleet", by_path["fleet"], ("tiled_matmul",))
+    t0 = time.perf_counter()
+    compare = pool_against_inproc(*fleet["compare"])
+    emit("pool_against_inproc", t0, schedules=compare,
+         ratio_min=min(r["ratio"] for r in compare if r["ratio"] is not None),
+         ratio_max=max(r["ratio"] for r in compare if r["ratio"] is not None))
     # the policy paths' executors and their operands on the card sit in
     # reference cycles (the launch spies): free them before the model path
     gc.collect()

@@ -3,7 +3,8 @@ features, the reward backends (analytical TPU model, NumPy interpreter and
 the card executor), the vectorised environment, the policy networks and
 encoders, the DQN, APEX-DQN, PPO, A2C and IMPALA trainers, the learned
 surrogate, the traditional searches and the :class:`LoopTuner` that
-persists tuned schedules for the kernel layer.
+persists tuned schedules for the kernel layer; and the measurement fleet:
+the worker pool, the kernel store and the measurement farm.
 """
 from .actions import (
     Action,
@@ -69,13 +70,22 @@ from .loop_ir import (
     reduction_benchmark,
     transpose_benchmark,
 )
+from .kernel_store import PersistentKernelStore, open_store
 from .measure import (
     MeasuredBackend,
     Measurement,
     MeasurementPolicy,
+    PerWorker,
+    WorkerPool,
     measure_local,
     measure_settings,
     measurement_of,
+)
+from .measure_service import (
+    FarmUnavailableError,
+    MeasureServer,
+    RemoteMeasuredBackend,
+    RemoteMeasureError,
 )
 from .networks import (
     MASK_SENTINEL,

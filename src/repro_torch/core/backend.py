@@ -23,9 +23,14 @@ the default simply loops.  Backends are selected *by name* through
 * ``"auto"`` — ``"torch"``.  Unlike the JAX package's ``"auto"``, it never
   drops to the NumPy interpreter: a run that asked for measurement on the
   card fails where there is none.
+* ``"remote"`` — a client of a measurement farm
+  (:class:`~repro_torch.core.measure_service.RemoteMeasuredBackend`);
+  ``"remote:host:port"`` is the same with its address.
 
-The JAX package's ``"jax"`` executor has no counterpart here, and the
-remote measurement farm (``"remote"``) comes with the farm's port.
+The JAX package's ``"jax"`` executor has no counterpart here.  The
+factories accept measurement kwargs and pass them through —
+``make_backend("torch", measure="pool")`` builds a card executor whose
+``evaluate_batch`` measures in a spawned worker a card.
 """
 from __future__ import annotations
 
@@ -135,19 +140,37 @@ def backend_name(backend: Backend) -> str:
 def _numpy_backend(**kw) -> Backend:
     from .cpu_backend import CPUMeasuredBackend
 
+    # the kernel store belongs to the card executor; tolerated here so one
+    # tuner-level ``cache_dir=...`` setting works across backend specs
+    kw.pop("cache_dir", None)
+    kw.pop("prepare", None)
     return CPUMeasuredBackend(**kw)
 
 
 def _torch_backend(**kw) -> Backend:
     from .torch_backend import TorchBackend
 
+    # a lowered schedule is a block shape: nothing to compile ahead
+    kw.pop("prepare", None)
     return TorchBackend(**kw)
 
 
 def _tpu_backend(**kw) -> Backend:
     from .cost_model import TPUAnalyticalBackend
 
+    kw.pop("cache_dir", None)
+    kw.pop("prepare", None)
     return TPUAnalyticalBackend(**kw)
+
+
+def _remote_backend(**kw) -> Backend:
+    from .measure_service import RemoteMeasuredBackend
+
+    # the kernel store belongs to the farm-side executor, not the RPC
+    # client; tolerated for the same tuner-level-setting reason as numpy/tpu
+    kw.pop("cache_dir", None)
+    kw.pop("prepare", None)
+    return RemoteMeasuredBackend(**kw)
 
 
 register_backend("numpy", _numpy_backend)
@@ -155,6 +178,7 @@ register_backend("cpu", _numpy_backend)  # historical alias
 register_backend("torch", _torch_backend)
 register_backend("tpu", _tpu_backend)
 register_backend("auto", _torch_backend)
+register_backend("remote", _remote_backend)
 
 
 def make_backend(spec: Union[str, Backend, None] = "auto", **kw) -> Backend:
@@ -164,11 +188,20 @@ def make_backend(spec: Union[str, Backend, None] = "auto", **kw) -> Backend:
     plus anything registered via :func:`register_backend`), an existing
     :class:`Backend` instance (passed through, ``kw`` must be empty), or
     ``None`` (same as ``"auto"``).  ``kw`` reaches the factory — e.g.
-    ``device="cpu"`` for the card executor, or a
+    ``device="cpu"`` for the card executor, the measurement settings
+    ``measure="inproc"|"pool"`` and ``pool_workers``, or a
     :class:`~repro_torch.core.measure.MeasurementPolicy` as ``policy``.
+
+    ``"remote:host:port"`` is accepted as a self-contained spec for the
+    farm client (equivalent to ``make_backend("remote", addr="host:port")``)
+    so plain-string configuration points — trainer configs, CLI
+    ``--backend`` flags — can target a measurement farm directly.
     """
     if spec is None:
         spec = "auto"
+    if isinstance(spec, str) and spec.startswith("remote:"):
+        kw.setdefault("addr", spec[len("remote:"):])
+        spec = "remote"
     if isinstance(spec, Backend):
         if kw:
             raise ValueError(

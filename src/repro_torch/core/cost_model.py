@@ -102,7 +102,10 @@ class TPUAnalyticalBackend(PoolHostBackend):
     Deterministic (no wall clock).  Kept exactly as the JAX package has it:
     it is the training/parity backend, and its ``_boundary`` also gives the
     card executor its shared-memory residency boundary
-    (:func:`~repro_torch.core.registry.card_boundary`).
+    (:func:`~repro_torch.core.registry.card_boundary`).  ``measure="pool"``
+    routes batches through the worker pool — the reference configuration
+    for pool-vs-in-process reward parity (identical code and inputs in the
+    workers means bit-equal GFLOPS).
     """
 
     name = "tpu"
@@ -120,6 +123,14 @@ class TPUAnalyticalBackend(PoolHostBackend):
         return ("tpu", {"dtype_bytes": self.dtype_bytes,
                         "vmem_budget": self.vmem_budget,
                         "reg_budget": self.reg_budget}, None)
+
+    def evaluate_batch(self, nests) -> "np.ndarray":
+        import numpy as np
+
+        if self.measure_mode == "pool" and nests:
+            ms = self._ensure_pool().measure_batch(list(nests))
+            return np.array([m.gflops for m in ms], dtype=np.float64)
+        return super().evaluate_batch(nests)
 
     def _boundary(self, nest: LoopNest, budget: int, lo: int = 0) -> int:
         """Smallest b >= lo whose suffix tile footprint fits ``budget``."""

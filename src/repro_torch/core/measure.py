@@ -1,4 +1,4 @@
-"""Measurement subsystem: timing policy and variance guardrails.
+"""Measurement subsystem: timing policy, variance guardrails, worker pool.
 
 LoopTune's premise is that RL can learn from *measured* rewards in seconds —
 which is only sound if the timings are trustworthy.  This module splits
@@ -15,10 +15,27 @@ through one place:
   instead of learning from it.  The clock is injectable, so the guardrail
   logic is unit-testable without real sleeps.
 
-* **Measurement mode** — only ``measure="inproc"`` exists in this package
-  so far.  The out-of-process worker pool (``measure="pool"``) is queued in
-  ROADMAP.md ("WorkerPool"): a CUDA worker needs the spawn start method
-  and one worker per card, so it is not a copy of the CPU pool.
+* **Out-of-process isolation** — :class:`WorkerPool` keeps warm worker
+  processes (AutoTVM's RPC measurement pool, container-local): one per core,
+  pinned, for the NumPy interpreter and the analytical model, and one per
+  card for the card executor.  Schedules ship as ``(contraction,
+  structure_key)`` and workers rebuild them with
+  :meth:`LoopNest.from_structure_key`, so the parent's GC pauses and sibling
+  threads never pollute a timed run — and, on the card, a kernel fault
+  (an illegal address, a trap), which poisons the CUDA context of the
+  process it happens in, takes down a worker instead of the tuner.  Dead
+  workers are respawned and their in-flight schedules re-measured; a
+  schedule that repeatedly kills workers resolves to a marked-failed record
+  instead of wedging the batch.
+
+  Two rules differ from the JAX package's pool, both for the card.  A
+  child forked from a process that holds a CUDA context cannot use the
+  card, so the card executor's pool *spawns* (the CPU executors keep fork).
+  A spawned card worker pays the torch import, the CUDA context and the
+  kernel libraries' load (``nvcc`` on a cold build directory) before it can
+  measure anything, so each worker builds its executor at start-up and
+  reports ``ready``; the hung-kill clock (``task_timeout_s``) starts only
+  then, and start-up is bounded by its own ``startup_timeout_s``.
 
 ``Measurement`` records ride alongside the scalar GFLOPS that the
 :class:`~repro_torch.core.schedule_cache.ScheduleCache` stores, via the
@@ -30,7 +47,11 @@ from __future__ import annotations
 import abc
 import dataclasses
 import gc
+import multiprocessing
+import os
+import queue as queue_mod
 import time
+import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -319,41 +340,64 @@ def measure_stats(backend: Backend) -> Dict[str, Any]:
 
 
 class PoolHostBackend(Backend):
-    """Shared measurement-mode plumbing for backends that will be able to
-    route evaluation through a worker pool: mode state, settings reporting
-    and shutdown.  Subclasses provide :meth:`pool_spec`."""
+    """Shared pool-hosting plumbing for backends that can route evaluation
+    through a :class:`WorkerPool`: measurement-mode state, lazy pool
+    construction, settings reporting and shutdown.  Subclasses provide
+    :meth:`pool_spec`."""
 
     def _init_pool_host(self, measure: str,
                         pool_workers: Optional[int],
                         policy: Optional[MeasurementPolicy],
                         pool_timeout_s: Optional[float] = None) -> None:
-        if measure == "pool":
-            raise NotImplementedError(
-                "measure='pool' needs the worker pool, which is not ported "
-                "yet (ROADMAP.md, 'WorkerPool'); use measure='inproc'")
-        if measure != "inproc":
+        if measure not in ("inproc", "pool"):
             raise ValueError(f"measure must be 'inproc' or 'pool', got {measure!r}")
         self.measure_mode = measure
         self.pool_workers = pool_workers
         self.policy = policy
+        #: per-task hung-kill budget forwarded to the pool (None = pool
+        #: default) — the measurement farm sets this so a wedged schedule
+        #: bounds a client's batch instead of stalling it
         self.pool_timeout_s = pool_timeout_s
+        self._pool: Optional[WorkerPool] = None
 
     @abc.abstractmethod
     def pool_spec(self) -> Tuple[str, Dict[str, Any], Optional[str]]:
         """``(registry_name, kwargs, start_method)`` a worker process uses
         to build an equivalent in-process executor (``start_method`` None =
-        pool default)."""
+        pool default).  A kwarg whose value is a :class:`PerWorker` gives
+        each worker its own value (the card executor's device)."""
+
+    def default_pool_workers(self) -> Optional[int]:
+        """The pool size when ``pool_workers`` is not given (None = one
+        worker a core, the pool's default)."""
+        return None
+
+    def _ensure_pool(self) -> "WorkerPool":
+        if self._pool is None:
+            spec, kwargs, method = self.pool_spec()
+            extra = ({"task_timeout_s": self.pool_timeout_s}
+                     if self.pool_timeout_s is not None else {})
+            self._pool = WorkerPool(spec, kwargs, policy=self.policy,
+                                    n_workers=(self.pool_workers
+                                               or self.default_pool_workers()),
+                                    start_method=method, **extra)
+        return self._pool
 
     def measure_settings(self) -> Dict[str, Any]:
         return {
             "mode": self.measure_mode,
-            "workers": self.pool_workers,
+            "workers": (self._pool.n_workers if self._pool is not None
+                        else self.pool_workers),
             "policy": (self.policy.to_dict()
                        if self.policy is not None else None),
         }
 
     def close(self) -> None:
-        """Release measurement resources (nothing to release in-process)."""
+        """Shut the worker pool down (no-op in-process).  Safe to call
+        repeatedly; the pool is rebuilt lazily if measured again."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
 
 
 class MeasuredBackend(PoolHostBackend):
@@ -364,9 +408,10 @@ class MeasuredBackend(PoolHostBackend):
     worker process rebuilds an equivalent executor); all timing, variance
     tracking and pool dispatch lives here.
 
-    ``measure="inproc"`` times in this process through the policy (the
-    only mode ported so far).  ``repeats`` is a
-    convenience alias for ``MeasurementPolicy(repeats=...)`` — setting it
+    ``measure="inproc"`` times in this process through the policy;
+    ``measure="pool"`` ships batches to a :class:`WorkerPool` (built
+    lazily) so ``evaluate_batch`` measures out of process, in parallel
+    across the workers.  ``repeats`` is a convenience alias for ``MeasurementPolicy(repeats=...)`` — setting it
     together with a conflicting explicit ``policy`` is an error.
     """
 
@@ -425,8 +470,20 @@ class MeasuredBackend(PoolHostBackend):
 
     # -- measurement ----------------------------------------------------------
 
+    def worker_ready(self) -> Dict[str, Any]:
+        """Pay a pool worker's start-up cost before it reports ready (the
+        hung-kill clock starts after this returns); returns what the worker
+        tells the parent about itself.  Executors with expensive start-up
+        (the card's context and kernel libraries) override this."""
+        return {}
+
+    # -- measurement ----------------------------------------------------------
+
     def measure(self, nest: LoopNest, worker: int = -1) -> Measurement:
-        """Measure one schedule in this process through the policy."""
+        """Measure one schedule; in pool mode this fans the schedule out to
+        the idle workers and merges best-of across processes."""
+        if self.measure_mode == "pool" and not self.isolated:
+            return self.measure_batch([nest])[0]
         warm = self.policy.warm_elide and self.is_warm(nest)
         m = self.policy.measure(
             lambda: self.run_once(nest), nest.contraction.flops(),
@@ -435,6 +492,13 @@ class MeasuredBackend(PoolHostBackend):
         return self._record(nest, m)
 
     def measure_batch(self, nests: Sequence[LoopNest]) -> List[Measurement]:
+        if not nests:
+            return []
+        if self.measure_mode == "pool" and not self.isolated:
+            ms = self._ensure_pool().measure_batch(
+                nests, cost_hint=self.cost_hint,
+                compiled_hint=getattr(self, "is_compiled", None))
+            return [self._record(n, m) for n, m in zip(nests, ms)]
         return [self.measure(n) for n in nests]
 
     def _record(self, nest: LoopNest, m: Measurement) -> Measurement:
@@ -468,4 +532,511 @@ class MeasuredBackend(PoolHostBackend):
             "records": len(self._records),
             "mode": self.measure_mode,
         }
+        if self._pool is not None:
+            out["pool"] = self._pool.stats()
         return out
+
+
+# ---------------------------------------------------------------------------
+# Worker pool
+# ---------------------------------------------------------------------------
+
+
+def _default_workers() -> int:
+    try:
+        return max(1, len(os.sched_getaffinity(0)))
+    except (AttributeError, OSError):
+        return max(1, os.cpu_count() or 1)
+
+
+class PerWorker:
+    """A :meth:`PoolHostBackend.pool_spec` kwarg whose value differs by
+    worker: worker ``wid`` gets ``values[wid % len(values)]`` (the card
+    executor gives each worker its own card)."""
+
+    __slots__ = ("values",)
+
+    def __init__(self, values: Sequence[Any]):
+        if not values:
+            raise ValueError("PerWorker needs at least one value")
+        self.values = tuple(values)
+
+    def pick(self, wid: int) -> Any:
+        return self.values[wid % len(self.values)]
+
+    def __repr__(self) -> str:
+        return f"PerWorker({list(self.values)!r})"
+
+
+def _pool_worker(wid: int, spec: str, kwargs: Dict[str, Any],
+                 task_q, result_q, ready_at) -> None:
+    """Worker main loop: pin to a core, build the executor and pay its
+    start-up (:meth:`MeasuredBackend.worker_ready`), report ``ready``, then
+    measure shipped ``(contraction, structure_key)`` schedules until the
+    None sentinel arrives.  Every task answers with ``("ok", shipped)`` or
+    ``("err", traceback)`` — the parent decides what is fatal; an executor
+    that failed to build answers every task with its traceback."""
+    t0 = time.perf_counter()
+    try:
+        os.sched_setaffinity(0, {wid % (os.cpu_count() or 1)})
+    except (AttributeError, OSError, ValueError):
+        pass  # pinning is best-effort (non-Linux / restricted cgroups)
+    backend: Optional[Backend] = None
+    info: Dict[str, Any] = {}
+    startup_error: Optional[str] = None
+    try:
+        from .backend import make_backend
+
+        backend = make_backend(spec, **kwargs)
+        if isinstance(backend, MeasuredBackend):
+            backend.isolated = True
+            info = dict(backend.worker_ready())
+        # long-lived survivors (the executor, operand caches) stop being
+        # traversed by the cyclic GC: measurement processes should spend
+        # their cycles executing schedules
+        gc.freeze()
+    except BaseException:  # noqa: BLE001 — reported with the first task
+        startup_error = traceback.format_exc()
+    info["executor_s"] = round(time.perf_counter() - t0, 4)
+    # shared memory, written at once: the parent sees it even if this
+    # process dies before its queue's feeder thread has flushed.  The wall
+    # clock, so the parent can count the interpreter's start and the
+    # imports, which happen before this function runs
+    ready_at.value = time.time()
+    result_q.put((wid, None, ("ready", os.getpid(), info)))
+    while True:
+        task = task_q.get()
+        if task is None:
+            return
+        tid, contraction, key = task
+        try:
+            if startup_error is not None:
+                raise RuntimeError(
+                    f"the worker's executor failed to build:\n{startup_error}")
+            nest = LoopNest.from_structure_key(contraction, key)
+            m = measure_local(backend, nest, worker=wid)
+            result_q.put((wid, tid, ("ok", m.ship())))
+        except BaseException:  # noqa: BLE001 — report, let the parent decide
+            try:
+                result_q.put((wid, tid, ("err", traceback.format_exc())))
+            except Exception:  # noqa: BLE001 — queue already torn down
+                return
+
+
+class _Worker:
+    __slots__ = ("process", "task_q", "ready_at", "outstanding", "busy_since",
+                 "ready", "spawned_at", "spawned_wall", "startup_s", "info")
+
+    def __init__(self, process, task_q, ready_at):
+        self.process = process
+        self.task_q = task_q
+        self.ready_at = ready_at  # shared: the worker's wall clock at ready
+        self.outstanding: Dict[Tuple, Tuple] = {}  # tid -> task payload
+        self.busy_since: Optional[float] = None  # monotonic, None = idle
+        self.ready = False  # start-up done, as the parent has seen
+        self.spawned_at = time.monotonic()
+        self.spawned_wall = time.time()
+        self.startup_s: Optional[float] = None
+        self.info: Dict[str, Any] = {}
+
+
+class WorkerPool:
+    """Warm worker processes measuring schedules in parallel.
+
+    One process per core by default (the card executor asks for one per
+    card, :meth:`PoolHostBackend.default_pool_workers`), each pinned to a
+    core and kept warm across batches (operand caches, lowered schedules
+    and loaded kernel libraries persist inside the worker).  Tasks are
+    ``(contraction, structure_key)`` pairs; workers rebuild the schedule
+    with :meth:`LoopNest.from_structure_key` and measure it with their own
+    in-process executor built from ``make_backend(spec, **kwargs)``
+    (:class:`PerWorker` kwargs resolved for the worker).
+
+    Each worker builds its executor at start-up and reports ``ready``.  The
+    hung-kill clock only runs for ready workers, so a card worker's torch
+    import, CUDA context and kernel build never count against
+    ``task_timeout_s``; start-up itself is bounded by
+    ``startup_timeout_s``.  Workers that die or are killed before they are
+    ready more than ``max_task_retries`` times in a row raise in the parent:
+    an executor that cannot start is no schedule's fault.
+
+    Fault tolerance: a worker that dies mid-batch is respawned and its
+    in-flight schedules are re-measured, and a ready worker that makes no
+    progress for ``task_timeout_s`` (hung, not dead) is killed and treated
+    the same way; a schedule that kills workers ``max_task_retries`` times
+    resolves to a marked-failed record (zero GFLOPS, flagged noisy) instead
+    of either wedging the batch or — worse — running the killer schedule in
+    the parent.  Worker *exceptions* (as opposed to deaths) re-raise in the
+    parent — an evaluator bug is not a fault to retry around.
+    """
+
+    def __init__(
+        self,
+        spec: str,
+        kwargs: Optional[Dict[str, Any]] = None,
+        policy: Optional[MeasurementPolicy] = None,
+        n_workers: Optional[int] = None,
+        start_method: Optional[str] = None,
+        max_task_retries: int = 2,
+        task_timeout_s: Optional[float] = 120.0,
+        startup_timeout_s: Optional[float] = 900.0,
+    ):
+        if not isinstance(spec, str):
+            raise TypeError(
+                f"WorkerPool spec must be a backend registry name, got "
+                f"{type(spec).__name__} (instances cannot ship to workers)")
+        self.spec = spec
+        self.kwargs = dict(kwargs or {})
+        self.policy = (policy if policy is not None
+                       else MeasurementPolicy()).shippable()
+        self.n_workers = n_workers if n_workers else _default_workers()
+        if self.n_workers < 1:
+            raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+        self.max_task_retries = max_task_retries
+        self.task_timeout_s = task_timeout_s
+        self.startup_timeout_s = startup_timeout_s
+        methods = multiprocessing.get_all_start_methods()
+        if start_method is None:
+            start_method = "fork" if "fork" in methods else "spawn"
+        self._ctx = multiprocessing.get_context(start_method)
+        self.start_method = start_method
+        self._result_q = self._ctx.Queue()
+        self._workers: List[Optional[_Worker]] = [None] * self.n_workers
+        self._batch_serial = 0
+        self._closed = False
+        self.respawns = 0
+        self.tasks_done = 0
+        self.failed_tasks = 0
+        self.hung_killed = 0
+        self.startup_killed = 0
+        self._startup_deaths = 0  # in a row, since a worker was last ready
+        self.last_batch_s = 0.0
+        for wid in range(self.n_workers):
+            self._spawn(wid)
+
+    # -- lifecycle ------------------------------------------------------------
+
+    def _worker_kwargs(self, wid: int) -> Dict[str, Any]:
+        kw = {k: (v.pick(wid) if isinstance(v, PerWorker) else v)
+              for k, v in self.kwargs.items()}
+        kw.pop("measure", None)  # workers always measure in-process
+        kw.pop("pool_workers", None)
+        kw.pop("pool_timeout_s", None)  # hung-kill is the parent's job
+        kw["policy"] = self.policy
+        return kw
+
+    def _spawn(self, wid: int) -> _Worker:
+        task_q = self._ctx.Queue()
+        ready_at = self._ctx.Value("d", 0.0, lock=False)
+        p = self._ctx.Process(
+            target=_pool_worker,
+            args=(wid, self.spec, self._worker_kwargs(wid), task_q,
+                  self._result_q, ready_at),
+            daemon=True,
+            name=f"looptune-measure-{self.spec}-{wid}",
+        )
+        p.start()
+        w = _Worker(p, task_q, ready_at)
+        self._workers[wid] = w
+        return w
+
+    def _revive(self, wid: int) -> _Worker:
+        """Respawn a dead worker, carrying its queue contents over is not
+        possible — the caller re-issues the outstanding tasks."""
+        old = self._workers[wid]
+        if old is not None and old.process.is_alive():
+            return old
+        self.respawns += 1
+        return self._spawn(wid)
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        for w in self._workers:
+            if w is None:
+                continue
+            try:
+                w.task_q.put(None)
+            except Exception:  # noqa: BLE001
+                pass
+        for w in self._workers:
+            if w is None:
+                continue
+            w.process.join(timeout=2.0)
+            if w.process.is_alive():
+                w.process.terminate()
+                w.process.join(timeout=1.0)
+        self._workers = [None] * self.n_workers
+
+    def __enter__(self) -> "WorkerPool":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):  # best-effort: daemons die with the parent anyway
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001
+            pass
+
+    def wait_ready(self, timeout_s: Optional[float] = None) -> bool:
+        """Block until every worker has reported ready (True) or
+        ``timeout_s`` passes (False).  Optional: batches wait on their own."""
+        deadline = None if timeout_s is None else time.monotonic() + timeout_s
+        while not all(w is not None and self._check_ready(w) for w in self._workers):
+            if deadline is not None and time.monotonic() >= deadline:
+                return False
+            try:
+                src, tid, payload = self._result_q.get(timeout=0.25)
+            except queue_mod.Empty:
+                continue
+            if tid is None:
+                self._on_ready(src, payload)
+        return True
+
+    def _check_ready(self, w: _Worker) -> bool:
+        """Whether the worker has finished starting up; the first time the
+        parent sees it, the hung clock starts for the task it holds."""
+        if not w.ready and w.ready_at.value > 0.0:
+            w.ready = True
+            self._startup_deaths = 0
+            w.startup_s = w.ready_at.value - w.spawned_wall  # spawn to ready
+            if w.outstanding:
+                w.busy_since = time.monotonic()
+        return w.ready
+
+    def _on_ready(self, wid: int, payload: Tuple) -> None:
+        _, pid, info = payload
+        w = self._workers[wid]
+        # a ready message from a killed incarnation must not describe its
+        # replacement: match the process
+        if w is not None and w.process.pid == pid:
+            w.info = dict(info)
+            self._check_ready(w)
+
+    # -- measurement ----------------------------------------------------------
+
+    def measure_batch(
+        self,
+        nests: Sequence[LoopNest],
+        cost_hint: Optional[Callable[[LoopNest], float]] = None,
+        compiled_hint: Optional[Callable[[LoopNest], bool]] = None,
+    ) -> List[Measurement]:
+        """Measure every nest, in parallel across the pool.
+
+        Scheduling is *pull-based*: each worker holds at most one queued
+        task, and receives its next schedule when a result comes back —
+        heterogeneous schedule costs therefore balance dynamically.  The
+        backlog is ordered already-compiled-first (``compiled_hint``), then
+        longest-expected-first (``cost_hint``, LPT scheduling) so no
+        heavyweight schedule starts last.  Duplicate structures are
+        measured once; when the batch is smaller than the pool, each
+        schedule fans out to the idle workers and the per-worker
+        measurements merge into one best-of-across-processes record.
+        """
+        if self._closed:
+            raise RuntimeError("WorkerPool is closed")
+        if not nests:
+            return []
+        t_batch0 = time.monotonic()
+        self._batch_serial += 1
+        serial = self._batch_serial
+        for w in self._workers:
+            if w is not None:
+                # tasks abandoned by an aborted batch (worker-error raise)
+                # must not wedge this one; their late results are dropped by
+                # the serial check below
+                w.outstanding.clear()
+                w.busy_since = None
+
+        # dedup by structure: one measurement per distinct schedule
+        uniq_keys: List[Tuple] = []
+        uniq_nests: List[LoopNest] = []
+        slot_of: Dict[Tuple, int] = {}
+        for n in nests:
+            k = n.structure_key()
+            if k not in slot_of:
+                slot_of[k] = len(uniq_keys)
+                uniq_keys.append(k)
+                uniq_nests.append(n)
+
+        # compiled-first, then longest-expected-first backlog; small batches
+        # fan each schedule out to the idle workers (best-of across
+        # processes)
+        order = list(range(len(uniq_nests)))
+        if cost_hint is not None or compiled_hint is not None:
+            cold = (
+                (lambda s: not compiled_hint(uniq_nests[s]))
+                if compiled_hint is not None else (lambda s: False))
+            cost = (
+                (lambda s: -cost_hint(uniq_nests[s]))
+                if cost_hint is not None else (lambda s: 0.0))
+            order.sort(key=lambda s: (cold(s), cost(s)))
+        dups = max(1, self.n_workers // len(uniq_nests))
+        tasks: Dict[Tuple, Tuple] = {}  # tid -> (contraction, key)
+        backlog: List[Tuple] = []  # tids, next-to-dispatch last
+        for slot in order:
+            for d in range(dups):
+                tid = (serial, slot, d)
+                tasks[tid] = (uniq_nests[slot].contraction, uniq_keys[slot])
+                backlog.append(tid)
+        backlog.reverse()  # pop() takes the longest-expected first
+
+        self._fill(backlog, tasks)  # one task per worker; results pull more
+
+        parts: Dict[int, List[Measurement]] = {}
+        retries: Dict[Tuple, int] = {}
+        while backlog or any(
+                w is not None and w.outstanding for w in self._workers):
+            try:
+                src, tid, payload = self._result_q.get(timeout=0.25)
+            except queue_mod.Empty:
+                self._kill_hung()
+                self._reap(retries, tasks, backlog, parts)
+                # tasks a dead worker returned to the backlog must reach an
+                # idle worker even when no result will arrive to pull them
+                self._fill(backlog, tasks)
+                continue
+            if tid is None:
+                self._on_ready(src, payload)
+                continue
+            if tid[0] != serial:
+                continue  # stale result from a pre-respawn batch
+            owner_wid = self._owner_of(tid)
+            if owner_wid is None:
+                continue  # duplicate delivery after a respawn re-issue
+            owner = self._workers[owner_wid]
+            owner.outstanding.pop(tid)
+            owner.busy_since = (None if not owner.outstanding
+                                else time.monotonic())
+            status, data = payload
+            if status == "err":
+                raise RuntimeError(
+                    f"measurement worker {src} failed on task {tid}:\n{data}")
+            self.tasks_done += 1
+            parts.setdefault(tid[1], []).append(Measurement.unship(data))
+            if backlog:  # pull: the freed worker takes the next schedule
+                self._dispatch(owner_wid, backlog.pop(), tasks)
+
+        merged: List[Measurement] = []
+        for slot, nest in enumerate(uniq_nests):
+            merged.append(Measurement.merge(
+                parts[slot], nest.contraction.flops(), self.policy))
+        self.last_batch_s = time.monotonic() - t_batch0
+        return [merged[slot_of[n.structure_key()]] for n in nests]
+
+    def _fill(self, backlog: List[Tuple], tasks: Dict[Tuple, Tuple]) -> None:
+        """Hand every idle worker one task from the backlog.  Depth one on
+        purpose: a queued-behind-a-heavy task cannot migrate between the
+        per-worker queues, and a dispatch round-trip is microseconds
+        against measurements of many milliseconds."""
+        for wid in range(self.n_workers):
+            w = self._workers[wid]
+            if backlog and (w is None or not w.outstanding):
+                self._dispatch(wid, backlog.pop(), tasks)
+
+    def _dispatch(self, wid: int, tid: Tuple, tasks: Dict[Tuple, Tuple]) -> None:
+        w = self._workers[wid]
+        if w is None or not w.process.is_alive():
+            w = self._revive(wid)
+        task = tasks[tid]
+        if not w.outstanding:
+            # a worker still starting up starts its clock when it is ready
+            w.busy_since = time.monotonic() if self._check_ready(w) else None
+        w.outstanding[tid] = task
+        w.task_q.put((tid, *task))
+
+    def _owner_of(self, tid: Tuple) -> Optional[int]:
+        for wid, w in enumerate(self._workers):
+            if w is not None and tid in w.outstanding:
+                return wid
+        return None
+
+    @staticmethod
+    def _kill(w: _Worker) -> None:
+        w.process.terminate()
+        w.process.join(timeout=1.0)
+        if w.process.is_alive():
+            w.process.kill()
+            w.process.join(timeout=1.0)
+
+    def _kill_hung(self) -> None:
+        """Kill workers that hold tasks but have made no progress for
+        ``task_timeout_s`` since they were ready (a runaway evaluator, a
+        kernel that never returns), or that have not finished starting up
+        within ``startup_timeout_s``.  The kill turns it into a dead
+        worker, which ``_reap`` then respawns and whose tasks it re-issues
+        (counting retries, so a schedule that hangs every worker eventually
+        resolves as failed)."""
+        now = time.monotonic()
+        for w in self._workers:
+            if w is None or not w.outstanding or not w.process.is_alive():
+                continue
+            if self._check_ready(w):
+                if (self.task_timeout_s is not None and w.busy_since is not None
+                        and now - w.busy_since > self.task_timeout_s):
+                    self.hung_killed += 1
+                    self._kill(w)
+            elif (self.startup_timeout_s is not None
+                  and now - w.spawned_at > self.startup_timeout_s):
+                self.startup_killed += 1
+                self._kill(w)
+
+    def _reap(self, retries: Dict[Tuple, int], tasks: Dict[Tuple, Tuple],
+              backlog: List[Tuple],
+              parts: Dict[int, List[Measurement]]) -> None:
+        """Respawn dead workers and re-issue their in-flight tasks (a task
+        past its retry budget resolves as a failed measurement)."""
+        for wid, w in enumerate(self._workers):
+            if w is None or w.process.is_alive() or not w.outstanding:
+                continue
+            if not self._check_ready(w):
+                # died (or was killed) before it could measure anything: the
+                # executor cannot start here, which is no schedule's fault
+                self._startup_deaths += 1
+                if self._startup_deaths > self.max_task_retries:
+                    raise RuntimeError(
+                        f"measurement workers for {self.spec!r} died during "
+                        f"start-up {self._startup_deaths} times in a row (last "
+                        f"exit code {w.process.exitcode})")
+            pending = dict(w.outstanding)
+            w.outstanding.clear()
+            self._revive(wid)
+            for tid, task in pending.items():
+                retries[tid] = retries.get(tid, 0) + 1
+                if retries[tid] > self.max_task_retries:
+                    # poison schedule: it keeps killing workers.  Running
+                    # it in the parent would defeat the isolation the pool
+                    # exists for (on the card, a sticky CUDA fault would
+                    # end the tuner), so it resolves to a marked-failed
+                    # record: zero GFLOPS, flagged noisy — training
+                    # down-weights it, search never prefers it, and the
+                    # batch completes
+                    self.failed_tasks += 1
+                    parts.setdefault(tid[1], []).append(
+                        failed_measurement())
+                else:
+                    backlog.append(tid)  # re-issued to the next free worker
+
+    def stats(self) -> Dict[str, Any]:
+        live = [w for w in self._workers if w is not None]
+        return {
+            "workers": self.n_workers,
+            "start_method": self.start_method,
+            "alive": sum(1 for w in live if w.process.is_alive()),
+            "ready": sum(1 for w in live if self._check_ready(w)),
+            "busy_workers": sum(1 for w in live if w.outstanding),
+            "tasks_done": self.tasks_done,
+            "respawns": self.respawns,
+            "failed_tasks": self.failed_tasks,
+            "hung_killed": self.hung_killed,
+            "startup_killed": self.startup_killed,
+            "last_batch_s": round(self.last_batch_s, 4),
+            # per worker: its pid, start-up seconds and what its executor
+            # reported when ready (the card executor: device and builds)
+            "worker_info": [
+                {"pid": w.process.pid, "startup_s": w.startup_s, **w.info}
+                if w is not None else None for w in self._workers],
+        }

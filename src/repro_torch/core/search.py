@@ -165,6 +165,15 @@ def _score_frontier(
     if surrogate is None:
         gs = _eval_batch(env, nests, budget)
         return list(range(len(gs))), gs
+    # measure-ahead: put the frontier's cache-cold children in flight on an
+    # async backend *before* ranking, so the surrogate's featurize+forward
+    # pass overlaps farm measurement and stage 2 collects instead of
+    # measuring cold.  Bounded by the client's in-flight window, and
+    # collection is charged as the same cache miss a blocking evaluation
+    # would be — search decisions (and tuned gflops) are identical, only
+    # the stalls shrink.
+    if getattr(env.backend, "can_measure_async", False):
+        env.submit_eval(nests)
     order = (surrogate.select(env, nests, root=root) if prune
              else list(range(len(nests))))
     gs = _eval_batch(env, [nests[i] for i in order], budget)
@@ -302,6 +311,19 @@ def greedy_search(
         ai = sub[0]
         apply_action(nest, env.actions[ai])
         seq.append(ai)
+        ahead = (getattr(env.backend, "can_prepare", False)
+                 or getattr(env.backend, "can_measure_async", False))
+        if ahead:
+            # compile-ahead + measure-ahead: the next step's root frontier
+            # (this node's children) goes in flight on the farm while the
+            # committed state evaluates below and the next expand() ranks
+            # its frontier — the search never stalls on work it could have
+            # started a step earlier.  The card executor has nothing to
+            # compile ahead (a lowered schedule is a block shape), so only
+            # a farm client takes this branch there
+            next_frontier = [child for _, child in _children(env, nest)]
+            env.prepare_eval(next_frontier)
+            env.submit_eval(next_frontier)
         cur_g = _eval(env, nest, budget)
         if cur_g > best_g:
             best_g, best_nest, best_seq = cur_g, nest.clone(), list(seq)
@@ -415,6 +437,18 @@ def beam_search(
                 nxt.extend(kids[:width])
             nxt.sort(key=lambda t: -t[0])
             frontier = [(n, s) for _, n, s in nxt[: width * width]]
+            if frontier and (getattr(env.backend, "can_prepare", False)
+                             or getattr(env.backend, "can_measure_async",
+                                        False)):
+                # compile-ahead + measure-ahead: the surviving beam's
+                # children are the next layer's frontier — put them in
+                # flight on the farm now, so the layer boundary overlaps
+                # with child generation and surrogate ranking instead of
+                # stalling on blocking round-trips
+                next_layer = [child for n, _ in frontier
+                              for _, child in _children(env, n)]
+                env.prepare_eval(next_layer)
+                env.submit_eval(next_layer)
     return _mk_result(f"beam{width}{order}", env, base, best_g, best_seq,
                       best_nest, budget, trace, cache0, scorer)
 

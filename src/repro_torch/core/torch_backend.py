@@ -25,12 +25,23 @@ Lowered functions are cached by ``(structure_key, vec_cap, route, dtype)`` in
 :class:`~repro_torch.core.measure.MeasuredBackend`; :meth:`run_once` ends in
 ``torch.cuda.synchronize()`` on the card.
 
+``measure="pool"`` times in spawned worker processes, one a card by
+default (:meth:`TorchBackend.pool_spec`), so a kernel fault poisons a
+worker's CUDA context, not the tuner's.  ``cache_dir`` (default: the
+``LOOPTUNE_KERNEL_CACHE`` environment variable) opens the persistent kernel
+store for the built kernel libraries (``kernels._build``): the workers, and
+every process given the same directory, run ``nvcc`` once per source.  A
+lowered schedule is only a block shape, cheap to make, so the executor
+has nothing to compile ahead (``can_prepare`` stays False) and the store
+holds libraries, not programs.
+
 TF32 is switched off (``torch.backends.cuda.matmul.allow_tf32 = False``)
 when an executor is built, so the ``peak()`` normaliser, the slab path's
 einsums and the oracles all run in full f32, as the kernel does.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -40,8 +51,12 @@ import torch
 from .cpu_backend import (INPUTS_CACHE_CAPACITY, VEC_CAP_DEFAULT,
                           _einsum_expr, _run_section, make_inputs)
 from .loop_ir import Contraction, LoopNest
-from .measure import MeasuredBackend, MeasurementPolicy
+from .measure import MeasuredBackend, MeasurementPolicy, PerWorker
 from .schedule_cache import LRUCache
+
+#: environment fallback for ``cache_dir`` (the JAX package's variable), so
+#: launchers that never grew a ``cache_dir`` flag still share the store
+CACHE_DIR_ENV = "LOOPTUNE_KERNEL_CACHE"
 
 # lowered functions hold only slab plans or a block shape; the bound keeps
 # the working set of a long tuning run in check all the same
@@ -235,6 +250,10 @@ class TorchBackend(MeasuredBackend):
     hand-written kernel on a CUDA device, ``"on"`` forces the route (on the
     CPU it runs the kernel's plain version), ``"off"`` always uses the slab
     path.
+
+    ``measure="pool"`` measures in spawned workers, one a card unless
+    ``pool_workers`` says otherwise (one on the CPU); ``cache_dir`` opens
+    the kernel store the kernel libraries build through.
     """
 
     name = "torch"
@@ -248,12 +267,25 @@ class TorchBackend(MeasuredBackend):
         kernel: str = "auto",
         policy: Optional[MeasurementPolicy] = None,
         measure: str = "inproc",
+        pool_workers: Optional[int] = None,
+        isolated: bool = False,
+        cache_dir: Optional[str] = None,
+        pool_timeout_s: Optional[float] = None,
     ):
         if kernel not in ("auto", "on", "off"):
             raise ValueError(f"kernel must be auto|on|off, got {kernel!r}")
         self.device = resolve_device(device)
-        super().__init__(policy=policy, repeats=repeats, measure=measure)
+        super().__init__(policy=policy, repeats=repeats, measure=measure,
+                         pool_workers=pool_workers, isolated=isolated,
+                         pool_timeout_s=pool_timeout_s)
         torch.backends.cuda.matmul.allow_tf32 = False
+        self.cache_dir = (cache_dir if cache_dir is not None
+                          else os.environ.get(CACHE_DIR_ENV) or None)
+        # the store the kernel libraries build through (None: build/kernels/
+        # only); opened here, it serves every later build of this process
+        from ..kernels import _build
+
+        self.store = _build.open_library_store(self.cache_dir)
         self.vec_cap = vec_cap
         self.seed = seed
         self.kernel = kernel
@@ -316,9 +348,39 @@ class TorchBackend(MeasuredBackend):
             torch.cuda.synchronize(self.device)
 
     def pool_spec(self) -> Tuple[str, Dict[str, Any], Optional[str]]:
-        # spawn, not fork: a forked child cannot use its parent's CUDA context
-        return ("torch", {"device": str(self.device), "vec_cap": self.vec_cap,
-                          "seed": self.seed, "kernel": self.kernel}, "spawn")
+        # spawn, not fork: a forked child cannot use its parent's CUDA
+        # context.  Worker wid runs on card wid % device_count, and shares
+        # the parent's kernel store
+        device: Any = str(self.device)
+        if self.device.type == "cuda":
+            device = PerWorker([f"cuda:{i}" for i in range(torch.cuda.device_count())])
+        return ("torch", {"device": device, "vec_cap": self.vec_cap,
+                          "seed": self.seed, "kernel": self.kernel,
+                          "cache_dir": self.cache_dir}, "spawn")
+
+    def default_pool_workers(self) -> Optional[int]:
+        """One worker a card (one on the CPU), not one a core."""
+        return torch.cuda.device_count() if self.device.type == "cuda" else 1
+
+    def worker_ready(self) -> Dict[str, Any]:
+        """A pool worker's start-up, paid before it reports ready: the CUDA
+        context on its card, and the kernel libraries of the routes it will
+        launch (from ``build/kernels/``, the store, or ``nvcc``)."""
+        from ..kernels import _build
+
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+            torch.empty(1, device=self.device)
+            if self.kernel != "off":
+                # (the package's ``matmul`` names the wrapper, not the module)
+                from ..kernels.matmul import _lib as matmul_library
+
+                matmul_library()
+            torch.cuda.synchronize(self.device)
+        return {"device": str(self.device),
+                "builds": {stem: {"source": info.get("source"),
+                                  "seconds": round(float(info["seconds"]), 3)}
+                           for stem, info in _build.BUILD_INFO.items()}}
 
     def peak(self) -> float:
         """Empirical peak GFLOPS of the device: best-of-5 timing of a 512^3
@@ -351,9 +413,12 @@ class TorchBackend(MeasuredBackend):
         """Lowering ledger in the shape the searches read:
         ``compile_misses`` = schedules lowered, ``compile_hits`` = lowered
         functions served from the cache."""
-        return {"compile_misses": self.compiles,
-                "compile_hits": self.kernels.hits,
-                "compile_s": round(self.compile_s, 4)}
+        out = {"compile_misses": self.compiles,
+               "compile_hits": self.kernels.hits,
+               "compile_s": round(self.compile_s, 4)}
+        if self.store is not None:
+            out["store"] = self.store.stats()
+        return out
 
     def stats(self) -> Dict[str, Any]:
         return {

@@ -112,6 +112,7 @@ class LoopTuner:
         episode_len: int = 10,
         featurizer=None,  # None -> env default (flat); set to match the act
         device="cuda",  # where the surrogate's network runs
+        cache_dir: Optional[str] = None,  # persistent kernel store
     ):
         if policy not in ("policy", "search", "default"):
             raise ValueError(
@@ -120,9 +121,15 @@ class LoopTuner:
         if surrogate not in ("auto", "off"):
             raise ValueError(f"surrogate must be 'auto' or 'off', got {surrogate!r}")
         self.act = act
-        # any registered backend name ("torch" | "tpu" | "numpy" | "auto")
-        # or a ready Backend instance — see core.backend.make_backend
-        self.backend = make_backend(backend)
+        # any registered backend name ("torch" | "tpu" | "numpy" | "auto" |
+        # "remote") or a ready Backend instance — see
+        # core.backend.make_backend.  cache_dir (the kernel store the card
+        # executor's libraries build through; the others tolerate it) can
+        # only be applied when the tuner builds the backend
+        self.backend = (make_backend(backend, cache_dir=cache_dir)
+                        if cache_dir is not None and isinstance(backend, str)
+                        else make_backend(backend))
+        self.cache_dir = cache_dir
         self.backend_kind = backend_name(self.backend)
         self.registry = registry if registry is not None else ScheduleRegistry()
         self.episode_len = episode_len
@@ -253,8 +260,17 @@ class LoopTuner:
         mfor = getattr(self.backend, "measurement_for", None)
         if mfor is not None and nest is not None:
             measurement = mfor(nest)
+        # stamp the *measuring* host: with a remote farm the timing ran on
+        # the farm's hardware, and the record key must say so — local
+        # current_hardware() (registry.put's default) only when the backend
+        # has no better answer (or the farm degraded to local fallback)
+        mhw = getattr(self.backend, "measured_hardware", None)
+        hardware = mhw() if mhw is not None else None
+        mbn = getattr(self.backend, "measured_backend_name", None)
+        backend = (mbn() if mbn is not None else None) or self.backend_kind
         self.registry.put(kernel, dims, gflops, list(actions), nest,
-                          dtype=dtype, backend=self.backend_kind,
+                          dtype=dtype, backend=backend,
+                          hardware=hardware,
                           measurement=measurement,
                           provenance=self.provenance)
         return dict(self.registry.get(kernel, dims, dtype))
@@ -292,6 +308,10 @@ class LoopTuner:
         else:  # default / untuned
             env.reset(0)
             best_g, actions, nest = env.current_gflops, [], env.nest.clone()
+        # bank speculative measure-ahead work: anything the searches put in
+        # flight on an async farm but never collected still lands in the
+        # shared cache (a later tune() call may hit it for free)
+        self.cache.drain_ahead()
         entry = self._record(kernel, bench, best_g, list(actions), nest, dtype)
         entry["tune_time_s"] = time.perf_counter() - t0
         entry["base_gflops"] = env.initial_gflops
@@ -359,6 +379,7 @@ class LoopTuner:
                                   peak=self.peak_override)
             best_g, names, nests = greedy_rollout_vec(
                 venv, self.act, benchmark_indices=list(range(len(chunk))))
+            self.cache.drain_ahead()
             per_bench_s = (time.perf_counter() - t0) / len(chunk)
             for i, bench in enumerate(chunk):
                 entry = self._record(kernel, bench, float(best_g[i]),
@@ -390,7 +411,11 @@ class LoopTuner:
             "surrogate": {"mode": self.surrogate,
                           **(self._scorer.stats()
                              if self._scorer is not None else {})},
+            # "measurement" is the historical name; "measure" aliases the
+            # same dict so farm counters (requests/retries/reconnects/
+            # degraded/farm_rtt under ["farm"]) read under either spelling
             "measurement": measurement,
+            "measure": measurement,
             "calibration": dict(self.calibration),
         }
 

@@ -8,6 +8,17 @@ followed through headers), and the flags, so an edited source or header
 rebuilds and an unchanged one loads the library already built.  Nothing
 here runs at import time: the CPU tests import every module on hosts with
 no ``nvcc``.
+
+With a kernel store open (:func:`open_library_store`, which the card
+executor calls for its ``cache_dir``), a library missing from the build
+directory is loaded from the store when another process already built it,
+and otherwise built by exactly one process across all that share the
+store: the builder holds the store's build lock, the others wait for its
+artifact, and each ``nvcc`` run is one line of the store's
+``compiles.log``.  N spawned pool workers, or N hosts on one shared
+directory, so run ``nvcc`` once per source.  ``REPRO_TORCH_BUILD_DIR``
+moves the build directory (a process that must not find the libraries
+another process left in ``build/kernels/``).
 """
 from __future__ import annotations
 
@@ -25,13 +36,21 @@ from typing import Callable, Dict, List, Optional, Union
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-#: per source: {"seconds": build time (0.0 when loaded from build/), "log": ptxas output}
+#: per source: {"seconds": nvcc's time (0.0 when it did not run), "log": ptxas
+#: output, "source": "nvcc", "store" (loaded from the kernel store) or
+#: "local" (found in the build directory)}
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
+#: the kernel store builds go through (None: build locally)
+_STORE = None
+#: the store's waits are sized to nvcc, which takes up to a minute a source
+STORE_WAIT_S = 600.0
+STORE_STALE_LOCK_S = 900.0
 
 
 def nvcc() -> str:
@@ -43,6 +62,52 @@ def nvcc() -> str:
         return str(cand)
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a host "
                        "with the CUDA toolkit (PATH or CUDA_HOME)")
+
+
+def build_dir() -> Path:
+    """Where libraries are built: ``$REPRO_TORCH_BUILD_DIR``, else
+    ``build/kernels/`` at the repository root."""
+    moved = os.environ.get(BUILD_DIR_ENV)
+    return Path(moved) if moved else BUILD_DIR
+
+
+_NVCC_VERSION: List[str] = []
+
+
+def fingerprint() -> Dict[str, str]:
+    """What a built library depends on besides its source, headers and
+    flags: the torch, CUDA and ``nvcc`` versions and the card's compute
+    capability.  It initialises no CUDA on a host without a card."""
+    import torch
+
+    if not _NVCC_VERSION:
+        try:
+            out = subprocess.run([nvcc(), "--version"], capture_output=True,
+                                 text=True, check=True).stdout
+            _NVCC_VERSION.append(out.strip().splitlines()[-1])
+        except (RuntimeError, OSError, subprocess.CalledProcessError, IndexError):
+            _NVCC_VERSION.append("none")
+    capability = "none"
+    if torch.cuda.is_available():
+        capability = "sm_{}{}".format(*torch.cuda.get_device_capability(0))
+    return {"torch": torch.__version__, "cuda": str(torch.version.cuda),
+            "nvcc": _NVCC_VERSION[0], "capability": capability}
+
+
+def open_library_store(root: Optional[str]):
+    """Open the kernel store at ``root`` and build through it from now on
+    in this process; returns the store, or None (no root, or a root that
+    degraded: builds stay local)."""
+    global _STORE
+    from ..core.kernel_store import open_store
+
+    if not root:
+        return None
+    store = open_store(root, fingerprint(), wait_timeout_s=STORE_WAIT_S,
+                       stale_lock_s=STORE_STALE_LOCK_S)
+    if store is not None:
+        _STORE = store
+    return store
 
 
 def _source(item: Union[str, Path]) -> Path:
@@ -79,20 +144,18 @@ def _lib_path(src: Path) -> Path:
     for header in _headers(src):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(item: Union[str, Path]) -> Path:
-    """Compile ``csrc/<item>.cu`` (or the source file ``item``) unless the
-    library for this source and these flags exists; returns its path.
-    ``BUILD_INFO`` is keyed by the source's stem."""
-    src = _source(item)
-    out = _lib_path(src)
-    if out.exists():
-        BUILD_INFO.setdefault(src.stem, {"seconds": 0.0, "log": ""})
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+def store_key(src: Path, out: Path) -> tuple:
+    """The kernel store's key of a library: the source's stem and the build
+    hash of :func:`_lib_path` (sources, headers and flags)."""
+    return ("cuda-library", src.stem, out.stem.rsplit("-", 1)[-1])
+
+
+def _compile(src: Path, out: Path) -> float:
+    """Run ``nvcc`` on ``src`` into ``out``; returns its seconds."""
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
@@ -100,8 +163,52 @@ def build(item: Union[str, Path]) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent process loads a whole file
-    BUILD_INFO[src.stem] = {"seconds": time.perf_counter() - t0,
-                            "log": proc.stderr}
+    seconds = time.perf_counter() - t0
+    BUILD_INFO[src.stem] = {"seconds": seconds, "log": proc.stderr, "source": "nvcc"}
+    return seconds
+
+
+def _materialise(src: Path, out: Path, data: bytes) -> None:
+    """Write a library the store held into the build directory."""
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    tmp.write_bytes(data)
+    os.replace(tmp, out)
+    BUILD_INFO[src.stem] = {"seconds": 0.0, "log": "", "source": "store"}
+
+
+def build(item: Union[str, Path]) -> Path:
+    """Compile ``csrc/<item>.cu`` (or the source file ``item``) unless the
+    library for this source and these flags exists; returns its path.
+    Through an open kernel store, a library another process built is
+    loaded from the store instead, and a cold one is built by one process
+    only.  ``BUILD_INFO`` is keyed by the source's stem."""
+    src = _source(item)
+    out = _lib_path(src)
+    if out.exists():
+        BUILD_INFO.setdefault(src.stem, {"seconds": 0.0, "log": "", "source": "local"})
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    store = _STORE
+    if store is None:
+        _compile(src, out)
+        return out
+    key = store_key(src, out)
+    data = store.load(key)
+    if data is None and store.acquire_build_lock(key):
+        try:
+            data = store.load(key)  # a builder may have finished in between
+            if data is None:
+                store.log_compile(key, _compile(src, out))
+                store.store(key, out.read_bytes())
+                return out
+        finally:
+            store.release_build_lock(key)
+    if data is None:
+        data = store.wait_for(key)
+    if data is None:  # the builder died or the wait timed out: build here
+        store.log_compile(key, _compile(src, out))
+        return out
+    _materialise(src, out, data)
     return out
 
 

@@ -26,9 +26,16 @@ journal (default ``<registry>.journal.jsonl``, the JAX package's format)
 the moment each contraction finishes, and the registry flushes
 (lock-merge-save) at the same granularity — so a kill loses at most the
 contraction in flight.  ``--resume`` reloads the journal and re-tunes only
-the unfinished contractions.  The measurement farm (``--farm``,
-``--fleet``) and the persistent kernel store (``--kernel-cache``) are not
-part of the port yet and raise.
+the unfinished contractions.
+
+``--farm HOST:PORT`` times on a measurement farm
+(``repro_torch.launch.measure_farm``, or the JAX package's: the wire is
+the same); ``--backend`` then names the local fallback a client degrades
+to when the farm is unreachable, which for ``torch`` raises where there is
+no card.  ``--fleet N`` runs N tuner clients against that one farm.
+``--kernel-cache`` (default ``<registry>.kernels``, ``off`` disables)
+is the persistent kernel store the card executor's libraries build
+through: a second run, or a second process, runs no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ import argparse
 import json
 import os
 import sys
+import threading
 import time
 import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -47,11 +55,9 @@ from repro_torch.configs import get_config
 from repro_torch.core.backend import make_backend
 from repro_torch.core.loop_ir import matmul_benchmark
 from repro_torch.core.registry import ScheduleRegistry
+from repro_torch.core.rl_common import epsilon_ladder
 from repro_torch.core.torch_backend import resolve_device
 from repro_torch.core.tuner import LoopTuner
-
-NOT_PORTED = ("the measurement farm and the kernel store are not ported yet "
-              "(ROADMAP A4)")
 
 
 class TuneJournal:
@@ -245,6 +251,137 @@ def tune_records(
     return [e for e in entries if e is not None], len(kept) - len(todo)
 
 
+def _device_kwargs(backend: Any, device) -> Dict[str, Any]:
+    """The card executor's device: it times on the harvest's device."""
+    return {"device": device} if backend in ("torch", "auto") else {}
+
+
+def tune_records_fleet(
+    kept: Sequence[Dict[str, Any]],
+    *,
+    n_clients: int,
+    farm: str,
+    backend: str = "torch",
+    policy: str = "search",
+    checkpoint: Optional[str] = None,
+    registry_path: Optional[str] = None,
+    budget_s: float = 4.0,
+    eval_budget: Optional[int] = None,
+    journal: Optional[TuneJournal] = None,
+    resume: bool = False,
+    kernel_cache: Optional[str] = None,
+    device="cuda",
+) -> Tuple[List[Dict[str, Any]], int, List[Dict[str, Any]]]:
+    """``--fleet N``: N concurrent tuner clients against one farm.
+
+    The Ape-X scale-out shape applied to tuning: the fleet runs N tuner
+    clients (each its own :class:`LoopTuner` + pipelined farm connection,
+    ranked on the ε ladder for identity/telemetry) against one measurement
+    farm.  Contractions shard round-robin across clients, so every client
+    keeps its own pipeline full — frontier generation on the client
+    overlapping ticketed measurement on the farm — and the farm's fair
+    queue interleaves their batches.  ``backend`` is each client's local
+    fallback (with ``device`` for the card executor).
+
+    Crash safety is the single-client story shared: all clients append to
+    one :class:`TuneJournal` (line-atomic, lock-serialized) and flush
+    per-client :class:`ScheduleRegistry` instances to the same path
+    (flock-merged), so a kill loses at most one contraction per client.
+    ``budget_s`` is the same *total* a single client would spend, so the
+    fleet finishes ~N× sooner rather than spending N× more.
+
+    Returns ``(entries aligned with kept, n_skipped, per-client reports)``.
+    """
+    kept = list(kept)
+    keys = [TuneJournal.key_of(r["m"], r["k"], r["n"], r["dtype"])
+            for r in kept]
+    done: Dict[str, Dict[str, Any]] = {}
+    if journal is not None:
+        if resume:
+            done = journal.load()
+        else:
+            journal.reset()
+    todo = [i for i, k in enumerate(keys) if k not in done]
+    entries: List[Optional[Dict[str, Any]]] = [
+        None if k not in done else dict(done[k], resumed=True)
+        for k in keys]
+    if not todo:
+        return [e for e in entries if e is not None], len(kept), []
+
+    total_share = sum(r["flop_share"] for r in kept) or 1.0
+    shards = [todo[c::n_clients] for c in range(n_clients)]
+    shards = [s for s in shards if s]
+    eps = epsilon_ladder(max(len(shards), 1))
+    lock = threading.Lock()
+    client_reports: List[Optional[Dict[str, Any]]] = [None] * len(shards)
+    errors: List[BaseException] = []
+
+    def run_client(c: int, shard: List[int]) -> None:
+        t0 = time.perf_counter()
+        # per-client farm connection: its own fair-queue identity, its own
+        # pipelined submit/collect window, its own degradation state
+        be = make_backend("remote", addr=farm, fallback=backend,
+                          fallback_kwargs=_device_kwargs(backend, device),
+                          client_id=f"tune-{c}")
+        registry = ScheduleRegistry(registry_path)
+        try:
+            if checkpoint is not None:
+                tuner = LoopTuner.from_checkpoint(checkpoint, backend=be,
+                                                  registry=registry,
+                                                  cache_dir=kernel_cache,
+                                                  device=device)
+            else:
+                tuner = LoopTuner(policy=policy, backend=be, registry=registry,
+                                  cache_dir=kernel_cache, device=device)
+            shard_share = sum(kept[i]["flop_share"] for i in shard) or 1.0
+
+            def on_entry(j: int, entry: Dict[str, Any]) -> None:
+                i = shard[j]
+                with lock:
+                    entries[i] = entry
+                    if journal is not None:
+                        journal.append(keys[i], entry)
+                if registry_path:
+                    registry.flush(registry_path)
+
+            tuner.tune_many(
+                [matmul_benchmark(kept[i]["m"], kept[i]["k"], kept[i]["n"])
+                 for i in shard],
+                kernel="mm",
+                weights=[kept[i]["flop_share"] / shard_share for i in shard],
+                dtypes=[kept[i]["dtype"] for i in shard],
+                budget_s=budget_s * (shard_share / total_share),
+                eval_budget=(max(len(shard),
+                                 int(round(eval_budget * shard_share
+                                           / total_share)))
+                             if eval_budget is not None else None),
+                on_entry=on_entry)
+            client_reports[c] = {
+                "client": be.client_id,
+                "eps": round(float(eps[c]), 4),
+                "n_tuned": len(shard),
+                "wall_s": round(time.perf_counter() - t0, 3),
+                "farm": be.farm_stats(),
+            }
+        except BaseException as e:  # surfaced to the caller, not swallowed
+            with lock:
+                errors.append(e)
+        finally:
+            be.close()
+
+    threads = [threading.Thread(target=run_client, args=(c, shard),
+                                name=f"tune-fleet-{c}", daemon=True)
+               for c, shard in enumerate(shards)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return ([e for e in entries if e is not None], len(kept) - len(todo),
+            [r for r in client_reports if r is not None])
+
+
 def tune_model(
     cfg_or_arch,
     *,
@@ -276,29 +413,44 @@ def tune_model(
     share — the contraction that dominates gets the budget.  The harvest,
     the card executor (``backend="torch"``) and the policy network of a
     ``checkpoint`` run on ``device`` (``"cuda"`` raises without a card).
-    ``kernel_cache``, ``farm`` and ``fleet > 1`` raise: the kernel store
-    and the measurement farm are not ported.  Returns a report dict
-    (harvested/tuned counts, per-entry summaries, coverage of the executed
-    FLOPs).
+    ``kernel_cache`` names the persistent kernel store dir the card
+    executor's libraries build through.  ``farm`` times on a measurement
+    farm (``backend`` becomes the local fallback), ``fleet > 1`` with
+    N clients against it.  Returns a report dict (harvested/tuned counts,
+    per-entry summaries, coverage of the executed FLOPs, the farm and fleet
+    counters).
     """
-    if farm is not None or fleet > 1 or kernel_cache is not None:
-        raise NotImplementedError(f"--farm, --fleet and --kernel-cache: {NOT_PORTED}")
+    if fleet > 1 and (farm is None or tuner is not None):
+        raise ValueError("--fleet N needs --farm (N clients share one "
+                         "measurement farm) and builds its own per-client "
+                         "tuners")
     t0 = time.perf_counter()
     cfg = get_config(cfg_or_arch) if isinstance(cfg_or_arch, str) else cfg_or_arch
     if smoke and not cfg.name.endswith("-smoke"):
         cfg = cfg.smoke()
     if registry is None:
         registry = ScheduleRegistry(registry_path)
-    if tuner is None:
-        # the card executor times on the harvest's device
-        tune_backend = (make_backend(backend, device=device)
-                        if backend in ("torch", "auto") else backend)
+    if tuner is None and fleet <= 1:
+        if farm is not None:
+            # timings come from a remote measurement farm; ``backend``
+            # becomes the local fallback the client degrades to if the farm
+            # is unreachable (a tune is never failed by the farm)
+            tune_backend = make_backend("remote", addr=farm, fallback=backend,
+                                        fallback_kwargs=_device_kwargs(backend, device))
+        elif backend in ("torch", "auto"):
+            # the card executor times on the harvest's device, its
+            # libraries built through the kernel store
+            tune_backend = make_backend(backend, device=device, cache_dir=kernel_cache)
+        else:
+            tune_backend = backend
         if checkpoint is not None:
             tuner = LoopTuner.from_checkpoint(checkpoint, backend=tune_backend,
-                                              registry=registry, device=device)
+                                              registry=registry, device=device,
+                                              cache_dir=kernel_cache)
         else:
             tuner = LoopTuner(policy=policy, backend=tune_backend,
-                              registry=registry, device=device)
+                              registry=registry, device=device,
+                              cache_dir=kernel_cache)
 
     records = harvest_model(cfg, batch=batch, prompt_len=prompt_len,
                             max_len=max_len, kinds=kinds, device=device)
@@ -306,15 +458,41 @@ def tune_model(
     share_kept = sum(r["flop_share"] for r in kept)
 
     journal = TuneJournal(journal_path) if journal_path else None
-    entries, n_skipped = tune_records(
-        kept, tuner=tuner, registry=registry, registry_path=registry_path,
-        budget_s=budget_s, eval_budget=eval_budget,
-        journal=journal, resume=resume)
+    fleet_report: Optional[Dict[str, Any]] = None
+    if fleet > 1:
+        entries, n_skipped, clients = tune_records_fleet(
+            kept, n_clients=fleet, farm=farm, backend=backend,
+            policy=policy, checkpoint=checkpoint,
+            registry_path=registry_path, budget_s=budget_s,
+            eval_budget=eval_budget, journal=journal, resume=resume,
+            kernel_cache=kernel_cache, device=device)
+        # fleet-mode flushes land per client; re-read so report counts and
+        # a final save reflect the merged table
+        if registry_path and os.path.exists(registry_path):
+            registry = ScheduleRegistry(registry_path)
+        fleet_report = {
+            "n_clients": fleet,
+            "clients": clients,
+            # farm totals across the fleet: the aggregate pipelining view
+            "tickets_submitted": sum(
+                c["farm"].get("tickets_submitted", 0) for c in clients),
+            "tickets_collected": sum(
+                c["farm"].get("tickets_collected", 0) for c in clients),
+            "tickets_resubmitted": sum(
+                c["farm"].get("tickets_resubmitted", 0) for c in clients),
+        }
+    else:
+        entries, n_skipped = tune_records(
+            kept, tuner=tuner, registry=registry, registry_path=registry_path,
+            budget_s=budget_s, eval_budget=eval_budget,
+            journal=journal, resume=resume)
 
     path = registry_path or registry.path
     if path:
         registry.flush(path)
-    compile_stats = getattr(tuner.backend, "compile_stats", None)
+    tb = tuner.backend if tuner is not None else None
+    compile_stats = getattr(tb, "compile_stats", None)
+    farm_stats = getattr(tb, "farm_stats", None)
     return {
         "arch": cfg.name,
         "kinds": list(kinds),
@@ -328,10 +506,10 @@ def tune_model(
         "flop_share_covered": share_kept,
         "registry_size": len(registry),
         "registry_path": registry_path or registry.path,
-        "kernel_cache": None,
+        "kernel_cache": kernel_cache,
         "compile": compile_stats() if compile_stats is not None else None,
-        "farm": None,
-        "fleet": None,
+        "farm": farm_stats() if farm_stats is not None else None,
+        "fleet": fleet_report,
         "tune_time_s": round(time.perf_counter() - t0, 2),
         "contractions": [
             {"m": r["m"], "k": r["k"], "n": r["n"], "dtype": r["dtype"],
@@ -364,12 +542,18 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--max-len", type=int, default=64)
     ap.add_argument("--kernel-cache", default=None,
-                    help="persistent kernel store dir: not ported (only "
-                         "'off', the default, is accepted)")
+                    help="persistent kernel store dir for the card "
+                         "executor's libraries (default: <registry>.kernels; "
+                         "'off' disables)")
     ap.add_argument("--farm", default=None, metavar="HOST:PORT",
-                    help="measure on a remote farm: not ported")
+                    help="measure on a remote farm (repro_torch.launch."
+                         "measure_farm); --backend becomes the local "
+                         "fallback if the farm is unreachable")
     ap.add_argument("--fleet", type=int, default=1, metavar="N",
-                    help="N tuner clients against one --farm: not ported")
+                    help="run N concurrent tuner clients against the one "
+                         "--farm (contractions shard round-robin; each "
+                         "client pipelines ticketed measurements on its "
+                         "own connection; requires --farm)")
     ap.add_argument("--journal", default=None,
                     help="per-contraction JSONL progress ledger (default: "
                          "<registry>.journal.jsonl; 'off' disables)")
@@ -378,8 +562,18 @@ def main(argv=None) -> int:
                          "a crash/kill: re-tunes only unfinished work)")
     args = ap.parse_args(argv)
 
-    # the journal lives beside the registry by default: session state and
-    # its output travel together
+    # the kernel store lives beside the registry by default: the libraries
+    # and the schedules they serve travel (and get wiped) together
+    kernel_cache: Optional[str]
+    if args.kernel_cache == "off":
+        kernel_cache = None
+    elif args.kernel_cache is None:
+        kernel_cache = args.registry + ".kernels"
+    else:
+        kernel_cache = args.kernel_cache
+
+    # the journal lives beside the registry by default, same reasoning as
+    # the kernel store: session state and its output travel together
     journal_path: Optional[str]
     if args.journal == "off":
         journal_path = None
@@ -393,9 +587,7 @@ def main(argv=None) -> int:
         backend=args.backend, budget_s=args.budget_s,
         eval_budget=args.eval_budget, max_contractions=args.max_contractions,
         smoke=not args.full, batch=args.batch, prompt_len=args.prompt_len,
-        max_len=args.max_len,
-        kernel_cache=None if args.kernel_cache == "off" else args.kernel_cache,
-        farm=args.farm, fleet=args.fleet, journal_path=journal_path,
+        max_len=args.max_len, kernel_cache=kernel_cache, farm=args.farm, fleet=args.fleet, journal_path=journal_path,
         resume=args.resume, device=args.device)
     print("[tune]", json.dumps(report, indent=1), flush=True)
     return 0

@@ -115,8 +115,17 @@ def test_card_executor_without_a_card_raises():
 
 
 def test_pool_measurement_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        TorchBackend(device="cpu", measure="pool")
+    # the name is historical: measure="pool" is ported.  The executor builds
+    # without a worker; its pool spawns (a forked child cannot use a CUDA
+    # context), one worker on the CPU, at the first measurement
+    be = TorchBackend(device="cpu", measure="pool")
+    assert be.measure_settings()["mode"] == "pool" and be._pool is None
+    spec, kwargs, method = be.pool_spec()
+    assert (spec, kwargs["device"], method) == ("torch", "cpu", "spawn")
+    assert be.default_pool_workers() == 1
+    be.close()
+    with pytest.raises(ValueError):
+        TorchBackend(device="cpu", measure="farm")
 
 
 def test_env_rewards_match_on_the_analytical_backend():

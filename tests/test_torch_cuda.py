@@ -724,3 +724,24 @@ def test_tune_model_then_serve_from_its_file_on_the_card(tmp_path):
                          registry=reg)
     serving = summary["registry"]["serving"]
     assert serving["misses"] == 0 and serving["routed"] == serving["hits"] > 0
+
+
+@pytest.mark.cuda
+def test_pool_measures_in_a_spawned_worker_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.core import LoopNest, make_backend, matmul_benchmark
+    from repro_torch.kernels.matmul import matmul as wrapper
+
+    nest = LoopNest(matmul_benchmark(4, 2048, 2048))
+    be = make_backend("torch", measure="pool")
+    before = wrapper.launches
+    try:
+        m = be.measure(nest)
+        pool = be.measure_stats()["pool"]
+    finally:
+        be.close()
+    assert m.gflops > 0 and m.worker == 0 and not m.remeasured
+    assert pool["start_method"] == "spawn" and pool["workers"] == torch.cuda.device_count()
+    assert pool["worker_info"][0]["device"] == "cuda:0"
+    assert wrapper.launches == before  # the parent launched nothing

@@ -5,12 +5,15 @@ smoke config holds the reference's dense contractions with equal keys and
 counts and the reference's FLOP shares renormalised over them (1e-12);
 ``tune_model`` persists entries the registry finds; resume skips journaled
 work and a crash mid-tune leaves one journal line; ``serve --tune`` serves
-from the table it tuned; and the options the port does not have raise.
+from the table it tuned; ``--farm`` (unreachable: degraded to the
+fallback) and ``--kernel-cache`` run, and ``--fleet`` without ``--farm``
+raises.
 """
 import json
 import os
 import subprocess
 import sys
+import warnings
 
 import pytest
 import torch
@@ -227,11 +230,30 @@ def test_serve_tune_serves_from_the_table_it_tuned(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra", [["--farm", "127.0.0.1:1"], ["--fleet", "2"],
                                    ["--kernel-cache", "kdir"]])
-def test_options_the_port_does_not_have_raise(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        TTUNE.main(["--arch", "musicgen-large", "--registry", str(tmp_path / "r.json"),
-                    "--backend", "tpu", "--device", "cpu", *extra])
-    assert not (tmp_path / "r.json").exists()
+def test_options_the_port_does_not_have_raise(tmp_path, extra, capsys):
+    # the name is historical: the three options are ported.  Only --fleet
+    # without --farm still raises, as in the JAX package; an unreachable
+    # farm degrades to the --backend fallback with one warning; the analytical
+    # backend opens no kernel store
+    argv = ["--arch", "musicgen-large", "--registry", str(tmp_path / "r.json"),
+            "--backend", "tpu", "--device", "cpu", "--budget-s", "0.5",
+            "--batch", "2", "--prompt-len", "8", "--max-len", "16", *extra]
+    if extra[0] == "--fleet":
+        with pytest.raises(ValueError, match="--fleet N needs --farm"):
+            TTUNE.main(argv)
+        assert not (tmp_path / "r.json").exists()
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        assert TTUNE.main(argv) == 0
+    out = capsys.readouterr().out
+    report = json.loads(out[out.index("{"):])
+    assert report["n_tuned"] == 8 and len(ScheduleRegistry(str(tmp_path / "r.json"))) == 8
+    if extra[0] == "--farm":
+        assert report["farm"]["degradations"] == 1 and report["farm"]["requests"] == 0
+        assert sum("unavailable" in str(w.message) for w in caught) == 1
+    else:
+        assert report["kernel_cache"] == "kdir" and not (tmp_path / "kdir").exists()
 
 
 def test_kernel_cache_off_is_no_cache(tmp_path):
