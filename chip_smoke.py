@@ -29,8 +29,10 @@ line with its seconds:
    the JAX kernel tests' shapes, windows, softcaps, bf16, head dim 128 with
    GQA groups of 4, the tensor-core route's bf16 cases at head dims 64 and
    128 (ragged S != T, GQA 4, blind rows, softcaps, every kv tile, a
-   strided q view), the same cases in f32 on the SIMT route, and the two
-   models' own shapes, each case with its route and the kernel's own launch
+   strided q view) and at the zoo's 96 and 256 (GQA 5 and 8 as well), the
+   same cases in f32 on the SIMT route, and the models' own shapes (with
+   llama-3.2-vision's 1024 x 1600 cross-attention), each case with its
+   route and the kernel's own launch
    plan held equal to ``launch_plan``; then two mutation checks: the kernel
    with the accumulator's alpha rescale dropped, on each route, must put
    more than half of that route's multi-tile cases outside their limit;
@@ -139,6 +141,18 @@ line with its seconds:
    paths' expert choices are recorded and compared; and a mutation check:
    the scan kernel with the decay of each staged tile's first token
    dropped must fail the sharp check and the mamba_scan cases;
+   zoo — the fifth path: the other seven architectures at their published
+   widths, bf16, random weights from a seed, one at a time (llama4-scout
+   cut to two whole 4-layer periods): 4 requests of a 1024-token prompt +
+   16, one wave, ``registry=None``, through ``serve_once`` (through its
+   loop with a seeded (4, 1600, 4096) encoder added to the prefill inputs
+   for llama-3.2-vision, which ``serve_once`` refuses): every
+   prefill attention, cross-attention included, launches the flash kernel,
+   and no other kernel runs.  Per model: its parameter count, one traced
+   prefill wave and decode step, decode of token 1025 against ``forward``
+   over the 1025 tokens (the MoE models with every token routed to all
+   experts and at a capacity where nothing drops: llama4 in bf16, olmoe with
+   its weights widened to f32), finite logits and peak memory under 80 GB;
 6. timing — per contraction, in f32 on the SIMT route: the kernel at its
    tuned block and at 128^3 (each with its TFLOP/s), the plain version,
    ``torch.matmul`` (the library yardstick only), and the bound (bytes over
@@ -149,7 +163,8 @@ line with its seconds:
    row names its ``device_ms_source``), TFLOP/s and the bf16
    bound (bytes vs operations at 989 TFLOP/s);
    then flash attention at the models' prefill shapes, bf16 and f32 (the
-   SIMT route), against its plain version, ``scaled_dot_product_attention``
+   SIMT route), and at phi3-mini's (D = 96) and gemma3-12b's (D = 256) in
+   bf16, against its plain version, ``scaled_dot_product_attention``
    (yardstick only) and its bound, each with a block sweep;
    then the scan kernel at rwkv6-7b's prefill shape against its plain
    version and its bound (bytes vs the 4N^2 FLOP a token that any form of
@@ -166,8 +181,9 @@ before the actor-critic phase and read after it, before the fleet path and
 read after its farm phase (its workers' launches, counted by their spies,
 added to the parent's), set to 0 before the
 model's ``tune_model`` and read right after its serve run, and set to 0
-before rwkv6-7b's and jamba's serve runs and read right after each; each
-path must launch its own kernels and no other.
+before rwkv6-7b's and jamba's serve runs and each zoo model's and read
+right after each (path zoo sums its seven); each path must launch its own
+kernels and no other.
 Launches made to
 compare, trace, check or time do not count.  Per-case detail goes to
 ``chiprun_out/chip_smoke_cases.jsonl``.  Any failure exits non-zero before
@@ -245,6 +261,54 @@ MAMBA_LAYER_LIMIT = 2e-3  # one f32 layer, prefill vs recurrence: tests/test_moe
 JAMBA_RECURRENCE_LIMIT = 0.11
 MAMBA_MUTANT_LINE = "const float decay = ex2_approx(dtv * a2[n]);  // e^{dt a_n}"
 SFU_EXP_PER_CLOCK = 16  # exponentials a clock per SM (sm_90's MUFU rate)
+# path zoo: the other seven architectures at their published widths, bf16,
+# random weights from a seed, one at a time; llama4-scout cut to two whole
+# 4-layer periods (its 48 layers need 215.5 GB).  Per model: (layers run or
+# None for all, the parameters at that depth, flash launches a prefill wave,
+# the MoE capacity factor at which nothing drops for the decode check)
+ZOO = {
+    "olmoe-1b-7b": (None, 6_919_100_416, 16, 8.0),        # 64 experts / top-8
+    "gemma2-27b": (None, 27_227_128_320, 46, None),
+    "command-r-35b": (None, 30_283_538_432, 40, None),
+    "llama4-scout-17b-a16e": (8, 19_685_790_720, 8, 16.0),  # 16 experts / top-1
+    "phi3-mini-3.8b": (None, 3_821_079_552, 32, None),    # D = 96
+    "gemma3-12b": (None, 11_765_788_416, 48, None),       # D = 256
+    "llama-3.2-vision-11b": (None, 10_110_734_336, 48, None),  # 40 self + 8 cross
+}
+# one wave of 4 requests: a 1024-token prompt + 16 generated each; gemma3's
+# 1024-token window sits below max_len, so its decode writes the ring past it
+ZOO_SERVE = dict(requests=4, batch=4, prompt_len=1024, gen_len=16, max_len=1040)
+# decode of token 1025 against forward over the 1025 tokens, max abs diff /
+# max abs of the logits, bf16 at full width: about twice the first reading
+# with the correct kernel (in brackets, on an H100 SXM at 700 W).  The MoE
+# models run it with every token routed to all experts ("dense_routing": no
+# discrete choice for bf16 noise to flip) and at the capacity above
+# ("capacity_*").  olmoe's top-8 of 64 flips so many routings in bf16 (its
+# combine adds eight bf16 terms a token in atomic order, so the flips vary
+# run to run) that its bf16 capacity reading decorrelated the logits (0.57
+# to 1.15 over three runs) and could hold nothing: its capacity check runs
+# on the same weights widened to f32 ("f32_capacity_8" [1.9e-5, 1.35e-5]).
+# Each model runs exactly the checks its limits name, in this order
+ZOO_LIMIT = {"olmoe-1b-7b": {"dense_routing": 0.21,                        # [0.107, 0.116]
+                             "f32_capacity_8": 4e-5},
+             "gemma2-27b": {"served": 0.13},                              # [0.0626]
+             "command-r-35b": {"served": 0.011},                          # [0.0055]
+             "llama4-scout-17b-a16e": {"capacity_16": 0.028,              # [0.0140]
+                                       "dense_routing": 0.067},           # [0.0336]
+             "phi3-mini-3.8b": {"served": 0.04},                          # [0.0203]
+             "gemma3-12b": {"served": 0.001},                             # [0.000507]
+             "llama-3.2-vision-11b": {"served": 0.042}}                   # [0.0212]
+CARD_BYTES = 80e9  # one H100's device memory
+FA_PHI3_SHAPE = (4, 1024, 32, 32, 96)   # (B, S, H, HKV, D) of phi3-mini's prefill attention
+FA_GEMMA3_SHAPE = (4, 1024, 16, 8, 256)  # gemma3-12b's
+# the other prefill attentions of path zoo, (B, S, H, HKV, D), window and
+# softcap as the models' layers pass them to the kernel
+FA_ZOO_PREFILL = [((4, 1024, 16, 16, 128), None, None),  # olmoe-1b-7b
+                  ((4, 1024, 32, 16, 128), None, 50.0),  # gemma2-27b, global layers
+                  ((4, 1024, 32, 16, 128), 4096, 50.0),  # gemma2-27b, local layers
+                  ((4, 1024, 64, 8, 128), None, None),   # command-r-35b, GQA 8
+                  ((4, 1024, 40, 8, 128), 8192, None),   # llama4-scout, local layers, GQA 5
+                  ((4, 1024, 16, 8, 256), 1024, None)]   # gemma3-12b, local layers
 FLASH_SWEEP = [(64, 64), (128, 64), (64, 32), (128, 32), (64, 16), (128, 16)]  # other "fa" blocks, timed
 FLASH_MUTANT_LINE = "acc[c][i] *= (i & 2) ? alpha1 : alpha0;  // the accumulator's alpha rescale"
 SIMT_FLASH_MUTANT_LINE = "acc[i][c] *= alpha;  // the SIMT accumulator's alpha rescale"
@@ -502,17 +566,25 @@ def attention_cases() -> list:
         cases += [(1, 70, 70, 8, 2, 128, True, None, None, 128, 128, dt, False),
                   (2, 45, 45, 4, 1, 128, True, None, None, 64, 32, dt, False),
                   (1, 33, 50, 4, 1, 128, False, None, None, 16, 16, dt, False)]
-    cases += TC_CASES
-    cases += [case[:11] + (torch.float32,) + case[12:] for case in TC_CASES]  # on route simt
+    cases += TC_CASES + ZOO_CASES
+    cases += [case[:11] + (torch.float32,) + case[12:]
+              for case in TC_CASES + ZOO_CASES]  # on route simt
     b, s, h, d = FA_SHAPE
     cases.append((b, s, s, h, h, d, True, None, None, 128, 128, torch.bfloat16, False))
-    b, s, h, hkv, d = FA_JAMBA_SHAPE
-    cases.append((b, s, s, h, hkv, d, True, None, None, 128, 128, torch.bfloat16, False))
+    for b, s, h, hkv, d in (FA_JAMBA_SHAPE, FA_PHI3_SHAPE, FA_GEMMA3_SHAPE):
+        cases.append((b, s, s, h, hkv, d, True, None, None, 128, 128, torch.bfloat16, False))
+    for (b, s, h, hkv, d), window, softcap in FA_ZOO_PREFILL:
+        cases.append((b, s, s, h, hkv, d, True, window, softcap, 128, 128, torch.bfloat16,
+                      False))
+    # llama-3.2-vision's cross-attention: 1024 queries over 1600 encoder
+    # tokens, non-causal, T off any kv tile
+    cases.append((4, 1024, 1600, 32, 8, 128, False, None, None, 128, 128, torch.bfloat16,
+                  False))
     return cases
 
 
 # bf16 at D = 64 and 128, the tensor-core route: S and T off multiples of 64
-# and S != T, GQA 4, a window with rows that see no key, softcaps, a block
+# and S != T, GQA 4, 5 and 8, a window with rows that see no key, softcaps, a block
 # for each kv tile (bk 16, 32, 48 -> 64, 128 -> 128 at D = 128 and 64 at
 # D = 64) and q tile (64, 128), and q as a strided view, as a fused
 # projection would pass it
@@ -526,7 +598,26 @@ TC_CASES = [(b, s, t, h, hkv, d, causal, window, softcap, bq, bk, torch.bfloat16
                 (2, 130, 130, 4, 2, True, None, 30.0, 64, 128, False),
                 (1, 200, 200, 4, 4, False, 40, 20.0, 16, 16, False),
                 (2, 96, 96, 8, 2, True, None, None, 128, 48, False),
-                (2, 77, 77, 8, 2, True, None, None, 128, 128, True))]
+                (2, 77, 77, 8, 2, True, None, None, 128, 128, True),
+                (1, 150, 150, 10, 2, True, None, 50.0, 128, 64, False),  # GQA 5
+                (2, 90, 130, 16, 2, False, None, None, 64, 128, False))]  # GQA 8
+
+
+# bf16 at the zoo's head dims 96 (phi3-mini) and 256 (gemma3-12b), the
+# tensor-core route: GQA groups 5 (llama4-scout) and 8 (command-r), ragged
+# S != T, a window with rows that see no key, a softcap (gemma2's 50), a
+# block for each kv tile, non-causal with T off any tile (the cross form),
+# and a strided q view
+ZOO_CASES = [(b, s, t, h, hkv, d, causal, window, softcap, bq, bk, torch.bfloat16, q_view)
+             for d in (96, 256)
+             for (b, s, t, h, hkv, causal, window, softcap, bq, bk, q_view) in (
+                 (2, 100, 100, 5, 1, True, None, None, 128, 128, False),
+                 (1, 70, 150, 8, 1, False, None, None, 64, 64, False),
+                 (1, 150, 70, 10, 2, True, None, None, 128, 32, False),
+                 (1, 120, 90, 4, 1, True, 24, None, 128, 16, False),    # rows 113-119 see no key
+                 (2, 130, 130, 5, 1, True, None, 50.0, 64, 128, False),
+                 (2, 64, 100, 8, 1, False, None, None, 128, 128, False),
+                 (2, 77, 77, 8, 1, True, None, None, 128, 128, True))]
 
 
 def attention_case_check(case, g) -> dict:
@@ -559,9 +650,11 @@ def attention_case_check(case, g) -> dict:
 
 
 def phase_attention(cases_f) -> None:
+    from repro_torch.kernels.flash_attention import TC_HEAD_DIMS
+
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    worst, failures, routes = {}, [], {}
+    worst, failures, routes, by_d = {}, [], {}, {}  # by_d: worst ratio to the limit
     cases = attention_cases()
     for case in cases:
         c = attention_case_check(case, g)
@@ -569,12 +662,15 @@ def phase_attention(cases_f) -> None:
         key = c["dtype"].replace("torch.", "")
         worst[key] = max(worst.get(key, 0.0), c["max_abs_err"])
         route = c["plan"]["route"]
+        dkey = f"{key} D={case[5]} {route}"
+        by_d[dkey] = max(by_d.get(dkey, 0.0), c["ratio_to_limit"])
         routes[route] = routes.get(route, 0) + 1
-        want = "wgmma" if case[11] == torch.bfloat16 and case[5] in (64, 128) else "simt"
+        want = "wgmma" if case[11] == torch.bfloat16 and case[5] in TC_HEAD_DIMS else "simt"
         if not c["ratio_to_limit"] <= 1.0 or route != want:
             failures.append(c)
     emit("attention", t0, cases=len(cases), routes=routes, worst_max_abs_err=worst,
-         limits={"float32": 3e-5, "bfloat16": 3e-2}, failures=failures[:5])
+         worst_by_head_dim=by_d, limits={"float32": 3e-5, "bfloat16": 3e-2},
+         failures=failures[:5])
     if failures:
         raise SystemExit(f"{len(failures)} attention cases outside their limit or route")
 
@@ -1773,11 +1869,12 @@ def record_checks(registry, g, dt=torch.bfloat16) -> list:
 
 
 def traced_steps(cfg, params, prompts, max_len: int, registry, out_dir: Path,
-                 tok=None) -> tuple:
-    """One prefill wave of ``prompts`` and one decode step of ``tok`` (its
-    own greedy tokens when None), each under ``torch.profiler``.  Returns
-    (last logits, decode logits, the tokens decoded, {"prefill": device
-    times, "decode": device times})."""
+                 tok=None, encoder=None) -> tuple:
+    """One prefill wave of ``prompts`` (with ``encoder`` states, for a model
+    with cross layers) and one decode step of ``tok`` (its own greedy tokens
+    when None), each under ``torch.profiler``.  Returns (last logits, decode
+    logits, the tokens decoded, {"prefill": device times, "decode": device
+    times})."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve as SV
@@ -1787,6 +1884,8 @@ def traced_steps(cfg, params, prompts, max_len: int, registry, out_dir: Path,
     prefill = S.make_prefill_step(cfg, max_len, registry=registry)
     decode = S.make_decode_step(cfg, registry=registry)
     inputs = make_inputs(prompts)
+    if encoder is not None:
+        inputs["encoder"] = encoder
     traces = {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2267,6 +2366,147 @@ def phase_model_jamba(out_dir: Path, mutant: Path) -> dict:
     return row
 
 
+def zoo_encoder(cfg):
+    """The vision stub's encoder states: seeded (batch, 1600, 4096) in the
+    model's dtype; None for a model without cross layers."""
+    if not cfg.n_cross_tokens:
+        return None
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    return torch.randn(ZOO_SERVE["batch"], cfg.n_cross_tokens, cfg.d_cross, generator=g,
+                       device="cuda").to(getattr(torch, cfg.dtype))
+
+
+def decode_vs_forward(cfg, params, prompts, tok, encoder, out_dir: Path) -> tuple:
+    """Prefill ``prompts`` and decode ``tok`` at position S, against
+    ``forward`` over the S + 1 tokens: (max abs diff / max abs of the
+    logits, all finite)."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    _, step, _, _ = traced_steps(cfg, params, prompts, ZOO_SERVE["max_len"], None, out_dir,
+                                 tok=tok, encoder=encoder)
+    batch = SV.input_fn(cfg, "cuda")(np.concatenate([prompts, tok[:, None]], axis=1))
+    if encoder is not None:
+        batch["encoder"] = encoder
+    with torch.no_grad():
+        x, _, _ = T.hidden_states(params, cfg, batch)
+        want = L.logits_apply(params["embed"], x[:, -1:], params.get("lm_head"),
+                              cfg.logit_softcap)
+    return rel_err(step, want), bool(torch.isfinite(step).all() and torch.isfinite(want).all())
+
+
+def phase_zoo_model(arch: str, out_dir: Path) -> dict:
+    """One architecture of path zoo: its serve run (launches counted from 0
+    just before it and read just after), one traced prefill wave and decode
+    step, and decode of token 1025 against ``forward`` over the 1025 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as SV
+
+    t0 = time.perf_counter()
+    layers, want_params, flash_per_wave, capacity = ZOO[arch]
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    encoder = zoo_encoder(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # this model's run starts here
+    if encoder is None:
+        summary = SV.serve_once(cfg, seed=SEED, device="cuda", **ZOO_SERVE)
+    else:  # serve_once refuses a cross model; its loop takes the encoder states
+        summary = SV._serve_waves(cfg, seed=SEED, registry=None, device="cuda",
+                                  prefill_extra={"encoder": encoder}, **ZOO_SERVE)
+    launches = read_launches()  # ... and ends here
+    peak_bytes = torch.cuda.max_memory_allocated()
+    serve_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    params = SV.init_model(cfg, SEED, "cuda")
+    wave = SV.request_pool(cfg, ZOO_SERVE["batch"], ZOO_SERVE["prompt_len"], 1, SEED)
+    prompts = np.stack([r.prompt for r in wave])
+    _, step, tok, traces = traced_steps(cfg, params, prompts, ZOO_SERVE["max_len"], None,
+                                        out_dir, encoder=encoder)
+    variants = {"served": cfg}
+    if capacity is not None:
+        # the decode check where no token drops, and with every token routed
+        # to all experts at its full softmax weights (no discrete routing
+        # choice, so that bf16 noise cannot flip a token's experts); f32:
+        # the same weights widened in place, so it runs last
+        routed = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                                  capacity_factor=capacity))
+        variants = {"dense_routing": dataclasses.replace(cfg, moe=dataclasses.replace(
+                        cfg.moe, top_k=cfg.moe.n_experts, capacity_factor=1.0)),
+                    f"capacity_{capacity:g}": routed,
+                    f"f32_capacity_{capacity:g}": dataclasses.replace(routed, dtype="float32")}
+    decode_err, finite = {}, True
+    for name in ZOO_LIMIT[arch]:
+        vcfg = variants[name]
+        if vcfg.dtype == "float32":
+            params.float()
+        err, ok = decode_vs_forward(vcfg, params, prompts, tok, encoder, out_dir)
+        decode_err[name], finite = err, finite and ok
+    check_peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre = traces["prefill"]
+    row = {"arch": cfg.name, "layers": cfg.n_layers,
+           "published_layers": get_config(arch).n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim_,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "params": cfg.param_count(), **ZOO_SERVE, "serve_s": serve_s,
+           "launches": launches, "flash_launches_per_wave":
+               launches["flash_attention"] / summary["prefill_waves"],
+           "prefill_waves": summary["prefill_waves"],
+           "prefill_ms_per_wave": summary["prefill_ms"],
+           "decode_steps": summary["decode_steps"],
+           "decode_step_p50_ms": summary["decode_step_p50_ms"],
+           "decode_tokens_per_s": summary["decode_tokens_per_s"],
+           "traced_prefill": {k: pre.get(k) for k in (
+               "wall_ms", "busy_ms", "device_ms", "flash_attention_ms", "other_ms",
+               "idle_share")},
+           "traced_decode": {k: traces["decode"].get(k) for k in (
+               "wall_ms", "busy_ms", "idle_share")},
+           "decode_check_capacity_factor": capacity, "decode_vs_forward": decode_err,
+           "decode_vs_forward_limit": ZOO_LIMIT[arch],
+           "logits_finite": summary["logits_finite"] and finite,
+           "max_memory_allocated": peak_bytes, "check_max_memory_allocated": check_peak}
+    emit("zoo_model", t0, **row)
+    check_path_launches(f"zoo {arch}", launches, ("flash_attention",))
+    checks = {
+        f"params == {want_params:,}": row["params"] == want_params,
+        f"flash launches == {flash_per_wave} a wave":
+            launches["flash_attention"] == flash_per_wave * summary["prefill_waves"] > 0,
+        "every logit finite": row["logits_finite"],
+        f"decode vs forward <= {ZOO_LIMIT[arch]}": decode_err.keys() == ZOO_LIMIT[arch].keys()
+            and all(decode_err[k] <= lim for k, lim in ZOO_LIMIT[arch].items()),
+        "peak memory under 80 GB": max(peak_bytes, check_peak) < CARD_BYTES,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"zoo {arch} failed: {bad}")
+    return row
+
+
+def phase_zoo(out_dir: Path) -> dict:
+    """Path zoo: each of the seven architectures in turn, freed before the
+    next.  Returns the path's launches, summed over the models' serve runs,
+    and each model's row."""
+    t0 = time.perf_counter()
+    rows = [phase_zoo_model(arch, out_dir) for arch in ZOO]
+    launches = {k: sum(r["launches"][k] for r in rows) for k in kernel_wrappers()}
+    emit("zoo", t0, models=len(rows), launches=launches,
+         decode_vs_forward={r["arch"]: r["decode_vs_forward"] for r in rows},
+         prefill_ms={r["arch"]: r["prefill_ms_per_wave"][0] for r in rows},
+         decode_step_p50_ms={r["arch"]: r["decode_step_p50_ms"] for r in rows},
+         max_memory_allocated={r["arch"]: max(r["max_memory_allocated"],
+                                              r["check_max_memory_allocated"])
+                               for r in rows})
+    return {"launches": launches, "rows": rows}
+
+
 # ---------------------------------------------------------------------------
 # phase 6: timing against the bound and the library yardstick
 # ---------------------------------------------------------------------------
@@ -2496,14 +2736,16 @@ def flash_timing_row(shape, card: str, g, flush, dt=torch.bfloat16) -> dict:
 
 def phase_flash_timing(card: str, g) -> list:
     """Flash attention at musicgen-large's and jamba's prefill shapes in
-    bf16 (the tensor-core route, what the models run), and at the same two
-    shapes in f32 (the SIMT route)."""
+    bf16 (the tensor-core route, what the models run) and in f32 (the SIMT
+    route), then at phi3-mini's (D = 96) and gemma3-12b's (D = 256) in bf16."""
     t0 = time.perf_counter()
     flush = flush_buffer()
     b, s, h, d = FA_SHAPE
     rows = [flash_timing_row(shape, card, g, flush, dt)
             for dt in (torch.bfloat16, torch.float32) for shape in ((b, s, h, h, d),
                                                                     FA_JAMBA_SHAPE)]
+    rows += [flash_timing_row(shape, card, g, flush) for shape in (FA_PHI3_SHAPE,
+                                                                   FA_GEMMA3_SHAPE)]
     del flush
     emit("timing_flash", t0, shapes=rows)
     return rows
@@ -2673,6 +2915,8 @@ def main() -> int:
         return [ln.strip() for ln in str(_build.BUILD_INFO[name]["log"]).splitlines()
                 if "wgmma" in ln.lower() or "C7520" in ln]
 
+    flash_kernels = ptxas_by_function(str(_build.BUILD_INFO["flash_attention"]["log"]),
+                                      "flash_fwd")
     emit("build", t0, kernels=names,
          nvcc_s={n: round(float(_build.BUILD_INFO[n]["seconds"]), 3) for n in names},
          ptxas={n: sorted({ln.split(":")[-1].strip()
@@ -2687,11 +2931,14 @@ def main() -> int:
          # the two kernels redesigned last, kernel by kernel
          mamba_scan_kernels=ptxas_by_function(str(_build.BUILD_INFO["mamba_scan"]["log"]),
                                               "mamba_scan_fwd"),
-         flash_simt_kernels=ptxas_by_function(str(_build.BUILD_INFO["flash_attention"]["log"]),
-                                              "flash_fwd_simt"))
+         flash_simt_kernels={k: v for k, v in flash_kernels.items() if "simt" in k},
+         flash_tc_kernels={k: v for k, v in flash_kernels.items() if "_tc<" in k})
     for name, count in hgmma.items():
         if count == 0:
             raise SystemExit(f"the {name} library's SASS holds no HGMMA instruction")
+    spilled = {k: v for k, v in flash_kernels.items() if any(v.get("spill_bytes", [0]))}
+    if spilled or not flash_kernels:
+        raise SystemExit(f"flash instances that spill: {spilled} (of {len(flash_kernels)})")
 
     with open(out_dir / "chip_smoke_cases.jsonl", "w") as cases_f:
         phase_kernel(cases_f)
@@ -2745,12 +2992,16 @@ def main() -> int:
     model_jamba = phase_model_jamba(out_dir, mutants["mamba_scan"])  # the fourth path
     gc.collect()
     torch.cuda.empty_cache()
+    zoo = phase_zoo(out_dir)  # the fifth path: seven models, each counted from 0 and read
+    gc.collect()
+    torch.cuda.empty_cache()
     by_path.update(model=model["launches"], model_rwkv=model_rwkv["launches"],
-                   model_jamba=model_jamba["launches"])
+                   model_jamba=model_jamba["launches"], zoo=zoo["launches"])
     check_path_launches("model", model["launches"], ("tiled_matmul", "flash_attention"))
     check_path_launches("model_rwkv", model_rwkv["launches"], ("rwkv6_scan",))
     check_path_launches("model_jamba", model_jamba["launches"],
                         ("mamba_scan", "flash_attention"))
+    check_path_launches("zoo", zoo["launches"], ("flash_attention",))
 
     def launches(name: str) -> dict:
         per = {path: counts[name] for path, counts in by_path.items()}
@@ -2759,7 +3010,11 @@ def main() -> int:
     rows = phase_timing(registry, card, g)
     rows_bf16 = phase_timing_bf16(model_registry, card, g)
     fa = phase_flash_timing(card, g)
-    fa_main = [r for r in fa if r["dtype"] == "bfloat16"]
+    # the headline sums musicgen-large's and jamba's bf16 shapes, as in
+    # earlier slices; the zoo's D = 96 and 256 rows are in "by_head_dim"
+    headline = [[FA_SHAPE[0], FA_SHAPE[1], FA_SHAPE[2], FA_SHAPE[2], FA_SHAPE[3]],
+                list(FA_JAMBA_SHAPE)]
+    fa_main = [r for r in fa if r["dtype"] == "bfloat16" and r["bshkd"] in headline]
     rw = phase_rwkv_timing(card)
     mb = phase_mamba_timing(card)
     def route_sums(rs: list) -> dict:
@@ -2792,9 +3047,14 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:27",
         **launches("flash_attention"),
         # one pass over musicgen-large's and jamba's prefill shapes in bf16
-        # (the tensor-core route the models run); the f32 row is in "shapes"
+        # (the tensor-core route the models run); every row, f32 and the
+        # zoo's head dims included, is in "shapes"
         "max_abs_err": max(r["max_abs_err"] for r in fa_main),
         **{k: sum(r[k] for r in fa_main) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "by_head_dim": {f"D={r['bshkd'][4]}": {k: r[k] for k in (
+                            "bshkd", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                            "bound_by", "max_abs_err")}
+                        for r in fa if r["dtype"] == "bfloat16" and r["bshkd"] not in headline},
         "bound_by": ("operations" if sum(r["ops_ms"] for r in fa_main)
                      >= sum(r["bytes_ms"] for r in fa_main) else "bytes"),
         "routes": sorted({r["route"] for r in fa_main}),

@@ -1,19 +1,29 @@
 """Architecture registry of the port.
 
-``get_config(arch_id)`` resolves the architectures whose layers the port
-runs: musicgen-large (attention + dense MLP), rwkv6-7b (RWKV-6 time-mix
-with kernel B3 + channel-mix) and jamba-v0.1-52b (Mamba with kernel B4,
-GQA attention, dense MLP and MoE FFNs).  The JAX package's other seven
-architectures raise ``KeyError`` until the port is asked to serve them
-(ROADMAP.md, model zoo; llama-3.2-vision also needs cross-attention).
-``input_specs`` (the dry-run's allocation-free stand-ins)
-comes with the dry-run launcher.
+``get_config(arch_id)`` resolves the JAX package's ten architectures, with
+the same fields: attention + dense MLP (musicgen-large, phi3-mini-3.8b,
+command-r-35b, gemma2-27b, gemma3-12b), RWKV-6 (rwkv6-7b), Mamba + attention
++ MoE (jamba-v0.1-52b), attention + MoE (olmoe-1b-7b, llama4-scout-17b-a16e)
+and self- + cross-attention (llama-3.2-vision-11b, whose vision frontend is
+a stub: the caller passes the encoder states).  ``input_specs`` (the
+dry-run's allocation-free stand-ins) comes with the dry-run launcher.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from . import jamba_v01_52b, musicgen_large, rwkv6_7b
+from . import (
+    command_r_35b,
+    gemma2_27b,
+    gemma3_12b,
+    jamba_v01_52b,
+    llama4_scout_17b_a16e,
+    llama32_vision_11b,
+    musicgen_large,
+    olmoe_1b_7b,
+    phi3_mini_3_8b,
+    rwkv6_7b,
+)
 from .base import (
     ALL_SHAPES,
     DECODE_32K,
@@ -27,16 +37,28 @@ from .base import (
     shapes_for,
 )
 
-ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
-                                 for m in (musicgen_large, rwkv6_7b, jamba_v01_52b)}
+ARCHS: Dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG
+    for m in (
+        phi3_mini_3_8b,
+        command_r_35b,
+        gemma2_27b,
+        gemma3_12b,
+        rwkv6_7b,
+        llama32_vision_11b,
+        jamba_v01_52b,
+        olmoe_1b_7b,
+        llama4_scout_17b_a16e,
+        musicgen_large,
+    )
+}
 
 SHAPES: Dict[str, ShapeCell] = {c.name: c for c in ALL_SHAPES}
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in ARCHS:
-        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP.md, model zoo); "
-                       f"ported: {sorted(ARCHS)}")
+        raise KeyError(f"unknown arch {arch!r}; have {sorted(ARCHS)}")
     return ARCHS[arch]
 
 

@@ -108,6 +108,14 @@ class ModelConfig:
 
         return count_params(self)
 
+    def active_param_count(self) -> int:
+        """Parameters one token runs through: each routed MoE expert tensor
+        counts ``top_k / n_experts`` of its size (the router and a shared
+        expert count whole), as the JAX package counts them."""
+        from repro_torch.models.transformer import count_params
+
+        return count_params(self, active_only=True)
+
     # -- smoke-test reduction --------------------------------------------------
 
     def smoke(self) -> "ModelConfig":

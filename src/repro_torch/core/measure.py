@@ -48,8 +48,8 @@ import abc
 import dataclasses
 import gc
 import multiprocessing
+import multiprocessing.connection
 import os
-import queue as queue_mod
 import time
 import traceback
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -569,13 +569,20 @@ class PerWorker:
 
 
 def _pool_worker(wid: int, spec: str, kwargs: Dict[str, Any],
-                 task_q, result_q, ready_at) -> None:
+                 task_q, result_conn, ready_at) -> None:
     """Worker main loop: pin to a core, build the executor and pay its
     start-up (:meth:`MeasuredBackend.worker_ready`), report ``ready``, then
     measure shipped ``(contraction, structure_key)`` schedules until the
     None sentinel arrives.  Every task answers with ``("ok", shipped)`` or
     ``("err", traceback)`` — the parent decides what is fatal; an executor
-    that failed to build answers every task with its traceback."""
+    that failed to build answers every task with its traceback.
+
+    Results go to the parent through this worker's own pipe, sent
+    synchronously: a shared ``multiprocessing.Queue`` writes from a feeder
+    thread under a lock that every worker shares, and a worker that dies
+    while that thread holds it (a schedule that ends its process right
+    after the ready message) leaves the lock taken, so that no later
+    worker's result ever arrives."""
     t0 = time.perf_counter()
     try:
         os.sched_setaffinity(0, {wid % (os.cpu_count() or 1)})
@@ -599,11 +606,11 @@ def _pool_worker(wid: int, spec: str, kwargs: Dict[str, Any],
         startup_error = traceback.format_exc()
     info["executor_s"] = round(time.perf_counter() - t0, 4)
     # shared memory, written at once: the parent sees it even if this
-    # process dies before its queue's feeder thread has flushed.  The wall
+    # process dies before the parent has read its ready message.  The wall
     # clock, so the parent can count the interpreter's start and the
     # imports, which happen before this function runs
     ready_at.value = time.time()
-    result_q.put((wid, None, ("ready", os.getpid(), info)))
+    result_conn.send((wid, None, ("ready", os.getpid(), info)))
     while True:
         task = task_q.get()
         if task is None:
@@ -615,21 +622,22 @@ def _pool_worker(wid: int, spec: str, kwargs: Dict[str, Any],
                     f"the worker's executor failed to build:\n{startup_error}")
             nest = LoopNest.from_structure_key(contraction, key)
             m = measure_local(backend, nest, worker=wid)
-            result_q.put((wid, tid, ("ok", m.ship())))
+            result_conn.send((wid, tid, ("ok", m.ship())))
         except BaseException:  # noqa: BLE001 — report, let the parent decide
             try:
-                result_q.put((wid, tid, ("err", traceback.format_exc())))
-            except Exception:  # noqa: BLE001 — queue already torn down
+                result_conn.send((wid, tid, ("err", traceback.format_exc())))
+            except Exception:  # noqa: BLE001 — the parent's end already closed
                 return
 
 
 class _Worker:
-    __slots__ = ("process", "task_q", "ready_at", "outstanding", "busy_since",
-                 "ready", "spawned_at", "spawned_wall", "startup_s", "info")
+    __slots__ = ("process", "task_q", "result_conn", "ready_at", "outstanding",
+                 "busy_since", "ready", "spawned_at", "spawned_wall", "startup_s", "info")
 
-    def __init__(self, process, task_q, ready_at):
+    def __init__(self, process, task_q, result_conn, ready_at):
         self.process = process
         self.task_q = task_q
+        self.result_conn = result_conn  # the parent's end of this worker's result pipe
         self.ready_at = ready_at  # shared: the worker's wall clock at ready
         self.outstanding: Dict[Tuple, Tuple] = {}  # tid -> task payload
         self.busy_since: Optional[float] = None  # monotonic, None = idle
@@ -700,7 +708,6 @@ class WorkerPool:
             start_method = "fork" if "fork" in methods else "spawn"
         self._ctx = multiprocessing.get_context(start_method)
         self.start_method = start_method
-        self._result_q = self._ctx.Queue()
         self._workers: List[Optional[_Worker]] = [None] * self.n_workers
         self._batch_serial = 0
         self._closed = False
@@ -726,19 +733,37 @@ class WorkerPool:
         return kw
 
     def _spawn(self, wid: int) -> _Worker:
+        old = self._workers[wid]
+        if old is not None:
+            old.result_conn.close()  # a dead incarnation's pipe, with anything half-sent
         task_q = self._ctx.Queue()
+        result_conn, send_end = self._ctx.Pipe(duplex=False)
         ready_at = self._ctx.Value("d", 0.0, lock=False)
         p = self._ctx.Process(
             target=_pool_worker,
-            args=(wid, self.spec, self._worker_kwargs(wid), task_q,
-                  self._result_q, ready_at),
+            args=(wid, self.spec, self._worker_kwargs(wid), task_q, send_end, ready_at),
             daemon=True,
             name=f"looptune-measure-{self.spec}-{wid}",
         )
         p.start()
-        w = _Worker(p, task_q, ready_at)
+        send_end.close()  # the worker's copy is the only writer: its death is EOF here
+        w = _Worker(p, task_q, result_conn, ready_at)
         self._workers[wid] = w
         return w
+
+    def _next_result(self, timeout_s: float) -> Optional[Tuple]:
+        """The next ``(wid, tid, payload)`` any worker sent, or None when
+        none arrives within ``timeout_s``.  A dead worker's pipe reads what
+        it sent before it died, then end of file: the pipe is closed then,
+        and ``_reap`` respawns the worker."""
+        conns = [w.result_conn for w in self._workers
+                 if w is not None and not w.result_conn.closed]
+        for conn in multiprocessing.connection.wait(conns, timeout_s):
+            try:
+                return conn.recv()
+            except (EOFError, OSError):
+                conn.close()
+        return None
 
     def _revive(self, wid: int) -> _Worker:
         """Respawn a dead worker, carrying its queue contents over is not
@@ -767,6 +792,7 @@ class WorkerPool:
             if w.process.is_alive():
                 w.process.terminate()
                 w.process.join(timeout=1.0)
+            w.result_conn.close()
         self._workers = [None] * self.n_workers
 
     def __enter__(self) -> "WorkerPool":
@@ -788,12 +814,9 @@ class WorkerPool:
         while not all(w is not None and self._check_ready(w) for w in self._workers):
             if deadline is not None and time.monotonic() >= deadline:
                 return False
-            try:
-                src, tid, payload = self._result_q.get(timeout=0.25)
-            except queue_mod.Empty:
-                continue
-            if tid is None:
-                self._on_ready(src, payload)
+            got = self._next_result(0.25)
+            if got is not None and got[1] is None:
+                self._on_ready(got[0], got[2])
         return True
 
     def _check_ready(self, w: _Worker) -> bool:
@@ -890,15 +913,15 @@ class WorkerPool:
         retries: Dict[Tuple, int] = {}
         while backlog or any(
                 w is not None and w.outstanding for w in self._workers):
-            try:
-                src, tid, payload = self._result_q.get(timeout=0.25)
-            except queue_mod.Empty:
+            got = self._next_result(0.25)
+            if got is None:
                 self._kill_hung()
                 self._reap(retries, tasks, backlog, parts)
                 # tasks a dead worker returned to the backlog must reach an
                 # idle worker even when no result will arrive to pull them
                 self._fill(backlog, tasks)
                 continue
+            src, tid, payload = got
             if tid is None:
                 self._on_ready(src, payload)
                 continue

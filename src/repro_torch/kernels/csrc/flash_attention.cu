@@ -28,7 +28,8 @@
 //
 // Two routes, chosen by (dtype, D) alone (`plan` below):
 //
-// "wgmma" — bf16 at D = 64 (musicgen-large) and D = 128 (jamba-v0.1-52b):
+// "wgmma" — bf16 at D = 64 (musicgen-large), 96 (phi3-mini), 128 (jamba-v0.1-52b
+//   and most of the zoo) and 256 (gemma3-12b):
 //   * one or two consumer warpgroups a CTA, each owning 64 q rows of one
 //     (b, h); no producer warp: all threads issue the loads;
 //   * S = Q·Kᵀ by wgmma.mma_async m64nNk16 (N = the kv tile), bf16 operands
@@ -42,6 +43,11 @@
 //     two xor-shuffles (l is summed per thread and reduced once at the end);
 //     exp is exp2f((s - m) * log2 e), the difference first, so a row that has
 //     seen only -1e30 gets p = exp2(0) = 1 exactly, as in the TPU kernel;
+//   * D = 96 is staged as 128 columns (two swizzle chunks, the second half
+//     full): Q·Kᵀ runs its six k-steps of 16 and never reads the padding;
+//     P·V runs n64 on both chunks, and the 32 padded output columns (zero
+//     V columns, zeroed once in shared memory) are not stored.  That is a
+//     third more P·V work than D needs, the price of one layout for every D;
 //   * O += P·V by wgmma m64n64k16 per 64-column chunk of the head dim, with
 //     P rounded to bf16 in registers as the A operand (the f32 accumulator
 //     layout packs pairwise into the A fragment) and V read from shared
@@ -59,8 +65,10 @@
 //     and no driver entry point to link;
 //   * block mapping: the "fa" registry block (bq, bk), clamped to (S, T),
 //     becomes q tile = 64 if bq <= 64 else 128 (one or two warpgroups) and
-//     kv tile = the power of two >= bk in [16, 4096 / D] (wgmma's N: 16, 32
-//     or 64 at D = 64; 16 or 32 at D = 128).  The cap is the largest tile at
+//     kv tile = the power of two >= bk in [16, 4096 / W], W the staged width
+//     (wgmma's N: 16, 32 or 64 at D = 64; 16 or 32 at D = 96 and 128; 16 at
+//     D = 256, where the 64 x 256 accumulator is 128 registers a thread and
+//     P·V is one k-step).  The cap is the largest tile at
 //     which ptxas keeps a thread within ~128 registers (117 at D = 64 x 64
 //     keys, 128 at D = 128 x 32), so two CTAs of 256 threads fit an SM: the
 //     loop is latency-bound (one tile's products, softmax and the next
@@ -94,8 +102,9 @@
 //   * 256 threads, 16 (ty) x 16 (tx).  A thread owns the q rows 64 i + 4 ty
 //     + e (e < 4, i < TQ / 64) of both products, so the row statistics and
 //     the alpha rescale stay in its registers; score columns tx + 16 j
-//     (j < TK / 16) and output columns 64 c + 4 tx + e (at D < 64 only the
-//     lanes with 4 tx < D hold output columns).  At 128 x 64 that is an 8 x 4
+//     (j < TK / 16) and output columns 64 c + 4 tx + e (only those below D:
+//     at D < 64 the lanes with 4 tx < D, at D = 96 the second run on lanes
+//     tx < 8, the others multiplying zeros).  At 128 x 64 that is an 8 x 4
 //     score tile and an 8 x 4 (D = 64) or 8 x 8 (D = 128) output tile;
 //   * S = Q·Kᵀ reads Q and K head-dim-contiguous as float4: at 8 x 4, 12
 //     loads feed 128 FMAs.  Rows are padded by 4 floats, an odd number of
@@ -115,11 +124,18 @@
 //     through registers), zero-filled past the CTA's last visible key: tile
 //     j+1 is in flight while tile j is multiplied.  Q is staged the same way
 //     once, with the first tile.  Causal q tiles run longest first;
-//   * block mapping: q tile TQ = 64 if bq <= 64 else 128; kv tile TK = the
-//     power of two >= bk in [16, 64], halved while Q, two (K, V) stages and P
-//     (4 (TQ (D + 4) + 4 TK (D + 4) + TK (TQ + 4)) bytes) exceed 232,448
-//     bytes: the default (128, 128) runs 128 x 64 at D <= 64 (138,240 bytes
-//     at D = 64, one CTA an SM) and 128 x 32 at D = 128.
+//   * block mapping: q tile TQ = 64 if bq <= 64 or D = 256, else 128; kv
+//     tile TK = the power of two >= bk in [16, 64], halved while Q, two (K, V)
+//     stages and P (4 (TQ (D + 4) + 4 TK (D + 4) + TK (TQ + 4)) bytes) exceed
+//     232,448 bytes: the default (128, 128) runs 128 x 64 at D <= 96 (138,240
+//     bytes at D = 64, 187,392 at D = 96, one CTA an SM), 128 x 32 at
+//     D = 128 and 64 x 32 at D = 256 (208,384 bytes).  At D = 256 a 128-row
+//     q tile holds 128 accumulators a thread and ptxas spilled it (255
+//     registers, 52 bytes of spill stores, on an H100 SXM at 700 W), so
+//     that route has no 128-row instance.
+//
+// Head dims with an instance: 8, 16, 32, 64, 96, 128 and 256 (the JAX kernel
+// tests' and the model zoo's); the plan refuses any other D.
 //   Bound on this card: max(bytes / 3.35 TB/s, 4*B*H*D*(visible pairs) /
 //   67 TFLOP/s of f32 FMAs): at musicgen's (4, 256, 32, 64) in f32, causal,
 //   the 1.08 GFLOP of visible pairs, 16.1 us.
@@ -236,7 +252,10 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
   const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * TQ;  // longest causal tiles first
   const int last = min(q0 + TQ, a.S) - 1;
-  const bool has_cols = D >= 64 || 4 * tx < D;  // below D = 64 some lanes hold no output
+  // output columns 64 c + 4 tx .. + 3 exist below D only: below D = 64 some
+  // lanes hold none, and at D = 96 the second run is held by lanes tx < 8
+  auto cols_ok = [&](int c) { return D % 64 == 0 || 64 * c + 4 * tx < D; };
+  const bool has_cols = cols_ok(0);
   const T* const qb = q + b * a.qsb + h * a.qsh;
   const T* const kb = k + b * a.ksb + (h / a.G) * a.ksh;
   const T* const vb = v + b * a.vsb + (h / a.G) * a.vsh;
@@ -360,7 +379,8 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
           pa[i4] = *reinterpret_cast<const float4*>(Pt + kk * PP + 64 * i4 + 4 * ty);
 #pragma unroll
         for (int c = 0; c < QD; ++c)
-          vv[c] = *reinterpret_cast<const float4*>(Vs + kk * DP + 64 * c + 4 * tx);
+          vv[c] = cols_ok(c) ? *reinterpret_cast<const float4*>(Vs + kk * DP + 64 * c + 4 * tx)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
         for (int i = 0; i < RQ; ++i)
 #pragma unroll
@@ -383,6 +403,7 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     T* const orow = o + (((long long)b * a.S + qi) * a.H + h) * D;
 #pragma unroll
     for (int c = 0; c < QD; ++c) {
+      if (!cols_ok(c)) continue;
       const float out[4] = {acc[i][4 * c] / lv, acc[i][4 * c + 1] / lv, acc[i][4 * c + 2] / lv,
                             acc[i][4 * c + 3] / lv};
       store4(orow + 64 * c + 4 * tx, out);
@@ -396,9 +417,13 @@ flash_fwd_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
 constexpr int kWG = 128;      // threads of a warpgroup
 constexpr int kWgRows = 64;   // q rows of a warpgroup: wgmma's M
-constexpr int kTcKvCap = 4096;  // kv tile <= kTcKvCap / D: 64 keys at D = 64, 32 at D = 128
+// the head dim as staged: whole 64-column swizzle chunks (D = 96 -> 128)
+__host__ __device__ constexpr int tc_width(int d) { return (d + 63) / 64 * 64; }
+// kv tile <= kTcKvCap / tc_width(D): 64 keys at D = 64, 32 at D = 96 and 128,
+// 16 at D = 256
+constexpr int kTcKvCap = 4096;
 constexpr size_t tc_smem_bytes(int d, int qt, int tk) {
-  return 1024 + (size_t)d * 2 * (qt + 4 * tk);  // alignment slack, Q, 2 x (K, V)
+  return 1024 + (size_t)tc_width(d) * 2 * (qt + 4 * tk);  // alignment slack, Q, 2 x (K, V)
 }
 
 template <int D, int TK>
@@ -407,8 +432,8 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
              const Args a) {
   using namespace hopper;
-  constexpr int NC = D / 64;          // 64-column chunks of the head dim
-  constexpr int PR = D / 8;           // 16-byte pieces of a row
+  constexpr int NC = tc_width(D) / 64;  // 64-column chunks of the head dim as staged
+  constexpr int PR = D / 8;             // 16-byte pieces of a row loaded (the rest zero)
   constexpr int NS = TK / 2;          // score registers a thread
   constexpr uint32_t CHUNK = TK * 128;        // bytes of one chunk of a K or V tile
   constexpr uint32_t TILE = NC * CHUNK;       // bytes of a K or V tile
@@ -469,6 +494,15 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     }
   };
   const int n_tiles = (kv_hi - kv_lo + TK - 1) / TK;
+  if constexpr (PR < NC * 8) {  // D = 96: the pieces past D are never loaded; zero them once
+    for (int e = tid; e < (qt + 4 * TK) * (NC * 8 - PR); e += nthr) {
+      const int r = e / (NC * 8 - PR), c = PR + e % (NC * 8 - PR);
+      const uint32_t at = r < qt ? sQ + (uint32_t)((c >> 3) * qt * 128) + sw128(r, c & 7)
+                                 : sKV + (uint32_t)((r - qt) / TK) * TILE +
+                                       (uint32_t)(c >> 3) * CHUNK + sw128((r - qt) % TK, c & 7);
+      asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(at), "r"(0u) : "memory");
+    }
+  }
   load_kv(kv_lo, sKV);
   cp_async_commit();  // group 0: Q and the first kv tile
 
@@ -592,6 +626,7 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
     for (int c = 0; c < NC; ++c)
 #pragma unroll
       for (int jb = 0; jb < 8; ++jb) {
+        if (c * 64 + 8 * jb >= D) continue;  // a padded column (D = 96)
         const int i = 4 * jb + 2 * half;
         *reinterpret_cast<__nv_bfloat162*>(orow + c * 64 + 8 * jb + cq) =
             __floats2bfloat162_rn(acc[c][i] / l, acc[c][i + 1] / l);
@@ -600,11 +635,14 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
 }
 
 
+// the SIMT q tile: 64 rows if bq <= 64, or at D > 128 (a 128-row tile spills)
+__host__ __device__ constexpr int simt_q_tile(int d, int bq) { return bq <= 64 || d > 128 ? 64 : 128; }
+
 template <typename T, int D, int TQ, int TK>
 int launch_simt(const void* q, const void* k, const void* v, void* o, int B, const Args& a,
                 cudaStream_t s) {
   constexpr size_t smem = simt_smem_bytes(D, TQ, TK);
-  if constexpr (smem > (size_t)kSmemMax) {
+  if constexpr (smem > (size_t)kSmemMax || simt_q_tile(D, TQ) != TQ) {
     return (int)cudaErrorInvalidValue;  // the plan never picks it
   } else {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -642,8 +680,13 @@ int launch_d(int D, int tq, int tk, const void* q, const void* k, const void* v,
     default: break;
   }
   if constexpr (std::is_same<T, float>::value) {  // bf16 takes the "wgmma" route here
-    if (D == 64) return launch_simt_tile<T, 64>(tq, tk, q, k, v, o, B, a, s);
-    if (D == 128) return launch_simt_tile<T, 128>(tq, tk, q, k, v, o, B, a, s);
+    switch (D) {
+      case 64: return launch_simt_tile<T, 64>(tq, tk, q, k, v, o, B, a, s);
+      case 96: return launch_simt_tile<T, 96>(tq, tk, q, k, v, o, B, a, s);
+      case 128: return launch_simt_tile<T, 128>(tq, tk, q, k, v, o, B, a, s);
+      case 256: return launch_simt_tile<T, 256>(tq, tk, q, k, v, o, B, a, s);
+      default: break;
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -673,12 +716,11 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int q
 template <int D>
 int launch_tc_tk(int tk, const void* q, const void* k, const void* v, void* o, int B, int qt,
                  const Args& a, cudaStream_t s) {
-  switch (tk) {
-    case 16: return launch_tc<D, 16>(q, k, v, o, B, qt, a, s);
-    case 32: return launch_tc<D, 32>(q, k, v, o, B, qt, a, s);
-    default: break;
+  if (tk == 16) return launch_tc<D, 16>(q, k, v, o, B, qt, a, s);
+  if constexpr (kTcKvCap / tc_width(D) >= 32) {
+    if (tk == 32) return launch_tc<D, 32>(q, k, v, o, B, qt, a, s);
   }
-  if constexpr (kTcKvCap / D >= 64) {
+  if constexpr (kTcKvCap / tc_width(D) >= 64) {
     if (tk == 64) return launch_tc<D, 64>(q, k, v, o, B, qt, a, s);
   }
   return (int)cudaErrorInvalidValue;
@@ -690,19 +732,22 @@ extern "C" {
 
 // The launch plan, as kernels/flash_attention.py::launch_plan computes it:
 // out[0..3] = q rows, kv columns, T_pad, route (1 = "wgmma", 0 = "simt").
+// A head dim the kernel has no instance for is refused (cudaErrorInvalidValue).
 int looptune_flash_attention_plan(int S, int T, int bq, int bk, int D, int bf16, int* out) {
   if (S < 1 || T < 1 || bq < 1 || bk < 1) return (int)cudaErrorInvalidValue;
+  if (D != 8 && D != 16 && D != 32 && D != 64 && D != 96 && D != 128 && D != 256)
+    return (int)cudaErrorInvalidValue;
   bq = bq < S ? bq : S;
   bk = bk < T ? bk : T;
   out[2] = cdiv(T, bk) * bk;
-  out[3] = bf16 && (D == 64 || D == 128);
+  out[3] = bf16 && D >= 64;
   if (out[3]) {
     out[0] = bq <= kWgRows ? kWgRows : 2 * kWgRows;
     int tk = 16;
-    while (tk < bk && tk < kTcKvCap / D) tk *= 2;
+    while (tk < bk && tk < kTcKvCap / tc_width(D)) tk *= 2;
     out[1] = tk;
   } else {
-    const int tq = bq <= 64 ? 64 : 128;
+    const int tq = simt_q_tile(D, bq);
     int tk = 16;
     while (tk < bk && tk < 64) tk *= 2;
     while (tk > 16 && simt_smem_bytes(D, tq, tk) > (size_t)kSmemMax) tk /= 2;
@@ -716,7 +761,7 @@ int looptune_flash_attention_plan(int S, int T, int bq, int bk, int D, int bf16,
 // cudaGetLastError() (0 on success).  q: (B, S, H, D), k and v: (B, T, HKV, D)
 // through element strides (b, s, h) with the head dim contiguous; o: (B, S,
 // H, D) contiguous.  All of q, k, v, o are f32, or all bf16 (bf16 = 1).
-// D in {8, 16, 32, 64, 128}; H a multiple of HKV.  softcap <= 0 means none.
+// D in {8, 16, 32, 64, 96, 128, 256}; H a multiple of HKV.  softcap <= 0 means none.
 // On the "wgmma" route every base is 16-byte aligned and every stride a
 // multiple of 8 elements (the wrapper checks).
 int looptune_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
@@ -728,7 +773,8 @@ int looptune_flash_attention(const void* q, const void* k, const void* v, void* 
   if (B < 1 || S < 1 || T < 1 || H < 1 || HKV < 1 || H % HKV != 0 || bq < 1 || bk < 1)
     return (int)cudaErrorInvalidValue;
   int plan[4];
-  looptune_flash_attention_plan(S, T, bq, bk, D, bf16, plan);
+  const int bad = looptune_flash_attention_plan(S, T, bq, bk, D, bf16, plan);
+  if (bad) return bad;
   if (cdiv(S, plan[0]) > 65535) return (int)cudaErrorInvalidValue;  // grid.y
   const int wmax = S + T;
   const int w = clampi(window, -wmax, wmax);
@@ -740,8 +786,12 @@ int looptune_flash_attention(const void* q, const void* k, const void* v, void* 
   const Args a{S, T, H, H / HKV, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
                scale, softcap, causal, has_window, w, plan[2], vec_q, vec_kv};
   if (plan[3]) {
-    if (D == 64) return launch_tc_tk<64>(plan[1], q, k, v, o, B, plan[0], a, s);
-    return launch_tc_tk<128>(plan[1], q, k, v, o, B, plan[0], a, s);
+    switch (D) {
+      case 64: return launch_tc_tk<64>(plan[1], q, k, v, o, B, plan[0], a, s);
+      case 96: return launch_tc_tk<96>(plan[1], q, k, v, o, B, plan[0], a, s);
+      case 128: return launch_tc_tk<128>(plan[1], q, k, v, o, B, plan[0], a, s);
+      default: return launch_tc_tk<256>(plan[1], q, k, v, o, B, plan[0], a, s);
+    }
   }
   if (bf16) return launch_d<__nv_bfloat16>(D, plan[0], plan[1], q, k, v, o, B, a, s);
   return launch_d<float>(D, plan[0], plan[1], q, k, v, o, B, a, s);

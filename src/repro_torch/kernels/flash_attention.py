@@ -7,23 +7,29 @@ bounds it on the card and what a row with no visible key gets).
 TPU kernel's blocked online softmax over kv blocks of ``bk``; the wrapper
 takes it only for CPU tensors.
 
-Two routes, by (dtype, D) alone (:func:`launch_plan`): bf16 at D = 64 and
-128 (the models' head dims) runs on the tensor cores ("wgmma": wgmma for
-q·kᵀ and p·v, p rounded to bf16, K/V in a two-stage cp.async ring); f32 at
+The kernel has instances at the head dims in :data:`HEAD_DIMS` (the JAX
+kernel tests' 8-32 and the model zoo's 64, 96, 128 and 256); the plain
+version takes any D, as the TPU kernel does, and only a launch refuses a D
+the kernel lacks.  Two routes, by (dtype, D) alone (:func:`launch_plan`):
+bf16 at D = 64, 96, 128 and 256 (the models' head dims) runs on the tensor
+cores ("wgmma": wgmma for q·kᵀ and p·v, p rounded to bf16, K/V in a
+two-stage cp.async ring, D = 96 staged as 128 zero-padded columns); f32 at
 every D and bf16 at D = 8, 16, 32 run the SIMT kernel ("simt"), since TF32
 products would miss the f32 limit of 3e-5.  The ``(bq, bk)`` block, clamped
 to (S, T), maps onto the CTA tile:
 
 * "wgmma": q tile 64 if bq <= 64 else 128 (one or two warpgroups of 64
-  rows), kv tile the power of two >= bk in [16, 4096 / D]: at most 64 keys
-  at D = 64 and 32 at D = 128, the largest tiles that keep a thread within
-  ~128 registers, so that two CTAs fit an SM (the note in the source has
-  the measurements);
-* "simt": q tile 64 if bq <= 64 else 128 (256 threads, each with 4 or 8 q
-  rows of both products), kv tile the power of two >= bk in [16, 64], halved
-  while Q, two (K, V) ring stages and P would take more than
-  :data:`SIMT_SMEM_MAX` bytes of shared memory (:func:`simt_smem_bytes`):
-  128 × 32 at D = 128 for the default block.
+  rows), kv tile the power of two >= bk in [16, 4096 / W], W the staged
+  width (D rounded up to 64): at most 64 keys at D = 64, 32 at D = 96 and
+  128 and 16 at D = 256, the largest tiles that keep a thread within ~128
+  registers at D <= 128, so that two CTAs fit an SM (the note in the source
+  has the measurements);
+* "simt": q tile 64 if bq <= 64 else 128, and 64 at D = 256, where a
+  128-row tile spills (256 threads, each with 4 or 8 q rows of both
+  products), kv tile the power of two >= bk in [16, 64], halved while Q,
+  two (K, V) ring stages and P would take more than :data:`SIMT_SMEM_MAX`
+  bytes of shared memory (:func:`simt_smem_bytes`): 128 × 32 at D = 128
+  and 64 × 32 at D = 256 for the default block.
 
 On both, ``bk`` also sets ``T_pad = ⌈T/bk⌉·bk``, what a row with no visible
 key is divided by.
@@ -43,10 +49,16 @@ from . import _build
 
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (8, 16, 32, 64, 128)  # the JAX kernel tests', musicgen-large's, jamba's
-TC_HEAD_DIMS = (64, 128)  # bf16 at these runs on the tensor cores
-TC_KV_CAP = 4096  # the tensor-core kv tile is at most TC_KV_CAP // D keys
+HEAD_DIMS = (8, 16, 32, 64, 96, 128, 256)  # the kernel's instances: the JAX tests', the zoo's
+TC_HEAD_DIMS = (64, 96, 128, 256)  # bf16 at these runs on the tensor cores
+TC_KV_CAP = 4096  # the tensor-core kv tile is at most TC_KV_CAP // tc_width(D) keys
 SIMT_SMEM_MAX = 232448  # shared memory a CTA can have on the card
+
+
+def tc_width(d: int) -> int:
+    """The head dim as the tensor-core route stages it: whole 64-column
+    swizzle chunks (D = 96 is 128 columns, the last 32 zero)."""
+    return -(-d // 64) * 64
 
 
 def simt_smem_bytes(d: int, q_tile: int, kv_tile: int) -> int:
@@ -79,13 +91,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int, bk: int,
         raise ValueError(f"k and v must be (B={b}, T, HKV, D={d}) alike; got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
     t, hkv = k.shape[1], k.shape[2]
-    if min(b, s, t, hq, hkv) < 1 or hq % hkv:
+    if min(b, s, t, hq, hkv, d) < 1 or hq % hkv:
         raise ValueError(f"need non-empty shapes and H ({hq}) a multiple of HKV ({hkv})")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"q, k, v must all be float32 or all bfloat16; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} is not one the kernel takes {HEAD_DIMS}")
     if min(bq, bk) < 1:
         raise ValueError(f"blocks must be >= 1, got {(bq, bk)}")
     if softcap is not None and not softcap > 0:
@@ -149,7 +159,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     A CUDA tensor always launches the kernel, on the current stream and
     without synchronising; a CPU tensor runs :func:`flash_attention_plain`.
-    Shapes, dtypes and head dims the kernel does not take raise on both.
+    Shapes and dtypes the kernel does not take raise on both; a head dim
+    without a kernel instance (not in :data:`HEAD_DIMS`) raises on CUDA
+    tensors only, since the plain version takes any D.
     """
     b, s, t, hq, hkv, d = _check(q, k, v, bq, bk, softcap)
     if q.device.type == "cpu":
@@ -189,19 +201,23 @@ def launch_plan(s: int, t: int, bq: int = 128, bk: int = 128, *, d: int,
                 dtype: torch.dtype) -> dict:
     """The CTA tile a launch uses for block ``(bq, bk)`` at head dim ``d``
     and ``dtype``, its route, and the padded kv length that a row with no
-    visible key is divided by.  Pure Python; the kernel computes the same
+    visible key is divided by.  A head dim the kernel has no instance for
+    raises.  Pure Python; the kernel computes the same
     (``looptune_flash_attention_plan``, held equal on the card)."""
     if min(s, t, bq, bk) < 1:
         raise ValueError(f"bad plan arguments {(s, t, bq, bk)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d}: the flash kernel has instances at {HEAD_DIMS} "
+                         f"only")
     bq, bk = min(bq, s), min(bk, t)
     t_pad = -(-t // bk) * bk
     if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
         kv_tile = 16
-        while kv_tile < min(bk, TC_KV_CAP // d):
+        while kv_tile < min(bk, TC_KV_CAP // tc_width(d)):
             kv_tile *= 2
         return {"route": "wgmma", "q_tile": 64 if bq <= 64 else 128, "kv_tile": kv_tile,
                 "t_pad": t_pad}
-    q_tile, kv_tile = (64 if bq <= 64 else 128), 16
+    q_tile, kv_tile = (64 if bq <= 64 or d > 128 else 128), 16
     while kv_tile < min(bk, 64):
         kv_tile *= 2
     while kv_tile > 16 and simt_smem_bytes(d, q_tile, kv_tile) > SIMT_SMEM_MAX:
@@ -215,7 +231,7 @@ def kernel_plan(s: int, t: int, bq: int = 128, bk: int = 128, *, d: int,
     out = (ctypes.c_int * 4)()
     if _lib().looptune_flash_attention_plan(s, t, bq, bk, d,
                                             int(dtype == torch.bfloat16), out) != 0:
-        raise ValueError(f"bad plan arguments {(s, t, bq, bk)}")
+        raise ValueError(f"bad plan arguments {(s, t, bq, bk)} at head_dim {d}")
     return {"route": "wgmma" if out[3] else "simt", "q_tile": out[0], "kv_tile": out[1],
             "t_pad": out[2]}
 

@@ -23,11 +23,15 @@ all.
         --full --requests 8 --batch 4 --prompt-len 1024 --gen-len 32 \\
         --max-len 1056
 
-jamba-v0.1-52b's ``--full`` config (32 layers) needs ~103 GB of bf16
-weights, more than one 80 GB card: on one card, serve a depth cut of it
-through :func:`serve_once` (``dataclasses.replace(cfg, n_layers=16)``, two
-whole periods, as ``chip_smoke.py`` does).  Runs on the card; ``--device
-cpu`` runs the kernels' plain versions.
+``--arch`` takes any of the ten architectures.  jamba-v0.1-52b's ``--full``
+config (32 layers) needs ~103 GB of bf16 weights and llama4-scout-17b-a16e's
+(48 layers) ~216 GB, more than one 80 GB card: on one card, serve a depth cut
+of whole periods through :func:`serve_once` (``dataclasses.replace(cfg,
+n_layers=16)`` and ``n_layers=8``, as ``chip_smoke.py`` does).
+llama-3.2-vision-11b's cross-attention layers read encoder states that a
+token prompt does not carry, so :func:`serve_once` refuses it; its steps
+(``models/steps.py``) take them as ``batch["encoder"]``.  Runs on the card;
+``--device cpu`` runs the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.registry import ScheduleRegistry
 from repro_torch.kernels import ops as K
@@ -101,8 +105,37 @@ def serve_once(
 
     ``registry``: tuned-schedule table (path or ScheduleRegistry) to serve
     with; the summary then grows a ``"registry"`` block with the
-    per-contraction hit/miss/routed counters of this run.
+    per-contraction hit/miss/routed counters of this run.  A config with
+    cross-attention layers raises ``ValueError``: its requests would need
+    encoder states.
     """
+    if cfg.n_cross_tokens:
+        raise ValueError(
+            f"{cfg.name} needs an encoder: its cross-attention layers read "
+            f"batch['encoder'] ({cfg.n_cross_tokens} x {cfg.d_cross}), which serve_once's "
+            f"token requests do not carry; drive models.steps.make_prefill_step and "
+            f"make_decode_step with batch['encoder'] instead")
+    return _serve_waves(cfg, requests=requests, batch=batch, prompt_len=prompt_len,
+                        gen_len=gen_len, max_len=max_len, seed=seed, registry=registry,
+                        device=device)
+
+
+def _serve_waves(
+    cfg: ModelConfig,
+    *,
+    requests: int,
+    batch: int,
+    prompt_len: int,
+    gen_len: int,
+    max_len: int,
+    seed: int,
+    registry: Union[str, ScheduleRegistry, None],
+    device,
+    prefill_extra: Optional[Dict[str, torch.Tensor]] = None,
+) -> Dict[str, Any]:
+    """:func:`serve_once`'s loop.  ``prefill_extra``: batch entries added to
+    every prefill's inputs (a cross model's ``encoder``, batch-sized), which
+    the decode steps then read from the cache."""
     device = torch.device(device)
     params = init_model(cfg, seed, device)
     if isinstance(registry, str):
@@ -135,7 +168,9 @@ def serve_once(
             prompts = np.stack([w.prompt for w in wave]
                                + [wave[-1].prompt] * (b - len(wave)))
             t_pre = time.perf_counter()
-            last_logits, caches, cache_len = prefill_one(params, make_inputs(prompts))
+            inputs = make_inputs(prompts)
+            inputs.update(prefill_extra or {})
+            last_logits, caches, cache_len = prefill_one(params, inputs)
             finite &= bool(torch.isfinite(last_logits).all())
             nxt = torch.argmax(last_logits, -1).cpu().numpy().astype(np.int32)
             prefill_times.append(time.perf_counter() - t_pre)
@@ -197,9 +232,9 @@ def serve_once(
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="musicgen-large",
-                    help="a ported architecture: musicgen-large, rwkv6-7b or "
-                         "jamba-v0.1-52b")
+    ap.add_argument("--arch", default="musicgen-large", choices=sorted(ARCHS),
+                    help="an architecture (llama-3.2-vision-11b raises: it needs "
+                         "an encoder)")
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the smoke config)")
     ap.add_argument("--requests", type=int, default=16)

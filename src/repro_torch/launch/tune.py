@@ -51,7 +51,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core.backend import make_backend
 from repro_torch.core.loop_ir import matmul_benchmark
 from repro_torch.core.registry import ScheduleRegistry
@@ -132,8 +132,10 @@ def harvest_model(
 
     Builds the model on ``device`` (random weights from seed 0; ``"cuda"``
     raises without a card) and runs one step of each kind at the serving
-    shapes — the prefill of ``batch`` prompts of ``prompt_len``, a decode
-    step against a cache of ``max_len`` — under an empty registry, so every
+    shapes — the prefill of ``batch`` prompts of ``prompt_len`` (with seeded
+    encoder states where the config has cross layers, as the reference's
+    input specs give them), a decode step against a cache of ``max_len`` —
+    under an empty registry, so every
     dense site records its workload key as a miss
     (``kernels.ops.serving_stats``, whose counters this resets).  Batch
     dims fold into m, as ``tuned_einsum`` folds them.  Returns records
@@ -163,8 +165,11 @@ def harvest_model(
                 params, make_inputs(prompts[:, -1:]), caches, prompt_len)
             del caches
         else:
-            S.make_prefill_step(cfg, max_len=max_len, registry=empty)(
-                params, make_inputs(prompts))
+            inputs = make_inputs(prompts)
+            if cfg.n_cross_tokens:
+                inputs["encoder"] = torch.as_tensor(np.random.default_rng(0).standard_normal(
+                    (batch, cfg.n_cross_tokens, cfg.d_cross), dtype=np.float32), device=dev)
+            S.make_prefill_step(cfg, max_len=max_len, registry=empty)(params, inputs)
         for key, c in K.serving_stats(reset=True)["per_key"].items():
             _, dims, dtype = key.split(":")
             m, k, n = map(int, dims.split("x"))
@@ -524,7 +529,7 @@ def tune_model(
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--registry", required=True, help="registry JSON path")
     ap.add_argument("--full", action="store_true",
                     help="the published widths (default: the smoke config)")

@@ -6,10 +6,11 @@ shape ``(n_periods, ...)``).  :func:`params_from_jax` unstacks that axis
 into one :class:`~repro_torch.models.transformer.ParamTree` per layer, in
 layer order, and keeps every name (``wq``/``wk``/``wv``/``wo``,
 ``w_gate``/``w_up``/``w_down``, ``rwkv.*``, ``cmix.*``, ``mamba.*``,
-``moe.*``, ``norm_attn``, ``norm_ffn``, ``embed.table``, ``lm_head``,
-``final_norm``) and every leaf's dtype: a bf16 model keeps its f32 leaves
-(RWKV-6's decay, bonus and group-norm parameters; Mamba's ``dt_proj``,
-``dt_bias``, ``a_log`` and ``d``; the MoE ``router``) in f32.  It takes numpy arrays (for example
+``moe.*``, a cross layer's ``cross.*`` and ``norm_cross``, ``norm_attn``,
+``norm_ffn``, ``embed.table``, ``lm_head``, ``final_norm``) and every
+leaf's dtype: a bf16 model keeps its f32 leaves (RWKV-6's decay, bonus and
+group-norm parameters; Mamba's ``dt_proj``, ``dt_bias``, ``a_log`` and
+``d``; the MoE ``router``) in f32.  It takes numpy arrays (for example
 ``jax.tree.map(np.asarray, params)``, where a bf16 leaf is an
 ``ml_dtypes`` bfloat16 array), so nothing here imports JAX.
 """

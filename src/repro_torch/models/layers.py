@@ -156,13 +156,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
-def attn_params(generator, cfg, dtype, device) -> Dict[str, torch.Tensor]:
+def attn_params(generator, cfg, dtype, device, cross: bool = False
+                ) -> Dict[str, torch.Tensor]:
+    """q/k/v/o projections (+bias, +qk-norm weights).  ``cross``: k and v
+    project the encoder's ``d_cross``-wide states (where the config has one)."""
     d, hd = cfg.d_model, cfg.head_dim_
     hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    kv_in = cfg.d_cross if (cross and cfg.d_cross) else d
     p = {
         "wq": dense_init(generator, (d, hq * hd), dtype, device),
-        "wk": dense_init(generator, (d, hkv * hd), dtype, device),
-        "wv": dense_init(generator, (d, hkv * hd), dtype, device),
+        "wk": dense_init(generator, (kv_in, hkv * hd), dtype, device),
+        "wv": dense_init(generator, (kv_in, hkv * hd), dtype, device),
         "wo": dense_init(generator, (hq * hd, d), dtype, device),
     }
     if cfg.attn_bias:
@@ -175,19 +179,21 @@ def attn_params(generator, cfg, dtype, device) -> Dict[str, torch.Tensor]:
     return p
 
 
-def attn_qkv(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
-             rope: bool = True):
-    """Project to q/k/v heads (+bias, +qk-norm, +rope)."""
+def attn_qkv(p, cfg, x: torch.Tensor, kv_src: Optional[torch.Tensor] = None,
+             positions: Optional[torch.Tensor] = None, rope: bool = True):
+    """Project to q/k/v heads (+bias, +qk-norm, +rope).  ``kv_src``: the
+    states k and v project (the encoder, for cross-attention); x if None."""
     b, s = x.shape[:2]
     hd = cfg.head_dim_
+    kv_src = x if kv_src is None else kv_src
     q = dense(x, p["wq"])
-    k = dense(x, p["wk"])
-    v = dense(x, p["wv"])
+    k = dense(kv_src, p["wk"])
+    v = dense(kv_src, p["wv"])
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    k = k.reshape(b, kv_src.shape[1], cfg.n_kv_heads, hd)
+    v = v.reshape(b, kv_src.shape[1], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -236,6 +242,9 @@ def embed_apply(p, tokens: torch.Tensor, scale: Optional[float] = None) -> torch
     return x
 
 
+LOGITS_CHUNK = 32768  # vocab rows widened to f32 at once by logits_apply
+
+
 def logits_apply(embed_p, x: torch.Tensor, head_p: Any = None,
                  softcap: Optional[float] = None) -> torch.Tensor:
     """f32 logits ``x (B, S, D) . table (V, D)`` (bf16 operands are
@@ -244,5 +253,12 @@ def logits_apply(embed_p, x: torch.Tensor, head_p: Any = None,
     if K.serving_registry() is not None:
         logits = K.tuned_einsum("bsd,vd->bsv", x, table, out_dtype=torch.float32)
     else:
-        logits = torch.einsum("bsd,vd->bsv", x.float(), table.float())
+        # the table is widened to f32 a slice of LOGITS_CHUNK rows at a time:
+        # a 256k x 8192 head would otherwise add an 8.4 GB f32 copy
+        xf = x.float()
+        logits = torch.empty(*x.shape[:-1], table.shape[0], dtype=torch.float32,
+                             device=x.device)
+        for v0 in range(0, table.shape[0], LOGITS_CHUNK):
+            logits[..., v0:v0 + LOGITS_CHUNK] = torch.einsum(
+                "bsd,vd->bsv", xf, table[v0:v0 + LOGITS_CHUNK].float())
     return _softcap(logits, softcap)

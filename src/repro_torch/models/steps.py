@@ -34,7 +34,9 @@ def _serving_ctx(registry):
 
 def make_prefill_step(cfg: ModelConfig, max_len: int, registry=None) -> Callable:
     """prefill(params, batch) -> (last_logits, caches, cache_len); the
-    caches are allocated on the batch's device."""
+    caches are allocated on the batch's device.  A model with cross layers
+    takes the encoder states as ``batch["encoder"]`` and keeps their
+    projections in the cache for the decode steps."""
 
     def prefill(params, batch):
         x = batch["tokens"] if "tokens" in batch else batch["embeds"]

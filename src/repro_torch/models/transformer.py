@@ -8,12 +8,12 @@ Python loop.  Parameters are read by name as in the JAX pytree
 (``p["attn"]["wq"]``, ``params.get("lm_head")``), and
 ``models/convert.py`` carries a JAX pytree across unchanged.
 
-The port runs attention (global and sliding-window) + dense-MLP layers, the
-layers of musicgen-large; RWKV-6 time-mix + channel-mix layers, those of
-rwkv6-7b; and Mamba mixers and MoE FFNs beside GQA attention and dense MLPs,
-those of jamba-v0.1-52b.  Cross-attention raises ``NotImplementedError``
-(ROADMAP.md).  Sharding annotations (``ashard``) are dropped until
-``runtime/sharding.py`` is ported.  Entry points:
+The port runs every layer kind of the JAX package: attention (global and
+sliding-window), cross-attention (self-attention, then attention over the
+encoder states ``batch["encoder"]``, llama-3.2-vision's), RWKV-6 time-mix +
+channel-mix and Mamba mixers, dense MLP and MoE FFNs.  Sharding annotations
+(``ashard``) are dropped until ``runtime/sharding.py`` is ported.  Entry
+points:
 
   * :func:`forward`        — full-sequence logits (prefill)
   * :func:`decode_step`    — one token against the cache
@@ -21,8 +21,9 @@ those of jamba-v0.1-52b.  Cross-attention raises ``NotImplementedError``
 
 The cache is the JAX layout (one dict per period position, leaves stacked
 over ``n_periods``: attention ``k``/``v`` ``(n_periods, B, buf, HKV, hd)``,
-RWKV-6 ``s`` ``(n_periods, B, H, N, N)`` f32 and ``xt``/``xc``
-``(n_periods, B, D)``, Mamba ``h`` ``(n_periods, B, d_inner, N)`` f32 and
+a cross layer also the encoder's projections ``ck``/``cv`` ``(n_periods,
+B, n_cross_tokens, HKV, hd)``, RWKV-6 ``s`` ``(n_periods, B, H, N, N)`` f32
+and ``xt``/``xc`` ``(n_periods, B, D)``, Mamba ``h`` ``(n_periods, B, d_inner, N)`` f32 and
 ``conv`` ``(n_periods, B, d_conv - 1, d_inner)``), and **prefill and decode
 write into it in place**: the caches passed in are the caches returned.
 """
@@ -51,22 +52,15 @@ from . import mamba as M
 from . import moe as X
 from . import rwkv6 as R
 
-_NOT_PORTED = {
-    CROSS_ATTN: "cross-attention is not ported yet (ROADMAP.md, model zoo)",
-}
-
-
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a layer kind the port cannot run."""
+    """Raise ``ValueError`` for a layer kind the schema does not have."""
     for spec in cfg.period:
-        for kind in (spec.mixer, spec.ffn):
-            if kind in _NOT_PORTED:
-                raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-        if spec.mixer not in (ATTN, ATTN_LOCAL, RWKV6, MAMBA) or spec.ffn not in (DENSE, MOE):
+        if (spec.mixer not in (ATTN, ATTN_LOCAL, CROSS_ATTN, RWKV6, MAMBA)
+                or spec.ffn not in (DENSE, MOE)):
             raise ValueError(f"unknown layer kind {spec}")
 
 
@@ -121,6 +115,9 @@ def _block_init(generator, spec: LayerSpec, cfg: ModelConfig, device) -> Dict[st
                                     cfg.ssm_expand, dt, device)
     else:
         p["attn"] = L.attn_params(generator, cfg, dt, device)
+        if spec.mixer == CROSS_ATTN:
+            p["cross"] = L.attn_params(generator, cfg, dt, device, cross=True)
+            p["norm_cross"] = torch.ones(d, dtype=dt, device=device)
     if spec.ffn == MOE:
         p["moe"] = X.moe_params(generator, d, cfg.moe, dt, device)
     elif spec.mixer == RWKV6:
@@ -149,9 +146,18 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     return make_params(top, blocks)
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Parameters :func:`init_params` makes (shapes only, on the meta device)."""
-    return sum(p.numel() for p in init_params(cfg, None, "meta").parameters())
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters :func:`init_params` makes (shapes only, on the meta device).
+    ``active_only``: a routed MoE expert tensor counts ``top_k / n_experts``
+    of its size (not the router, not a shared expert), the JAX package's rule."""
+    total = 0
+    for name, p in init_params(cfg, None, "meta").named_parameters():
+        n = p.numel()
+        if (active_only and cfg.moe is not None and ".moe." in f".{name}."
+                and "shared" not in name and "router" not in name):
+            n = int(n * cfg.moe.top_k / cfg.moe.n_experts)
+        total += n
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +175,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"
     and the token-shift carries ``xt`` (time-mix) and ``xc`` (channel-mix)
     ``(n_periods, batch, D)``; Mamba keeps the f32 state ``h``
     ``(n_periods, batch, d_inner, N)`` and the conv window ``conv``
-    ``(n_periods, batch, d_conv - 1, d_inner)``."""
+    ``(n_periods, batch, d_conv - 1, d_inner)``; a cross layer also keeps the
+    encoder's k/v projections ``ck``/``cv`` ``(n_periods, batch,
+    n_cross_tokens, HKV, hd)``, written at prefill and read at decode."""
     check_supported(cfg)
     dt = _dtype(cfg)
     caches = []
@@ -195,8 +203,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"
         win = spec.window if spec.mixer == ATTN_LOCAL else None
         buf = min(max_len, win) if win else max_len
         shape = (cfg.n_periods, batch, buf, cfg.n_kv_heads, cfg.head_dim_)
-        caches.append({"k": torch.zeros(shape, dtype=dt, device=device),
-                       "v": torch.zeros(shape, dtype=dt, device=device)})
+        c = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+        if spec.mixer == CROSS_ATTN:
+            xshape = (cfg.n_periods, batch, max(cfg.n_cross_tokens, 1), cfg.n_kv_heads,
+                      cfg.head_dim_)
+            c["ck"] = torch.zeros(xshape, dtype=dt, device=device)
+            c["cv"] = torch.zeros(xshape, dtype=dt, device=device)
+        caches.append(c)
     return tuple(caches)
 
 
@@ -238,15 +252,32 @@ def _apply_mamba(p, h, cache, decode):
     return out
 
 
-def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, decode):
+def _apply_cross(p, cfg, h, out, cache, encoder, decode):
+    """A cross layer's second half, after its self-attention ``out``
+    (projected by ``wo``): ``norm_cross`` on the residual, then non-causal
+    attention over the encoder's projections, without RoPE.  Prefill
+    projects ``encoder`` and writes ``ck``/``cv`` in place; decode reads them."""
+    hx = L.rms_norm(h + out.to(h.dtype), p["norm_cross"])
+    if decode:
+        ck, cv = cache["ck"], cache["cv"]
+        qx = L.dense(hx, p["cross"]["wq"]).reshape(*hx.shape[:2], cfg.n_heads,
+                                                   cfg.head_dim_)
+    else:
+        qx, ck, cv = L.attn_qkv(p["cross"], cfg, hx, kv_src=encoder, rope=False)
+        if cache is not None:
+            cache["ck"].copy_(ck)
+            cache["cv"].copy_(cv)
+    xout = L.attention(qx, ck, cv, causal=False)
+    return out + L.dense(xout.reshape(*h.shape[:2], -1), p["cross"]["wo"]).to(out.dtype)
+
+
+def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, encoder, decode):
     """The mixer on normed input ``h``; writes ``cache`` (one layer's
     views) in place."""
     if spec.mixer == RWKV6:
         return _apply_rwkv(p, cfg, h, cache, decode)
     if spec.mixer == MAMBA:
         return _apply_mamba(p, h, cache, decode)
-    if spec.mixer not in (ATTN, ATTN_LOCAL):
-        raise NotImplementedError(_NOT_PORTED.get(spec.mixer, spec.mixer))
     q, k, v = L.attn_qkv(p["attn"], cfg, h, positions=positions)
     window = spec.window if spec.mixer == ATTN_LOCAL else None
     if not decode:
@@ -276,7 +307,10 @@ def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, decode):
         out = L.attention(q, cache["k"], cache["v"], causal=True, q_offset=cache_len,
                           kv_len=cache_len + 1, window=window,
                           softcap=cfg.attn_softcap, kv_positions=kv_positions)
-    return L.dense(out.reshape(*h.shape[:2], -1), p["attn"]["wo"])
+    out = L.dense(out.reshape(*h.shape[:2], -1), p["attn"]["wo"])
+    if spec.mixer == CROSS_ATTN:
+        return _apply_cross(p, cfg, h, out, cache, encoder, decode)
+    return out
 
 
 def _apply_ffn(spec, p, cfg, h, cache, decode):
@@ -297,10 +331,10 @@ def _apply_ffn(spec, p, cfg, h, cache, decode):
     return out, None
 
 
-def _apply_block(spec, p, cfg, x, cache, cache_len, positions, decode):
+def _apply_block(spec, p, cfg, x, cache, cache_len, positions, encoder, decode):
     """One layer.  Returns (x, aux) with aux as :func:`_apply_ffn`'s."""
     h = L.rms_norm(x, p["norm_attn"])
-    mix = _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, decode)
+    mix = _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, encoder, decode)
     if cfg.post_norm:
         mix = L.rms_norm(mix, p["post_attn"])
     if cfg.parallel_block:
@@ -326,7 +360,7 @@ def _embed_in(params, cfg, batch) -> torch.Tensor:
     return batch["embeds"].to(_dtype(cfg))
 
 
-def _run_layers(params, cfg, x, caches, cache_len, positions, decode):
+def _run_layers(params, cfg, x, caches, cache_len, positions, encoder, decode):
     """Every layer in order.  Returns (x, aux): the sum over MoE layers of
     ``moe_aux_loss + moe_z_loss`` (f32 scalar, 0 without MoE layers)."""
     n = len(cfg.period)
@@ -336,7 +370,7 @@ def _run_layers(params, cfg, x, caches, cache_len, positions, decode):
         cache = (None if caches is None
                  else {name: t[per] for name, t in caches[pos].items()})
         x, layer_aux = _apply_block(cfg.period[pos], p, cfg, x, cache, cache_len,
-                                    positions, decode)
+                                    positions, encoder, decode)
         if layer_aux is not None:
             aux = aux + layer_aux
     return x, aux
@@ -348,10 +382,21 @@ def hidden_states(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Te
     """Full-sequence forward up to the final norm (no logits).  Returns
     (hidden (B, S, D), caches, aux_loss): aux_loss sums each MoE layer's
     ``moe_aux_loss + moe_z_loss`` (0 without MoE layers), as the
-    reference's does."""
+    reference's does.  A model with cross layers reads the encoder states
+    ``batch["encoder"]`` ``(B, n_cross_tokens, d_cross)``."""
     x = _embed_in(params, cfg, batch)
+    encoder = batch.get("encoder")
+    if any(spec.mixer == CROSS_ATTN for spec in cfg.period):
+        want = (x.shape[0], cfg.n_cross_tokens, cfg.d_cross)
+        if encoder is None:
+            raise ValueError(f"{cfg.name} has cross-attention layers: its forward and "
+                             f"prefill need batch['encoder'] of shape {want}")
+        if tuple(encoder.shape) != want:
+            raise ValueError(f"batch['encoder'] is {tuple(encoder.shape)}; {cfg.name} "
+                             f"takes {want}")
+        encoder = encoder.to(_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, aux = _run_layers(params, cfg, x, caches, 0, positions, decode=False)
+    x, aux = _run_layers(params, cfg, x, caches, 0, positions, encoder, decode=False)
     x = L.rms_norm(x, params["final_norm"])
     return x, caches, aux
 
@@ -374,7 +419,7 @@ def decode_step(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tens
     caches)."""
     x = _embed_in(params, cfg, batch)
     positions = torch.full((1, 1), cache_len, device=x.device)
-    x, _ = _run_layers(params, cfg, x, caches, cache_len, positions, decode=True)
+    x, _ = _run_layers(params, cfg, x, caches, cache_len, positions, None, decode=True)
     x = L.rms_norm(x, params["final_norm"])
     logits = L.logits_apply(params["embed"], x, params.get("lm_head"), cfg.logit_softcap)
     return logits, caches

@@ -24,7 +24,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, SIMT_SMEM_MAX, check_aligned,
                                                  flash_attention, flash_attention_plain,
-                                                 launch_plan, simt_smem_bytes)
+                                                 launch_plan, simt_smem_bytes, tc_width)
 from repro_torch.models import layers as TL
 
 TOL = {"float32": 3e-5, "bfloat16": 3e-2}
@@ -166,11 +166,14 @@ def test_model_attention_refuses_a_query_block_over_a_cache():
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """Shapes, dtypes, blocks and softcaps the kernel does not take raise on
+    every device; a head dim without a kernel instance is refused by the
+    launch plan (so on CUDA tensors), while the plain version takes it."""
     q, k = torch.zeros(1, 4, 4, 16), torch.zeros(1, 6, 2, 16)
-    for d in (12, 256):
-        with pytest.raises(ValueError, match="head_dim"):
-            flash_attention(torch.zeros(1, 4, 2, d), torch.zeros(1, 4, 2, d),
-                            torch.zeros(1, 4, 2, d))
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="head_dim 12"):
+            launch_plan(4, 4, d=12, dtype=dtype)
+    assert flash_attention(*(torch.zeros(1, 4, 2, 12) for _ in range(3))).shape == (1, 4, 2, 12)
     with pytest.raises(ValueError):
         flash_attention(q, torch.zeros(1, 6, 3, 16), torch.zeros(1, 6, 3, 16))
     with pytest.raises(ValueError):
@@ -185,6 +188,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q, k, k, softcap=0.0)
 
 
+@pytest.mark.parametrize("d", [12, 48, 96, 256])
+def test_plain_matches_pallas_kernel_at_any_head_dim(d):
+    """The plain version takes any D, as the TPU kernel does: D = 12 and 48
+    (no kernel instance), 96 and 256 (phi3-mini's and gemma3-12b's), causal
+    with a window and a softcap, GQA 2, S != T, against the Pallas kernel in
+    interpret mode (3e-5, f32)."""
+    b, s, t, h, hkv = 1, 40, 33, 4, 2
+    q, k, v = _inputs(b, s, t, h, hkv, d, "float32", seed=d)
+    kw = dict(causal=True, window=24, softcap=50.0, bq=32, bk=16)
+    out = flash_attention_plain(_torch(q), _torch(k), _torch(v), **kw)
+    ref = pallas_flash(*(jnp.asarray(a) for a in (q, k, v)), interpret=True, **kw)
+    _close(out, ref, "float32")
+
+
 # ---------------------------------------------------------------------------
 # launch plan: route and CTA tile by (dtype, D) and the "fa" block (pure Python)
 # ---------------------------------------------------------------------------
@@ -192,6 +209,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 96, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.float32, 96, "simt"), (torch.float32, 256, "simt"),
     (torch.bfloat16, 8, "simt"), (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"), (torch.float32, 8, "simt")])
 def test_launch_plan_route_by_dtype_and_head_dim(dtype, d, route):
@@ -245,6 +264,31 @@ def test_launch_plan_t_pad_follows_the_registry_bk(t, bk, t_pad):
         assert launch_plan(40, t, 64, bk, d=d, dtype=dtype)["t_pad"] == t_pad
 
 
+# (block, tensor-core (q, kv) tile at D = 96 and 256, SIMT f32 at 96 and 256)
+ZOO_TILES = [((16, 16), (64, 16), (64, 16), (64, 16), (64, 16)),
+             ((64, 128), (64, 32), (64, 16), (64, 64), (64, 32)),
+             ((128, 128), (128, 32), (128, 16), (128, 64), (64, 32)),
+             ((128, 32), (128, 32), (128, 16), (128, 32), (64, 32)),
+             ((100, 48), (128, 32), (128, 16), (128, 64), (64, 32)),
+             ((512, 512), (128, 32), (128, 16), (128, 64), (64, 32))]
+
+
+@pytest.mark.parametrize("block,tc96,tc256,simt96,simt256", ZOO_TILES,
+                         ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else x)
+def test_launch_plan_at_the_zoo_head_dims(block, tc96, tc256, simt96, simt256):
+    """D = 96 is staged as 128 columns on the tensor cores, so its kv tile is
+    capped as D = 128's (32 keys), and D = 256's at 16; the SIMT route keeps
+    64 q rows at D = 256 (a 128-row tile spills) and halves the kv tile to
+    fit: each tile within the card's shared memory."""
+    for d, tc, simt in ((96, tc96, simt96), (256, tc256, simt256)):
+        plan = launch_plan(1024, 1024, *block, d=d, dtype=torch.bfloat16)
+        assert plan["route"] == "wgmma" and (plan["q_tile"], plan["kv_tile"]) == tc
+        assert 2 * tc_width(d) * (plan["q_tile"] + 4 * plan["kv_tile"]) + 1024 <= SIMT_SMEM_MAX
+        plan = launch_plan(1024, 1024, *block, d=d, dtype=torch.float32)
+        assert plan["route"] == "simt" and (plan["q_tile"], plan["kv_tile"]) == simt
+        assert simt_smem_bytes(d, *simt) <= SIMT_SMEM_MAX
+
+
 def test_launch_plan_rejects_empty_arguments():
     for args in ((0, 4, 1, 1), (4, 0, 1, 1), (4, 4, 0, 1), (4, 4, 1, 0)):
         with pytest.raises(ValueError):
@@ -293,12 +337,13 @@ def test_wrapper_at_each_simt_tile_matches_pallas(block, dtype, d):
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_simt_plan_fits_the_shared_memory(d):
     """The SIMT kv tile is the power of two >= bk in [16, 64], halved only
-    while the CTA's Q, K/V ring and P exceed the card's shared memory."""
+    while the CTA's Q, K/V ring and P exceed the card's shared memory (the q
+    tile is 64 rows at D = 256 whatever the block)."""
     for bq in (1, 16, 64, 65, 128, 512):
         for bk in (1, 16, 17, 33, 64, 128, 1000):
             plan = launch_plan(1024, 1024, bq, bk, d=d, dtype=torch.float32)
             tq, tk = plan["q_tile"], plan["kv_tile"]
-            assert tq == (64 if bq <= 64 else 128) and tk in (16, 32, 64)
+            assert tq == (64 if bq <= 64 or d == 256 else 128) and tk in (16, 32, 64)
             assert simt_smem_bytes(d, tq, tk) <= SIMT_SMEM_MAX
             want = 16
             while want < min(bk, 64):

@@ -202,7 +202,7 @@ FLASH_CASES = [
     (2, 130, 130, 4, 4, 64, True, None, None, 128, 128, False),
     (1, 70, 70, 2, 2, 64, False, None, 20.0, 8, 64, False),
     (2, 70, 70, 8, 2, 128, True, None, None, 128, 128, False),  # jamba's D and GQA group
-] + [  # the tensor-core route's (bf16 at D = 64, 128): ragged S != T, GQA 4,
+] + [  # the tensor-core route's (bf16 at D = 64, 128): ragged S != T, GQA 4, 5, 8,
     # a window with blind rows, softcaps, every kv tile (bk 16, 32, 48 -> 64,
     # 128 -> 128 at D = 128) and q tile (bq <= 64, > 64), a strided q view
     (b, s, t, h, hkv, d, causal, window, softcap, bq, bk, q_view)
@@ -213,7 +213,9 @@ FLASH_CASES = [
         (1, 120, 90, 4, 1, True, 24, None, 128, 16, False),   # rows 113-119 see no key
         (2, 130, 130, 4, 2, True, None, 30.0, 64, 128, False),
         (2, 96, 96, 8, 2, True, None, None, 100, 48, False),
-        (2, 77, 77, 8, 2, True, None, None, 128, 128, True))]
+        (2, 77, 77, 8, 2, True, None, None, 128, 128, True),
+        (1, 150, 150, 10, 2, True, None, 50.0, 128, 64, False),  # llama4-scout's group
+        (2, 90, 130, 16, 2, False, None, None, 64, 128, False))]  # command-r's group
 
 
 @pytest.mark.cuda
@@ -558,6 +560,66 @@ def test_flash_simt_route_on_the_card(dtype, d):
         ref = flash_attention_plain(q, k, v, **kw)
         assert out.dtype == dt and out.shape == ref.shape
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# (B, S, T, H, HKV, causal, window, softcap, bq, bk, q_view) at the zoo's head
+# dims 96 (phi3-mini) and 256 (gemma3-12b): GQA groups 5 (llama4-scout) and 8
+# (command-r), ragged S != T, a window whose rows 113-119 see no key, a
+# softcap, every kv tile of both routes, a non-causal T off any tile (the
+# cross-attention's form) and a strided q view
+ZOO_FLASH_CASES = [(1, 100, 100, 5, 1, True, None, None, 128, 128, False),
+                   (1, 70, 150, 8, 1, False, None, None, 64, 64, False),
+                   (1, 150, 70, 10, 2, True, None, None, 128, 32, False),
+                   (1, 120, 90, 4, 1, True, 24, None, 128, 16, False),
+                   (2, 130, 130, 4, 2, True, None, 30.0, 64, 128, False),
+                   (2, 64, 100, 5, 1, False, None, None, 128, 128, False),
+                   (1, 77, 77, 8, 1, True, None, None, 128, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [96, 256])
+def test_flash_kernel_at_the_zoo_head_dims_on_the_card(d, dtype):
+    """bf16 on the tensor cores (D = 96 staged as 128 zero-padded columns),
+    f32 on the SIMT route, each case with the kernel's own plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
+                                                     kernel_plan, launch_plan)
+
+    dt = getattr(torch, dtype)
+    tol = 3e-5 if dtype == "float32" else 3e-2
+    g = torch.Generator(device="cuda").manual_seed(d)
+    for (b, s, t, h, hkv, causal, window, softcap, bq, bk, q_view) in ZOO_FLASH_CASES:
+        if q_view:
+            q = torch.randn(b, s, 3, h, d, generator=g, device="cuda").to(dt)[:, :, 0]
+        else:
+            q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt) for _ in range(2))
+        kw = dict(causal=causal, window=window, softcap=softcap, bq=bq, bk=bk)
+        plan = launch_plan(s, t, bq, bk, d=d, dtype=dt)
+        assert plan == kernel_plan(s, t, bq, bk, d=d, dtype=dt)
+        assert plan["route"] == ("wgmma" if dtype == "bfloat16" else "simt")
+        before = flash_attention.launches
+        out = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        ref = flash_attention_plain(q, k, v, **kw)
+        assert out.dtype == dt and out.shape == ref.shape
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_launch_refuses_a_head_dim_without_an_instance_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.zeros(1, 4, 2, 12, device="cuda")
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="head_dim 12"):
+        flash_attention(q, q, q)
+    assert flash_attention.launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -169,12 +169,18 @@ def test_param_count_matches_jax(arch_cfg):
     assert t_cfg.param_count() == r_cfg.param_count()
 
 
-def test_other_archs_are_not_ported_yet():
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("gemma2-27b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_every_reference_arch_resolves_with_equal_fields():
+    from repro.configs import ARCHS as R_ARCHS
+    from repro_torch.configs import ARCHS
+
+    assert sorted(ARCHS) == sorted(R_ARCHS) and len(ARCHS) == 10
+    for name, r_cfg in R_ARCHS.items():
+        assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(r_cfg), name
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-5")
+    with pytest.raises(ValueError, match="unknown layer kind"):
         TT.init_params(dataclasses.replace(get_config("musicgen-large").smoke(),
-                                           period=(LayerSpec("cross_attn", DENSE),)),
+                                           period=(LayerSpec("conv", DENSE),)),
                        None, "meta")
 
 
@@ -245,7 +251,12 @@ def test_serve_main_on_cpu(capsys):
 
 
 def test_model_modules_import_neither_jax_nor_the_jax_package():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.models.convert\n"
+    code = ("import sys, repro_torch.launch.serve, repro_torch.models.convert, "
+            "repro_torch.configs, repro_torch.models.moe, repro_torch.models.mamba, "
+            "repro_torch.models.rwkv6, repro_torch.kernels.flash_attention\n"
+            "from repro_torch.configs import ARCHS\n"
+            "from repro_torch.models.transformer import init_params\n"
+            "[init_params(c, None, 'meta') for c in ARCHS.values()]\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n")

@@ -206,6 +206,61 @@ def test_pool_poison_schedule_resolves_as_failed_not_in_parent():
     assert stats["respawns"] >= 2
 
 
+# A worker whose ready message is far larger than a pipe's buffer, so that
+# sending it takes a while, and whose first schedule ends its process at
+# once.  Through a result queue shared by all workers (written by a feeder
+# thread under one lock) the worker died holding that lock mid-message, and
+# no later result arrived; each worker's own pipe, written synchronously,
+# loses nothing.  Run in a subprocess, so that a pool that wedges fails the
+# test at its timeout instead of hanging the suite.
+_DIES_AFTER_READY = r"""
+import os
+import time
+from repro_torch.core import LoopNest, WorkerPool, matmul_benchmark, register_backend
+from repro_torch.core.actions import apply_action, build_action_space, is_legal
+from repro_torch.core.cpu_backend import CPUMeasuredBackend
+
+
+def factory(poison="", policy=None):
+    class BigReady(CPUMeasuredBackend):
+        def worker_ready(self):
+            return dict(super().worker_ready(), blob="x" * (16 << 20))
+
+        def measure(self, nest, worker=-1):
+            if repr(nest.structure_key()) == poison:
+                os._exit(3)
+            return super().measure(nest, worker=worker)
+
+    return BigReady(policy=policy)
+
+
+register_backend("big_ready", factory)
+nests = [LoopNest(matmul_benchmark(32, 32, 32)) for _ in range(2)]
+for a in build_action_space():  # a second schedule: one structure-changing action
+    if is_legal(nests[1], a):
+        apply_action(nests[1], a)
+        if nests[1].structure_key() != nests[0].structure_key():
+            break
+with WorkerPool("big_ready", {"poison": repr(nests[0].structure_key())}, n_workers=1,
+                start_method="fork", max_task_retries=1, task_timeout_s=30.0) as pool:
+    time.sleep(1.0)  # the worker is ready, its message waiting on a full pipe
+    ms = pool.measure_batch(nests)
+    stats = pool.stats()
+print(ms[0].gflops, ms[1].gflops > 0, stats["failed_tasks"], stats["hung_killed"])
+"""
+
+
+def test_worker_dying_right_after_a_long_ready_message_wedges_nothing():
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(
+        os.path.join(os.path.dirname(__file__), os.pardir, "src")))
+    out = subprocess.run([sys.executable, "-c", _DIES_AFTER_READY], env=env, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    assert out.split() == ["0.0", "True", "1", "0"]
+
+
 def test_pool_kills_hung_worker_and_recovers(tmp_path):
     token = tmp_path / "hang-once"
     token.write_text("zzz")
