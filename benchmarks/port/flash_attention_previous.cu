@@ -629,8 +629,10 @@ int looptune_flash_attention_plan(int S, int T, int bq, int bk, int D, int bf16,
 // D in {8, 16, 32, 64, 128}; H a multiple of HKV.  softcap <= 0 means none.
 // On the "wgmma" route every base is 16-byte aligned and every stride a
 // multiple of 8 elements (the wrapper checks).
-int looptune_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                             int S, int T, int H, int HKV, int D, long long qsb,
+// lse: the current wrapper's log-sum-exp output, which this design does not
+// write (the timing script passes null)
+int looptune_flash_attention(const void* q, const void* k, const void* v, void* o,
+                             void* /*lse*/, int B, int S, int T, int H, int HKV, int D, long long qsb,
                              long long qss, long long qsh, long long ksb, long long kss,
                              long long ksh, long long vsb, long long vss, long long vsh,
                              int bq, int bk, float scale, float softcap, int causal,

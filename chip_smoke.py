@@ -7,10 +7,11 @@ toolkit and PyTorch; it needs nothing else.  Phases, each printing one JSON
 line with its seconds:
 
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build  — nvcc builds the tiled-matmul, flash-attention, RWKV-6 scan and
-   Mamba scan kernels from ``src/repro_torch`` and a copy of each scan
-   kernel, two of the flash kernel and two of the matmul with one term
-   dropped (the mutation checks below), in parallel, and reports ptxas'
+2. build  — nvcc builds the tiled-matmul, flash-attention, flash backward,
+   RWKV-6 scan and Mamba scan kernels from ``src/repro_torch`` and a copy
+   of each scan kernel, two of the flash kernel, one of the flash backward
+   and two of the matmul with one term dropped (the mutation checks
+   below), in parallel, and reports ptxas'
    register lines (for each instance of the Mamba scan and of flash's SIMT
    kernel: registers and spills) and the number of HGMMA (wgmma)
    instructions in the flash and matmul libraries' SASS;
@@ -153,6 +154,27 @@ line with its seconds:
    over the 1025 tokens (the MoE models with every token routed to all
    experts and at a capacity where nothing drops: llama4 in bf16, olmoe with
    its weights widened to f32), finite logits and peak memory under 80 GB;
+   train  — the sixth path, training: flash_bwd holds the flash backward
+   kernel (``csrc/flash_attention_bwd.cu``) against its plain version on
+   the same q, k, v, out, dout and lse, and the forward kernel's lse against
+   the plain forward's, in f32 and bf16 at every backward head dim (causal,
+   a window, softcap 50, GQA 1/4/8, S and T off any tile, rows that see no
+   key, musicgen-large's (4, 1024, 32, 64)), refuses D = 256, and the
+   kernel without its ``- delta`` must fail more than half of the
+   multi-tile cases; scan_grads holds both scans' autograd functions (the
+   kernel forward, the plain-recompute backward) against plain autograd;
+   train_model trains musicgen-large at its published widths (48 layers,
+   bf16 with an f32 master copy and f32 moments, remat "block",
+   ``registry=None``) for four AdamW steps on one repeated 4 x 1024 batch of
+   the data pipeline: the loss falls, peak memory stays under 80 GB, and
+   each step launches flash forward 96 times (48 layers and their
+   recompute) and the backward 48 times, no other kernel; then one traced
+   step, and one step's gradients at the same widths cut to 2 layers with
+   the kernels against the plain flash forward and backward; last,
+   train_launcher runs ``repro_torch.launch.train`` as subprocesses:
+   olmoe's smoke config through an injected failure and a resume,
+   phi3-mini's with int8 gradient compression, rwkv6-7b's and jamba's
+   launching their scans, every loss falling;
 6. timing — per contraction, in f32 on the SIMT route: the kernel at its
    tuned block and at 128^3 (each with its TFLOP/s), the plain version,
    ``torch.matmul`` (the library yardstick only), and the bound (bytes over
@@ -173,17 +195,21 @@ line with its seconds:
    then the Mamba scan at jamba's prefill shape against its plain version
    and its bound (bytes, FP32 operations, or the exponentials at the SFU
    rate and the card's top SM clock, whichever is largest), with its device
-   time and a block sweep.
+   time and a block sweep; then the flash backward at musicgen-large's
+   training shape against its plain version, autograd's backward of one
+   SDPA call (yardstick only) and its bound, and the forward with and
+   without its lse output.
 
-All four kernels' launch counts are set to 0 before phase 4 and read after
+All five kernels' launch counts are set to 0 before phase 4 and read after
 phase 5, set to 0 again before the policy phase and read after it, and
 before the actor-critic phase and read after it, before the fleet path and
 read after its farm phase (its workers' launches, counted by their spies,
 added to the parent's), set to 0 before the
 model's ``tune_model`` and read right after its serve run, and set to 0
 before rwkv6-7b's and jamba's serve runs and each zoo model's and read
-right after each (path zoo sums its seven); each path must launch its own
-kernels and no other.
+right after each (path zoo sums its seven), and set to 0 before path
+train's four training steps and read after them; each path must launch its
+own kernels and no other.
 Launches made to
 compare, trace, check or time do not count.  Per-case detail goes to
 ``chiprun_out/chip_smoke_cases.jsonl``.  Any failure exits non-zero before
@@ -334,6 +360,37 @@ POLICY_PROBE = 64          # states on which reloaded policies must act alike
 TIE_GAP = 1e-3             # 100x the f32 score tolerance (1e-5 relative)
 
 
+# path train: the flash backward kernel against its plain version (allclose
+# rtol = atol: f32 the JAX package's own flash-gradient tolerance,
+# tests/test_attention.py:106; bf16 the forward's 3e-2), the forward's lse
+# against the plain forward's; the scans' autograd against plain autograd
+FLASH_BWD_LIMIT = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
+LSE_LIMIT = 1e-5
+FLASH_BWD_MUTANT_LINE = "const float ds = pv * (dp[i][j] - dl_s[r]) * fac;  // ds = p (dP - delta)"
+SCAN_GRAD_RWKV = (2, 256, 4, 64)      # (B, S, H, N)
+SCAN_GRAD_MAMBA = (2, 256, 256, 16)   # (B, S, C, N)
+SCAN_LIMIT_GRAD = 2e-4
+# musicgen-large trained at its published widths: 48 layers, bf16 params
+# with an f32 master copy and f32 moments, remat "block", registry=None,
+# one repeated batch of 4 x 1024 frames from the data pipeline
+MUSICGEN_PARAMS = 3_229_812_736
+TRAIN_BATCH = (4, 1024)
+TRAIN_STEPS = 4
+# constant; at this init (logits at scale ~45, loss ~159) 3e-4 and 1e-4
+# rise again by the third step, 2e-5 falls 159 -> 123 -> 85 -> 61 -> 35
+# (an H100 SXM at 700 W, six steps each)
+TRAIN_LR = 2e-5
+TRAIN_FA_SHAPE = (4, 1024, 32, 64)  # (B, S, H, D) of its attention
+TRAIN_CHECK_LAYERS = 2  # the kernel-vs-plain gradient check's depth
+# per leaf, max |kernel grad - plain grad| / max |plain grad|, bf16 at the
+# published widths cut to 2 layers: about twice the first reading with the
+# correct kernels, 0.0636 at lm_head (median leaf 0.033; an H100 SXM at
+# 700 W).  The kernels' forward rounds p to bf16 where the plain one keeps
+# f32, and at this init's logit scale (~45, loss ~150) the head's gradient
+# moves with the hidden states' last bits
+TRAIN_CHECK_LIMIT = 0.13
+
+
 def reset_launches() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
@@ -345,12 +402,13 @@ def reset_launches() -> None:
 def kernel_wrappers() -> dict:
     """Each kernel's wrapper by name; a wrapper adds one to its ``launches``
     where it launches its kernel and nowhere else."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.rwkv6_scan import rwkv6_chunk_scan
 
     return {"tiled_matmul": matmul, "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "rwkv6_scan": rwkv6_chunk_scan, "mamba_scan": mamba_scan}
 
 
@@ -1795,8 +1853,8 @@ def device_times(prof, wall_s: float, path: Path) -> dict:
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
-    by = {"flash_attention": 0.0, "tiled_matmul": 0.0, "rwkv6_scan": 0.0,
-          "mamba_scan": 0.0, "other": 0.0}
+    by = {"flash_attention": 0.0, "flash_attention_bwd": 0.0, "tiled_matmul": 0.0,
+          "rwkv6_scan": 0.0, "mamba_scan": 0.0, "other": 0.0}
     spans = []
     for e in events:
         if e.get("ph") != "X" or str(e.get("cat", "")).lower() not in DEVICE_CATS:
@@ -1805,6 +1863,7 @@ def device_times(prof, wall_s: float, path: Path) -> dict:
         spans.append((start, start + dur))
         name = e.get("name", "")
         key = ("flash_attention" if "flash_fwd" in name else
+               "flash_attention_bwd" if "flash_bwd" in name else
                "tiled_matmul" if "simt_matmul" in name or "tc_matmul" in name else
                "rwkv6_scan" if "rwkv6_chunk_intra" in name or "rwkv6_state_walk" in name else
                "mamba_scan" if "mamba_scan" in name else "other")
@@ -2508,6 +2567,453 @@ def phase_zoo(out_dir: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# path train: musicgen-large trained at full width; the flash backward kernel
+# ---------------------------------------------------------------------------
+
+
+def flash_bwd_cases() -> list:
+    """(B, S, T, H, HKV, D, causal, window, softcap, dtype): every head dim
+    with a backward instance in f32 and bf16, causal, a window, softcap 50,
+    GQA 1/4/8, S and T off any 64-row tile (S != T too), rows that see no
+    key, and musicgen-large's training shape."""
+    from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
+
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        for i, d in enumerate(BWD_HEAD_DIMS):
+            cases += [(2, 100, 100, 4, 4, d, True, None, None, dt),
+                      (1, 130, 130, 8, 2, d, True, 40, None, dt),          # window, GQA 4
+                      (1, 77, 77, 8, 1, d, True, None, 50.0, dt),          # softcap 50, GQA 8
+                      (2, 70, 150, 4, 1, d, False, None, None, dt),        # S < T, GQA 4
+                      (1, 150, 70, 4, 4, d, True, None, 50.0, dt)]         # S > T
+            if i % 2 == 0:
+                cases.append((1, 120, 90, 4, 1, d, True, 24, None, dt))    # rows 113-119 see no key
+        cases.append((1, 40, 24, 2, 2, 16, False, None, None, dt))         # one tile each way
+    cases.append((4, 1024, 1024, 32, 32, 64, True, None, None, torch.bfloat16))
+    return cases
+
+
+def flash_bwd_case_check(case, g) -> dict:
+    """One case: the backward kernel against ``flash_attention_bwd_plain``
+    on the same q, k, v, out, dout and lse (the forward kernel's), and the
+    forward kernel's lse against the plain forward's."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_plain)
+
+    b, s, t, h, hkv, d, causal, window, softcap, dt = case
+    q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt) for _ in range(2))
+    dout = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    _, plain_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    lim = FLASH_BWD_LIMIT[dt]
+    ratios = {name: ((a.float() - r.float()).abs() / (lim + lim * r.float().abs())).max().item()
+              for name, a, r in zip(("dq", "dk", "dv"), got, want)}
+    lse_ratio = ((lse - plain_lse).abs() / (LSE_LIMIT + LSE_LIMIT * plain_lse.abs())).max().item()
+    return {"bsthd": [b, s, t, h, hkv, d], "causal": causal, "window": window,
+            "softcap": softcap, "dtype": str(dt).replace("torch.", ""), "limit": lim,
+            "ratio_to_limit": ratios, "worst_ratio": max(ratios.values()),
+            "max_abs_err": max((a.float() - r.float()).abs().max().item()
+                               for a, r in zip(got, want)),
+            "lse_ratio_to_limit": lse_ratio}
+
+
+def phase_flash_bwd(cases_f, mutant: Path) -> dict:
+    """The backward kernel against its plain version over
+    :func:`flash_bwd_cases` (and the forward's lse), a head dim without an
+    instance refused, then the mutant without ``- delta`` through the same
+    wrapper over the multi-tile cases: more than half must fail."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import _declare_bwd, flash_attention_bwd
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = flash_bwd_cases()
+    rows, failures = [], []
+    for case in cases:
+        c = flash_bwd_case_check(case, g)
+        cases_f.write(json.dumps({"flash_bwd": c}) + "\n")
+        rows.append(c)
+        if not (c["worst_ratio"] <= 1.0 and c["lse_ratio_to_limit"] <= 1.0):
+            failures.append(c)
+    x = torch.zeros(1, 8, 2, 256, device="cuda")
+    lse = torch.zeros(1, 2, 8, device="cuda")
+    try:
+        flash_attention_bwd(x, x, x, x, x, lse)
+        refused = False
+    except ValueError:
+        refused = True
+    multi = [case for case in cases if max(case[1], case[2]) > 64]
+    with _build.substitute("flash_attention_bwd", mutant, _declare_bwd):
+        mut = [flash_bwd_case_check(case, g) for case in multi]
+    for c in mut:
+        cases_f.write(json.dumps({"flash_bwd_mutant": c}) + "\n")
+    outside = sum(not c["worst_ratio"] <= 1.0 for c in mut)
+    by = {}
+    for c in rows:
+        key = f"{c['dtype']} D={c['bsthd'][5]}"
+        by[key] = max(by.get(key, 0.0), c["worst_ratio"])
+    row = {"cases": len(rows), "limits": {"float32": FLASH_BWD_LIMIT[torch.float32],
+                                          "bfloat16": FLASH_BWD_LIMIT[torch.bfloat16],
+                                          "lse": LSE_LIMIT},
+           "worst_ratio_by_head_dim": by,
+           "worst_lse_ratio": max(c["lse_ratio_to_limit"] for c in rows),
+           "musicgen_shape": rows[-1], "d256_refused": refused, "failures": failures[:5]}
+    emit("flash_bwd", t0, **row)
+    emit("mutation", t0, kernel="flash_attention_bwd", dropped=FLASH_BWD_MUTANT_LINE,
+         multi_tile_cases=len(mut), outside_limit=outside,
+         min_ratio_to_limit=min(c["worst_ratio"] for c in mut))
+    if failures or not refused:
+        raise SystemExit(f"flash_bwd: {len(failures)} cases outside their limits, "
+                         f"D = 256 refused: {refused}")
+    if not outside > len(mut) / 2:
+        raise SystemExit(f"flash_bwd mutant: only {outside} of {len(mut)} multi-tile cases "
+                         f"outside their limit")
+    return row
+
+
+def phase_scan_grads() -> dict:
+    """Each scan's autograd function (kernel forward, plain-recompute
+    backward) against plain autograd through its plain version on the card:
+    the gradient of every input within 2e-4."""
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_plain_model
+    from repro_torch.kernels.rwkv6_scan import rwkv6_chunk_scan, rwkv6_chunk_scan_plain_heads
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def grads(fn, inputs, weights):
+        leaves = [x.clone().requires_grad_() for x in inputs]
+        y, state = fn(leaves)
+        ((y * weights[0]).sum() + (state * weights[1]).sum()).backward()
+        return [x.grad for x in leaves], type(y.grad_fn).__name__
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    # the inputs as the kernel phases draw them (the JAX kernel tests'
+    # decays: a chunk's cumulative log decay stays inside exp's f32 range)
+    b, s, h, n = SCAN_GRAD_RWKV
+    rw_in = list(rwkv_inputs((b, s, h, n, RWKV_CHUNK, torch.float32, False), SEED)[:5])
+    rw_w = (rand(b, s, h, n), rand(b, h, n, n))
+    b, s, c, n = SCAN_GRAD_MAMBA
+    mb_in = list(mamba_inputs((b, s, c, n, MAMBA_CHUNK, MAMBA_BD, torch.float32, False),
+                              SEED)[:5])
+    mb_w = (rand(b, s, c), rand(b, c, n))
+    out, ok = {}, True
+    for name, inputs, weights, kern, plain in (
+            ("rwkv6_scan", rw_in, rw_w,
+             lambda x: rwkv6_chunk_scan(*x, chunk=RWKV_CHUNK),
+             lambda x: rwkv6_chunk_scan_plain_heads(*x, chunk=RWKV_CHUNK)),
+            ("mamba_scan", mb_in, mb_w,
+             lambda x: mamba_scan(*x, chunk=MAMBA_CHUNK, bd=MAMBA_BD),
+             lambda x: mamba_scan_plain_model(*x, chunk=MAMBA_CHUNK))):
+        got, fn_name = grads(kern, inputs, weights)
+        want, _ = grads(plain, inputs, weights)
+        torch.cuda.synchronize()
+        ratio = max(((a - w).abs() / (SCAN_LIMIT_GRAD + SCAN_LIMIT_GRAD * w.abs())).max().item()
+                    for a, w in zip(got, want))
+        out[name] = {"grad_fn": fn_name, "inputs": len(got), "worst_ratio_to_limit": ratio}
+        ok = ok and ratio <= 1.0 and fn_name in ("RWKV6ScanBackward", "MambaScanBackward")
+    emit("scan_grads", t0, rwkv_bshn=list(SCAN_GRAD_RWKV), mamba_bscn=list(SCAN_GRAD_MAMBA),
+         limit=SCAN_LIMIT_GRAD, **out)
+    if not ok:
+        raise SystemExit(f"scan_grads: {out}")
+    return out
+
+
+class PlainFlash(torch.autograd.Function):
+    """Flash attention's plain forward and plain backward on CUDA tensors:
+    what a training step is held against."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, bq, bk):
+        from repro_torch.kernels.flash_attention import flash_attention_plain
+
+        out, lse = flash_attention_plain(q, k, v, causal=causal, window=window,
+                                         softcap=softcap, bq=bq, bk=bk, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap, bk=bk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+
+        q, k, v, out, lse = ctx.saved_tensors  # read once: the remat unpacks each once
+        return (*flash_attention_bwd_plain(q, k, v, out, dout, lse, **ctx.opts),
+                None, None, None, None, None)
+
+
+def train_grads(cfg, batch, plain: bool) -> dict:
+    """The gradients of one loss evaluation of ``cfg`` at seeded weights on
+    ``batch``, through the flash kernels or (``plain``) their plain versions."""
+    import importlib
+
+    from repro_torch.models import steps as S
+
+    # the module (``repro_torch.kernels.flash_attention`` the attribute is
+    # the ops function of that name)
+    FA = importlib.import_module("repro_torch.kernels.flash_attention")
+    params, _ = S.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                   "cuda")
+    kernel_fn = FA.FlashAttention
+    if plain:
+        FA.FlashAttention = PlainFlash
+    try:
+        loss, _ = S.make_loss_fn(cfg)(params, batch)
+        loss.backward()
+    finally:
+        FA.FlashAttention = kernel_fn
+    # the embedding table of an embeds frontend gets no gradient (zeros)
+    return {k: (p.grad if p.grad is not None else torch.zeros_like(p)).float()
+            for k, p in params.named_parameters()}
+
+
+def phase_train_model(out_dir: Path) -> dict:
+    """Path train's model phase: musicgen-large at its published widths (48
+    layers, bf16, f32 master and moments, remat "block", registry=None)
+    takes TRAIN_STEPS AdamW steps on one repeated 4 x 1024 batch from the
+    data pipeline, launches counted from 0 just before and read just after;
+    then one traced step, and a step's gradients with the kernels against
+    the plain flash at the same widths cut to 2 layers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_dataset
+    from repro_torch.models import steps as S
+    from repro_torch.optim.schedules import constant
+
+    t0 = time.perf_counter()
+    cfg = get_config("musicgen-large")
+    b, s = TRAIN_BATCH
+    ds = make_dataset(cfg, None, seed=SEED, global_batch=b, seq_len=s)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in ds.batch(0).items()}
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = S.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                     "cuda")
+    state_bytes = torch.cuda.memory_allocated()
+    step = S.make_train_step(cfg, constant(TRAIN_LR), weight_decay=0.1, max_grad_norm=1.0)
+    torch.cuda.synchronize()
+    reset_launches()  # the path's main drive starts here
+    losses, gnorms, times = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = read_launches()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    traced = device_times(prof, wall, out_dir / "trace.json")
+    # the step's device time by kernel name, largest first (what "other" is)
+    by_name = sorted(((e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
+                      for e in prof.key_averages()), key=lambda kv: -kv[1])
+    traced["top_device_ms"] = [[name[:80], ms] for name, ms in by_name[:12]]
+    del params, opt, m, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+    kern = train_grads(cut, batch, plain=False)
+    plain = train_grads(cut, batch, plain=True)
+    per_leaf = {k: ((kern[k] - plain[k]).abs().max()
+                    / plain[k].abs().max().clamp_min(1e-30)).item() for k in kern}
+    worst = max(per_leaf, key=per_leaf.get)
+    del kern, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    p50 = sorted(times[1:])[len(times[1:]) // 2]
+    per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab, "dtype": cfg.dtype, "params": cfg.param_count(),
+           "remat": cfg.remat_policy, "batch": [b, s], "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+           "loss": losses, "grad_norm": gnorms, "step_s": times, "step_ms_p50": p50 * 1e3,
+           "tokens_per_s": b * s / p50, "state_bytes": state_bytes,
+           "max_memory_allocated": peak, "launches": launches, "launches_per_step": per_step,
+           "traced_step": {k: traced.get(k) for k in (
+               "wall_ms", "busy_ms", "device_ms", "flash_attention_ms",
+               "flash_attention_bwd_ms", "other_ms", "idle_share", "top_device_ms")},
+           "kernel_vs_plain": {"layers": TRAIN_CHECK_LAYERS, "worst_leaf": worst,
+                               "worst": per_leaf[worst], "limit": TRAIN_CHECK_LIMIT,
+                               "median": float(np.median(list(per_leaf.values())))}}
+    emit("train_model", t0, **row)
+    check_path_launches("train", launches, ("flash_attention", "flash_attention_bwd"))
+    checks = {
+        f"params == {MUSICGEN_PARAMS:,}": row["params"] == MUSICGEN_PARAMS,
+        "loss and grad norm finite": all(np.isfinite(losses + gnorms)),
+        "loss falls (loss[3] < loss[0])": losses[3] < losses[0],
+        "peak memory under 80 GB": peak < CARD_BYTES,
+        f"flash forward {2 * cfg.n_layers} a step": launches["flash_attention"]
+            == 2 * cfg.n_layers * TRAIN_STEPS,
+        f"flash backward {cfg.n_layers} a step": launches["flash_attention_bwd"]
+            == cfg.n_layers * TRAIN_STEPS,
+        f"kernel vs plain gradients <= {TRAIN_CHECK_LIMIT}": per_leaf[worst] <= TRAIN_CHECK_LIMIT,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"train_model failed: {bad}")
+    return row
+
+
+def start_train_launcher(args: list) -> subprocess.Popen:
+    """``repro_torch.launch.train`` in a subprocess with ``args``, which
+    prints the kernels' launch counts after it returns (read it with
+    :func:`train_launcher_result`)."""
+
+    code = ("import json, sys; sys.path.insert(0, 'src');"
+            "from repro_torch.launch import train;"
+            "from repro_torch.kernels.flash_attention import flash_attention,"
+            " flash_attention_bwd;"
+            "from repro_torch.kernels.mamba_scan import mamba_scan;"
+            "from repro_torch.kernels.matmul import matmul;"
+            "from repro_torch.kernels.rwkv6_scan import rwkv6_chunk_scan;"
+            "rc = train.main(sys.argv[1:]);"
+            "fns = {'tiled_matmul': matmul, 'flash_attention': flash_attention,"
+            " 'flash_attention_bwd': flash_attention_bwd,"
+            " 'rwkv6_scan': rwkv6_chunk_scan, 'mamba_scan': mamba_scan};"
+            "print('[launches]', json.dumps({k: f.launches for k, f in fns.items()}),"
+            " flush=True);"
+            "sys.exit(rc)")
+    return subprocess.Popen([sys.executable, "-c", code, *args], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def train_launcher_result(proc: subprocess.Popen) -> tuple:
+    """(summary, stdout, launch counts) of a run :func:`start_train_launcher`
+    started; a run that fails or outlasts 600 s fails the phase."""
+    import re
+
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SystemExit(f"train launcher {proc.args[3:]} ran past 600 s")
+    if proc.returncode != 0:
+        raise SystemExit(f"train launcher {proc.args[3:]} failed:\n{err[-3000:]}")
+    summary = json.loads(re.search(r"\[train\] done: (\{.*\})", out).group(1))
+    counts = json.loads(re.search(r"\[launches\] (\{.*\})", out).group(1))
+    return summary, out, counts
+
+
+def phase_train_launcher() -> dict:
+    """The launcher on the card, as subprocesses (four at once, the resume
+    after its first run): olmoe's smoke config surviving an injected
+    failure and resuming from its checkpoint, phi3-mini's with int8
+    gradient compression, rwkv6-7b's and jamba's launching their scans;
+    every loss falls."""
+    t0 = time.perf_counter()
+    ckpt = fresh_dir(ROOT / "build" / "train_ckpt")
+    base = ["--batch", "2", "--seq", "32", "--save-every", "8", "--log-every", "8"]
+    olmoe = ["--arch", "olmoe-1b-7b", "--ckpt-dir", str(ckpt / "olmoe"), *base]
+    procs = {"olmoe_fail": start_train_launcher(olmoe + ["--steps", "24", "--fail-at", "13"]),
+             "phi3_compress": start_train_launcher(
+                 ["--arch", "phi3-mini-3.8b", "--steps", "10", "--compress-grads",
+                  "--ckpt-dir", str(ckpt / "phi3"), *base])}
+    # six steps of the warmup (lr = 1e-2 x step / 10) move the loss by about
+    # 1-2 at 4 x 128 tokens a batch; at 2 x 32 the batches' spread (~1) hides
+    # it (the CPU probes of the same flags, six seeds each)
+    for arch in ("rwkv6-7b", "jamba-v0.1-52b"):
+        procs[arch] = start_train_launcher(["--arch", arch, "--steps", "6", "--ckpt-dir",
+                                            str(ckpt / arch), "--batch", "4", "--seq", "128",
+                                            "--lr", "1e-2", "--log-every", "8"])
+    try:
+        runs = {name: train_launcher_result(proc) for name, proc in procs.items()}
+        procs["olmoe_resume"] = start_train_launcher(olmoe + ["--steps", "28"])
+        runs["olmoe_resume"] = train_launcher_result(procs["olmoe_resume"])
+    finally:  # a failed run stops the others
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    row = {name: {"summary": r[0], "launches": r[2]} for name, r in runs.items()}
+    emit("train_launcher", t0, **row)
+    s = {name: r[0] for name, r in runs.items()}
+    checks = {
+        "olmoe: 24 steps, 1 restart": s["olmoe_fail"]["steps"] == 24
+            and s["olmoe_fail"]["restarts"] == 1,
+        "olmoe: resumed from step 24": "resumed from step 24" in runs["olmoe_resume"][1]
+            and s["olmoe_resume"]["steps"] == 28,
+        "olmoe: flash forward and backward launched": runs["olmoe_fail"][2]["flash_attention"] > 0
+            and runs["olmoe_fail"][2]["flash_attention_bwd"] > 0,
+        "rwkv6-7b: the RWKV-6 scan launched": runs["rwkv6-7b"][2]["rwkv6_scan"] > 0,
+        "jamba: the Mamba scan launched": runs["jamba-v0.1-52b"][2]["mamba_scan"] > 0,
+        "every loss falls": all(s[k]["loss_last"] < s[k]["loss_first"]
+                                for k in ("olmoe_fail", "phi3_compress", "rwkv6-7b",
+                                          "jamba-v0.1-52b")),
+        "no tiled matmul": all(r[2]["tiled_matmul"] == 0 for r in runs.values()),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"train_launcher failed: {bad}")
+    return row
+
+
+def phase_flash_bwd_timing(card: str, g) -> dict:
+    """The backward kernel at musicgen-large's training shape (bf16, causal)
+    against its plain version, autograd's backward of one SDPA call
+    (yardstick only) and its bound; and the forward with and without its
+    lse output."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_plain)
+
+    t0 = time.perf_counter()
+    flush = flush_buffer()
+    b, s, h, d = TRAIN_FA_SHAPE
+    dt = torch.bfloat16
+    q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+                     for _ in range(4))
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=True)
+    want = flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=True)
+    torch.cuda.synchronize()
+    max_abs = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
+    ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse, causal=True), flush, 20)
+    device_ms = events_device_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse,
+                                                             causal=True))
+    plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=True),
+                       flush, 3)
+    fwd_ms = time_ms(lambda: flash_attention(q, k, v, causal=True), flush, 20)
+    fwd_lse_ms = time_ms(lambda: flash_attention(q, k, v, causal=True, return_lse=True),
+                         flush, 20)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do = dout.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do, retain_graph=True),
+                         flush, 20)
+    pairs = s * (s + 1) // 2
+    flops = 10 * b * h * d * pairs  # S recomputed, dP, dv, dk, dq over the visible pairs
+    nbytes = 8 * b * s * h * d * q.element_size() + 2 * b * h * s * 4  # q k v out dout dq dk dv; lse, delta
+    peak = BF16_PEAK["pcie" if "PCIe" in card else "sxm"]
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    del flush
+    row = {"bshd": list(TRAIN_FA_SHAPE), "dtype": "bfloat16", "causal": True, "ms": ms,
+           "device_ms": device_ms, "device_ms_source": "cuda_events", "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": "SDPA backward (autograd of one call)",
+           "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "tflops": flops / ms / 1e9, "max_abs_err": max_abs,
+           "forward_ms": fwd_ms, "forward_with_lse_ms": fwd_lse_ms}
+    emit("timing_flash_bwd", t0, **row)
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 6: timing against the bound and the library yardstick
 # ---------------------------------------------------------------------------
 
@@ -2893,7 +3399,9 @@ def main() -> int:
             ("matmul", "matmul", MATMUL_MUTANT_LINE,
              "const int kchunks = (a.K + kChunk - 1) / kChunk - 1;  // mutation"),
             ("matmul_simt", "matmul", SIMT_MUTANT_LINE,
-             "return (K + kd - 1) / kd - 1;  // mutation: the last k stage dropped")):
+             "return (K + kd - 1) / kd - 1;  // mutation: the last k stage dropped"),
+            ("flash_attention_bwd", "flash_attention_bwd", FLASH_BWD_MUTANT_LINE,
+             "const float ds = pv * dp[i][j] * fac;  // mutation: - delta dropped")):
         mutants[key] = ROOT / "build" / "mutant" / f"{key}_mutant.cu"
         mutants[key].parent.mkdir(parents=True, exist_ok=True)
         src = (_build.CSRC / f"{name}.cu").read_text()
@@ -2902,7 +3410,7 @@ def main() -> int:
         mutants[key].write_text(src.replace(line, repl))
 
     t0 = time.perf_counter()
-    names = ["matmul", "flash_attention", "rwkv6_scan", "mamba_scan"]
+    names = ["matmul", "flash_attention", "flash_attention_bwd", "rwkv6_scan", "mamba_scan"]
     _build.build_all(names + list(mutants.values()))  # one nvcc per source, all at once
     hgmma = {}
     for name in ("flash_attention", "matmul"):
@@ -2932,10 +3440,14 @@ def main() -> int:
          mamba_scan_kernels=ptxas_by_function(str(_build.BUILD_INFO["mamba_scan"]["log"]),
                                               "mamba_scan_fwd"),
          flash_simt_kernels={k: v for k, v in flash_kernels.items() if "simt" in k},
+         flash_bwd_kernels=ptxas_by_function(
+             str(_build.BUILD_INFO["flash_attention_bwd"]["log"]), "flash_bwd"),
          flash_tc_kernels={k: v for k, v in flash_kernels.items() if "_tc<" in k})
     for name, count in hgmma.items():
         if count == 0:
             raise SystemExit(f"the {name} library's SASS holds no HGMMA instruction")
+    flash_kernels.update(ptxas_by_function(
+        str(_build.BUILD_INFO["flash_attention_bwd"]["log"]), "flash_bwd"))
     spilled = {k: v for k, v in flash_kernels.items() if any(v.get("spill_bytes", [0]))}
     if spilled or not flash_kernels:
         raise SystemExit(f"flash instances that spill: {spilled} (of {len(flash_kernels)})")
@@ -3003,6 +3515,20 @@ def main() -> int:
                         ("mamba_scan", "flash_attention"))
     check_path_launches("zoo", zoo["launches"], ("flash_attention",))
 
+    # path train: the backward kernel against its plain version, the scans'
+    # gradients, then musicgen-large trained at full width (counts set to 0
+    # and read inside) and the launcher's runs (each in its own process)
+    with open(out_dir / "chip_smoke_cases.jsonl", "a") as cases_f:
+        phase_flash_bwd(cases_f, mutants["flash_attention_bwd"])
+    phase_scan_grads()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train_model(out_dir)
+    by_path["train"] = train["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_launcher()
+
     def launches(name: str) -> dict:
         per = {path: counts[name] for path, counts in by_path.items()}
         return {"launches": sum(per.values()), "launches_by_path": per}
@@ -3015,6 +3541,7 @@ def main() -> int:
     headline = [[FA_SHAPE[0], FA_SHAPE[1], FA_SHAPE[2], FA_SHAPE[2], FA_SHAPE[3]],
                 list(FA_JAMBA_SHAPE)]
     fa_main = [r for r in fa if r["dtype"] == "bfloat16" and r["bshkd"] in headline]
+    fa_bwd = phase_flash_bwd_timing(card, g)
     rw = phase_rwkv_timing(card)
     mb = phase_mamba_timing(card)
     def route_sums(rs: list) -> dict:
@@ -3062,6 +3589,17 @@ def main() -> int:
                              for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
                      for route in ("wgmma", "simt")},
         "shapes": fa,
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/layers.py:190",
+        "replaces_note": "_flash_bwd, the JAX model attention's hand-written backward (a jnp "
+                         "custom_vjp): the JAX package has no Pallas backward kernel",
+        **launches("flash_attention_bwd"),
+        **{k: fa_bwd[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms", "library", "bshd", "dtype",
+                                  "forward_ms", "forward_with_lse_ms")},
     }, {
         "name": "rwkv6_scan",
         "route": "cuda",

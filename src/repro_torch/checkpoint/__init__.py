@@ -1,0 +1,3 @@
+from .manager import CheckpointManager, load_pytree, save_pytree
+
+__all__ = ["CheckpointManager", "save_pytree", "load_pytree"]

@@ -35,7 +35,19 @@ On both, ``bk`` also sets ``T_pad = ⌈T/bk⌉·bk``, what a row with no visible
 key is divided by.
 
 q is ``(B, S, H, D)``, k and v ``(B, T, HKV, D)`` with ``H % HKV == 0``
-(grouped-query heads); the output is ``(B, S, H, D)`` in q's dtype.
+(grouped-query heads); the output is ``(B, S, H, D)`` in q's dtype, and with
+``return_lse`` each row's log-sum-exp ``(B, H, S)`` f32 beside it.
+
+The gradient: :func:`flash_attention_bwd` launches the backward kernel in
+``csrc/flash_attention_bwd.cu`` (two launches: dk/dv a kv tile, dq a q tile;
+see the note there) at the head dims in :data:`BWD_HEAD_DIMS`, and takes
+:func:`flash_attention_bwd_plain`, the JAX model attention's hand-written
+backward (``repro/models/layers.py::_flash_bwd``) in torch ops, for CPU
+tensors.  :class:`FlashAttention` ties the two into autograd: its forward is
+the forward kernel, saving q, k, v, out and lse, its backward the backward
+kernel.  ``kernels.ops.flash_attention`` goes through it whenever grad is
+enabled and an input requires grad, so that no wrapper returns a result
+without a ``grad_fn`` under grad.
 """
 from __future__ import annotations
 
@@ -50,6 +62,7 @@ from . import _build
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (8, 16, 32, 64, 96, 128, 256)  # the kernel's instances: the JAX tests', the zoo's
+BWD_HEAD_DIMS = (8, 16, 32, 64, 96, 128)  # the backward kernel's (D = 256: too many registers)
 TC_HEAD_DIMS = (64, 96, 128, 256)  # bf16 at these runs on the tensor cores
 TC_KV_CAP = 4096  # the tensor-core kv tile is at most TC_KV_CAP // tc_width(D) keys
 SIMT_SMEM_MAX = 232448  # shared memory a CTA can have on the card
@@ -70,7 +83,7 @@ def simt_smem_bytes(d: int, q_tile: int, kv_tile: int) -> int:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.looptune_flash_attention.argtypes = (
-        [p, p, p, p] + [i] * 6 + [ll] * 9 + [i, i, f, f, i, i, i, i, p])
+        [p, p, p, p, p] + [i] * 6 + [ll] * 9 + [i, i, f, f, i, i, i, i, p])
     lib.looptune_flash_attention.restype = i
     lib.looptune_flash_attention_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)]
     lib.looptune_flash_attention_plan.restype = i
@@ -78,6 +91,17 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention", _declare)
+
+
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.looptune_flash_attention_bwd.argtypes = (
+        [p] * 9 + [i] * 6 + [ll] * 12 + [f, f, i, i, i, i, p])
+    lib.looptune_flash_attention_bwd.restype = i
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    return _build.load("flash_attention_bwd", _declare_bwd)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int, bk: int,
@@ -108,12 +132,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int, bk: int,
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: Optional[int] = None,
                           softcap: Optional[float] = None, bq: int = 128,
-                          bk: int = 128) -> torch.Tensor:
+                          bk: int = 128, return_lse: bool = False):
     """The kernel's function in plain torch ops, computed as the TPU kernel
     computes it: f32 q pre-scaled by 1/sqrt(D), kv blocks of ``bk`` (clamped
     to T) zero-padded at the end, scores masked to -1e30, running max/sum
     and an f32 accumulator, ``l`` clamped to 1e-30.  q blocks change no
-    value, so every q row is taken at once; ``bq`` is only checked."""
+    value, so every q row is taken at once; ``bq`` is only checked.  With
+    ``return_lse``, also each row's ``m + log(max(l, 1e-30))`` ``(B, H, S)``
+    f32, as the JAX model attention's forward returns it."""
     b, s, t, hq, hkv, d = _check(q, k, v, bq, bk, softcap)
     g = hq // hkv
     bk = min(bk, t)
@@ -147,26 +173,34 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + p @ vb
         m = m_new
-    out = acc / l.clamp_min(1e-30)[..., None]
-    return out.transpose(1, 2).to(q.dtype).contiguous()
+    l = l.clamp_min(1e-30)
+    out = (acc / l[..., None]).transpose(1, 2).to(q.dtype).contiguous()
+    return (out, m + torch.log(l)) if return_lse else out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None, bq: int = 128,
-                    bk: int = 128) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D) [softcapped, masked]) v at block ``(bq, bk)``.
+                    bk: int = 128, return_lse: bool = False):
+    """softmax(q k^T / sqrt(D) [softcapped, masked]) v at block ``(bq, bk)``;
+    with ``return_lse``, (out, lse (B, H, S) f32).
 
     A CUDA tensor always launches the kernel, on the current stream and
     without synchronising; a CPU tensor runs :func:`flash_attention_plain`.
-    Shapes and dtypes the kernel does not take raise on both; a head dim
+    With grad enabled and an input that requires grad, the call goes
+    through :class:`FlashAttention`, whose forward is this call without
+    grad.  Shapes and dtypes the kernel does not take raise on both; a head dim
     without a kernel instance (not in :data:`HEAD_DIMS`) raises on CUDA
     tensors only, since the plain version takes any D.
     """
     b, s, t, hq, hkv, d = _check(q, k, v, bq, bk, softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if return_lse:
+            raise ValueError("return_lse is the autograd forward's: call it without grad")
+        return FlashAttention.apply(q, k, v, causal, window, softcap, bq, bk)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     softcap=softcap, bq=bq, bk=bk)
+                                     softcap=softcap, bq=bq, bk=bk, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     if not (q.stride(3) == k.stride(3) == v.stride(3) == 1):
@@ -176,10 +210,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # a window beyond S + T masks nothing more or less: clamp it into an int
     w = 0 if window is None else max(-(s + t), min(int(window), s + t))
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _lib().looptune_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, hq,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, s, t, hq,
             hkv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], min(bq, s), min(bk, t),
             1.0 / math.sqrt(d), float(softcap or 0.0), int(causal),
             int(window is not None), w,
@@ -189,7 +226,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)}, "
                            f"block {(bq, bk)})")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 #: kernel launches since the count was last set to 0 (the CPU path and the
@@ -245,3 +282,142 @@ def check_aligned(*tensors: torch.Tensor) -> None:
             raise ValueError(f"the tensor-core flash kernel needs 16-byte aligned rows: "
                              f"a view at offset {x.data_ptr() % 16} bytes with strides "
                              f"{tuple(x.stride())} cannot be loaded")
+
+
+# ---------------------------------------------------------------------------
+# The gradient
+# ---------------------------------------------------------------------------
+
+
+def _check_bwd(q, k, v, out, dout, lse, softcap) -> tuple:
+    b, s, t, hq, hkv, d = _check(q, k, v, 1, 1, softcap)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out and dout must be q's shape {tuple(q.shape)}; got "
+                         f"{tuple(out.shape)}, {tuple(dout.shape)}")
+    if tuple(lse.shape) != (b, hq, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be (B, H, S) = {(b, hq, s)} float32; got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    return b, s, t, hq, hkv, d
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
+                              causal: bool = True, window: Optional[int] = None,
+                              softcap: Optional[float] = None, bk: int = 128) -> tuple:
+    """The gradients (dq, dk, dv) of :func:`flash_attention_plain` in plain
+    torch ops, computed as ``repro/models/layers.py::_flash_bwd`` computes
+    them: q pre-scaled by 1/sqrt(D) in f32, delta = rowsum(dout . out), and
+    per kv block of ``bk`` keys the scores recomputed, p = exp(sc - lse)
+    (not masked: a row with no visible key has lse = -1e30 and gets p = 1),
+    dv += p^T dout, ds = p (dout v^T - delta), times 1 - tanh^2 under a
+    softcap, zero where masked, dq += ds k and dk += ds^T q.  dk and dv of a
+    kv head sum over its group.  Outputs in the inputs' dtype."""
+    b, s, t, hq, hkv, d = _check_bwd(q, k, v, out, dout, lse, softcap)
+    g = hq // hkv
+    bk = min(bk, t)
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float().transpose(1, 2) * scale                                # (B, H, S, D)
+    kf = k.float().transpose(1, 2).repeat_interleave(g, dim=1)             # (B, H, T, D)
+    vf = v.float().transpose(1, 2).repeat_interleave(g, dim=1)
+    do = dout.float().transpose(1, 2)
+    delta = (do * out.float().transpose(1, 2)).sum(-1)                     # (B, H, S)
+    q_pos = torch.arange(s, device=q.device)[:, None]
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for j0 in range(0, t, bk):
+        kb, vb = kf[:, :, j0:j0 + bk], vf[:, :, j0:j0 + bk]
+        raw = qf @ kb.transpose(-1, -2)                                    # (B, H, S, bk)
+        sc = raw if softcap is None else softcap * torch.tanh(raw / softcap)
+        kv_pos = j0 + torch.arange(kb.shape[2], device=q.device)[None, :]
+        mask = torch.ones(s, kb.shape[2], dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kv_pos <= q_pos)
+        if window is not None:
+            mask = mask & (kv_pos > q_pos - window)
+        sc = torch.where(mask, sc, NEG_INF)
+        p = torch.exp(sc - lse[..., None])
+        dvs.append(p.transpose(-1, -2) @ do)
+        ds = p * (do @ vb.transpose(-1, -2) - delta[..., None])
+        if softcap is not None:
+            ds = ds * (1.0 - torch.square(torch.tanh(raw / softcap)))
+        ds = torch.where(mask, ds, 0.0)
+        dq = dq + ds @ kb
+        dks.append(ds.transpose(-1, -2) @ qf)
+    dk = torch.cat(dks, dim=2).reshape(b, hkv, g, t, d).sum(2)
+    dv = torch.cat(dvs, dim=2).reshape(b, hkv, g, t, d).sum(2)
+    return ((dq * scale).transpose(1, 2).to(q.dtype).contiguous(),
+            dk.transpose(1, 2).to(k.dtype).contiguous(),
+            dv.transpose(1, 2).to(v.dtype).contiguous())
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None, bk: int = 128) -> tuple:
+    """(dq, dk, dv) of flash attention from the forward's ``out`` and
+    ``lse`` and the output gradient ``dout``.
+
+    A CUDA tensor launches the backward kernel (delta = rowsum(dout . out)
+    in torch ops first), on the current stream and without synchronising;
+    a CPU tensor runs :func:`flash_attention_bwd_plain`.  A head dim
+    without a backward instance (not in :data:`BWD_HEAD_DIMS`) raises on
+    CUDA tensors only.  ``bk`` is the plain version's kv block."""
+    b, s, t, hq, hkv, d = _check_bwd(q, k, v, out, dout, lse, softcap)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal,
+                                         window=window, softcap=softcap, bk=bk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, got {q.device}")
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"head_dim {d}: the flash backward kernel has instances at "
+                         f"{BWD_HEAD_DIMS} only")
+    if dout.dtype != q.dtype or out.dtype != q.dtype:
+        raise TypeError(f"out and dout must be {q.dtype}; got {out.dtype}, {dout.dtype}")
+    if not (q.stride(3) == k.stride(3) == v.stride(3) == 1):
+        raise ValueError("flash_attention_bwd needs the head dim contiguous")
+    dout = dout.contiguous()
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # (B, H, S)
+    lse = lse.contiguous()
+    dq = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, t, hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, t, hkv, d), dtype=q.dtype, device=q.device)
+    w = 0 if window is None else max(-(s + t), min(int(window), s + t))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = _lib_bwd().looptune_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, t, hq, hkv,
+            d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
+            1.0 / math.sqrt(d), float(softcap or 0.0), int(causal), int(window is not None),
+            w, int(q.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"flash attention backward launch failed: cudaError {err} "
+                           f"(q {tuple(q.shape)}, k {tuple(k.shape)})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+#: wrapper calls that launched the backward kernels (each launches dk/dv and
+#: dq) since the count was last set to 0; the CPU path does not count
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention under autograd: the forward is :func:`flash_attention`
+    (the kernel on CUDA tensors), saving q, k, v, out and lse; the backward
+    is :func:`flash_attention_bwd` (the backward kernel on CUDA tensors, the
+    plain backward on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, bq, bk):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                                   bq=bq, bk=bk, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap, bk=bk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, lse, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None

@@ -18,6 +18,16 @@ JAX kernel's signature ``(dtx, da, b, c)`` (plus ``h0``) and its chunked
 ``exp(-cum)`` arithmetic; :func:`mamba_scan_plain_model` forms ``dtx = dt x``
 and ``da = dt a`` in f32 from the model's tensors and runs it.  The wrapper
 takes the plain version only for CPU tensors.
+
+The gradient: :class:`MambaScan` is the scan under autograd.  Its forward
+is the kernel (the plain version on CPU tensors), saving the inputs; its
+backward recomputes :func:`mamba_scan_plain_model` at the same token tile
+under ``torch.enable_grad()`` and returns that recomputation's input
+gradients.  That is what the JAX package differentiates: its model's
+``lax.scan`` chunk loop under ``jax.checkpoint`` (``repro/models/mamba.py``),
+never the Pallas kernel.  A backward kernel for the scan is later work
+(ROADMAP.md, queue B).  :func:`mamba_scan` goes through it whenever grad is
+enabled and an input requires grad.
 """
 from __future__ import annotations
 
@@ -159,10 +169,14 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tens
 
     A CUDA tensor always launches the kernel, on the current stream and
     without synchronising; a CPU tensor runs :func:`mamba_scan_plain_model`
-    at the plan's token tile.  Shapes, dtypes and state dims the kernel
+    at the plan's token tile.  Under grad the call goes through
+    :class:`MambaScan`.  Shapes, dtypes and state dims the kernel
     does not take raise on both.
     """
     bsz, s, ch, n = _check(x, dt, a, b, c, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, dt, a, b, c, h0)):
+        return MambaScan.apply(x, dt, a, b, c, h0, chunk, bd)
     plan = launch_plan(s, ch, chunk, bd)
     if x.device.type == "cpu":
         return mamba_scan_plain_model(x, dt, a, b, c, chunk=plan["l"], h0=h0)
@@ -193,3 +207,28 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tens
 #: kernel launches since the count was last set to 0 (the CPU path and the
 #: plain version do not count)
 mamba_scan.launches = 0
+
+
+class MambaScan(torch.autograd.Function):
+    """The scan under autograd: forward :func:`mamba_scan` (the kernel on
+    CUDA tensors), backward the input gradients of
+    :func:`mamba_scan_plain_model` recomputed at the plan's token tile."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, h0, chunk, bd):
+        y, state = mamba_scan(x, dt, a, b, c, chunk=chunk, bd=bd, h0=h0)
+        ctx.save_for_backward(x, dt, a, b, c, h0)
+        ctx.tile = launch_plan(x.shape[1], x.shape[2], chunk, bd)["l"]
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        saved = ctx.saved_tensors
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y, state = mamba_scan_plain_model(*inputs[:5], chunk=ctx.tile, h0=inputs[5])
+            wrt = [t for t, need in zip(inputs, ctx.needs_input_grad) if t is not None and need]
+            grads = iter(torch.autograd.grad((y, state), wrt, (dy, dstate), allow_unused=True))
+        return tuple(next(grads) if t is not None and need else None
+                     for t, need in zip(inputs, ctx.needs_input_grad)) + (None, None)

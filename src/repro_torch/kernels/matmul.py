@@ -107,6 +107,18 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     return acc.to(out_dtype)
 
 
+def check_no_grad(*operands: torch.Tensor) -> None:
+    """Raise ``RuntimeError`` when grad is enabled and an operand requires
+    grad: the tiled matmul has no backward, so its result would carry no
+    ``grad_fn`` and every parameter upstream would silently get no
+    gradient."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in operands):
+        raise RuntimeError(
+            "the tiled matmul kernel has no backward: an operand requires grad. The JAX "
+            "package cannot differentiate its Pallas matmul either (ROADMAP.md, §C 6); "
+            "train with registry=None (dense sites on the plain @)")
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 128,
            bn: int = 128, grid_order: str = "mn", out_dtype=None,
            trans_b: bool = False) -> torch.Tensor:
@@ -115,8 +127,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 128,
 
     ``trans_b=True`` takes B as (N, K) (a weight stored output-major).  A
     CUDA tensor always launches the kernel, on the current stream and
-    without synchronising; a CPU tensor runs :func:`matmul_plain`.
+    without synchronising; a CPU tensor runs :func:`matmul_plain`.  The
+    kernel has no backward: with grad enabled and an operand that requires
+    grad it raises (:func:`check_no_grad`) on both.
     """
+    check_no_grad(a, b)
     m, k, n, out_dtype = _check(a, b, grid_order, trans_b, out_dtype)
     if a.device.type == "cpu":
         return matmul_plain(a, b, bm=bm, bk=bk, bn=bn, grid_order=grid_order,

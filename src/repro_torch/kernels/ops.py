@@ -17,6 +17,14 @@ a CUDA tensor the lookup requires a record tuned on this card (or a
 wildcard record), so a schedule tuned for other hardware is never served
 there.  Per-contraction hit/miss/routed counters are read with
 :func:`serving_stats`.
+
+**Gradients.**  With grad enabled and an input that requires grad, the
+flash and scan wrappers go through their ``torch.autograd.Function`` (the
+kernel forward; flash's backward kernel, the scans' plain recompute), and a
+registry hit that would launch the tiled matmul raises (it has no backward,
+ROADMAP.md §C 6): no entry point returns a result without a ``grad_fn``
+under grad.  The CPU fallback of :func:`tuned_einsum` is ``torch.einsum``
+and stays differentiable.
 """
 from __future__ import annotations
 
@@ -248,7 +256,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window=None, softcap=None) -> torch.Tensor:
     """Registry-tuned flash attention (block sizes under kernel id 'fa',
     workload ``(S, T, D)``).  CUDA tensors launch the kernel, CPU tensors
-    run its plain version."""
+    run its plain version; under grad, through
+    :class:`~repro_torch.kernels.flash_attention.FlashAttention`."""
     bq, bk = 128, 128
     if _REGISTRY is not None:
         entry = _REGISTRY.get("fa", (q.shape[1], k.shape[1], q.shape[-1]))
@@ -264,7 +273,9 @@ def rwkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      s0: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Registry-tuned RWKV-6 chunked scan over ``(B, S, H, N)`` streams
     (chunk under kernel id 'rwkv6', block ``"l"``, workload ``(S, N)``).
-    CUDA tensors launch the kernel, CPU tensors run its plain version."""
+    CUDA tensors launch the kernel, CPU tensors run its plain version;
+    under grad, through
+    :class:`~repro_torch.kernels.rwkv6_scan.RWKV6Scan`."""
     if _REGISTRY is not None:
         entry = _REGISTRY.get("rwkv6", (r.shape[1], r.shape[3]))
         if entry and "block" in entry:
@@ -279,7 +290,8 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tens
     ``(B, S, C)``, a ``(C, N)`` f32, b, c ``(B, S, N)``, h0 ``(B, C, N)``
     f32 or None (block ``{"l": tokens a tile, "c": channels a CTA}`` under
     kernel id 'mamba', workload ``(S, C)``).  CUDA tensors launch the
-    kernel; CPU tensors form dtx and da and run its plain version."""
+    kernel; CPU tensors form dtx and da and run its plain version; under
+    grad, through :class:`~repro_torch.kernels.mamba_scan.MambaScan`."""
     if _REGISTRY is not None:
         entry = _REGISTRY.get("mamba", (x.shape[1], x.shape[2]))
         if entry and "block" in entry:

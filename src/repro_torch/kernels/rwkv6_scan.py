@@ -16,6 +16,16 @@ read through their strides), u ``(H, N)`` and an optional carried state s0
 kernel's does.  It returns y ``(B, S, H, N)`` f32 and the final state
 ``(B, H, N, N)`` f32.  The plain version keeps the JAX kernel's signature:
 ``(BH, S, N)`` streams and u ``(BH, N)``.
+
+The gradient: :class:`RWKV6Scan` is the scan under autograd.  Its forward
+is the kernel (the plain version on CPU tensors), saving the inputs; its
+backward recomputes :func:`rwkv6_chunk_scan_plain` at the same tile under
+``torch.enable_grad()`` and returns that recomputation's input gradients.
+That is what the JAX package differentiates: its model's ``lax.scan`` chunk
+loop under ``jax.checkpoint`` (``repro/models/rwkv6.py``), never the Pallas
+kernel.  A backward kernel for the scan is later work (ROADMAP.md, queue
+B).  :func:`rwkv6_chunk_scan` goes through it whenever grad is enabled and
+an input requires grad.
 """
 from __future__ import annotations
 
@@ -177,10 +187,13 @@ def rwkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     A CUDA tensor always launches the kernel, on the current stream and
     without synchronising; a CPU tensor runs :func:`rwkv6_chunk_scan_plain`
-    at the same tile.  Shapes, dtypes and head dims the kernel does not take
+    at the same tile.  Under grad the call goes through :class:`RWKV6Scan`.  Shapes, dtypes and head dims the kernel does not take
     raise on both.
     """
     b, s, h, n = _check(r, k, v, logw, u, s0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (r, k, v, logw, u, s0)):
+        return RWKV6Scan.apply(r, k, v, logw, u, s0, chunk)
     plan = launch_plan(s, chunk, b=b, h=h, n=n, dtype=r.dtype)
     tile = plan["chunk"]
     if r.device.type == "cpu":
@@ -217,3 +230,28 @@ def rwkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: since the count was last set to 0; the CPU path and the plain version do
 #: not count
 rwkv6_chunk_scan.launches = 0
+
+
+class RWKV6Scan(torch.autograd.Function):
+    """The scan under autograd: forward :func:`rwkv6_chunk_scan` (the kernel
+    on CUDA tensors), backward the input gradients of
+    :func:`rwkv6_chunk_scan_plain_heads` recomputed at the same tile."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0, chunk):
+        y, state = rwkv6_chunk_scan(r, k, v, logw, u, chunk=chunk, s0=s0)
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        ctx.tile = launch_plan(r.shape[1], chunk, n=r.shape[3])["chunk"]
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        saved = ctx.saved_tensors
+        inputs = [None if t is None else t.detach().requires_grad_(need)
+                  for t, need in zip(saved, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y, state = rwkv6_chunk_scan_plain_heads(*inputs[:5], chunk=ctx.tile, s0=inputs[5])
+            wrt = [t for t, need in zip(inputs, ctx.needs_input_grad) if t is not None and need]
+            grads = iter(torch.autograd.grad((y, state), wrt, (dy, dstate), allow_unused=True))
+        return tuple(next(grads) if t is not None and need else None
+                     for t, need in zip(inputs, ctx.needs_input_grad)) + (None,)

@@ -1,1 +1,1 @@
-"""Launchers of the port: serving and the tuning pre-pass (training follows)."""
+"""Launchers of the port: serving, the tuning pre-pass and training."""

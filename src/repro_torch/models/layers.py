@@ -3,8 +3,10 @@
 The JAX package's ``models/layers.py`` with the same names, arguments and
 layouts (q ``(B, S, H, D)``, k/v ``(B, T, HKV, D)``, weights ``(in, out)``),
 so converted weights give the same numbers.  Norms and softmax accumulate in
-f32 whatever the activation dtype.  Every prefill attention (S > 1) runs the
-hand-written flash-attention kernel through ``kernels.ops.flash_attention``;
+f32 whatever the activation dtype.  Every prefill and training attention
+(S > 1) runs the hand-written flash-attention kernel through
+``kernels.ops.flash_attention`` (under grad its ``autograd.Function``, whose
+backward is the flash backward kernel);
 decode (S == 1) is plain torch, as it is plain jnp in the reference.
 Dense sites go through ``kernels.ops.tuned_einsum`` while a tuned-schedule
 registry is being served.
@@ -119,7 +121,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     S == 1 is the plain decode branch.  S > 1 with ``q_offset == 0`` and no
     ``kv_len`` (every prefill self-attention) is the flash-attention kernel.
     Any other S > 1 call raises: attention of a block of queries over a
-    cache is not ported (ROADMAP.md, model zoo).  The kernel applies
+    cache is not ported (ROADMAP.md, A4b).  The kernel applies
     1/sqrt(D); there is no ``scale`` argument, and the reference's
     ``q_block``/``kv_block`` are the "fa" registry block here.
     """
@@ -145,7 +147,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q_offset != 0 or kv_len is not None or kv_positions is not None:
         raise NotImplementedError(
             "attention of S > 1 queries at an offset or over a partly filled "
-            "cache is not ported (ROADMAP.md, model zoo); prefill calls it "
+            "cache is not ported (ROADMAP.md, A4b); prefill calls it "
             "with q_offset=0 and kv_len=None")
     return K.flash_attention(q, k, v, causal=causal, window=window,
                              softcap=softcap).to(v.dtype)

@@ -15,6 +15,8 @@ channel-mix and Mamba mixers, dense MLP and MoE FFNs.  Sharding annotations
 (``ashard``) are dropped until ``runtime/sharding.py`` is ported.  Entry
 points:
 
+  * :func:`hidden_states`  — full-sequence forward to the final norm
+    (training's loss reads it through a seq-chunked CE)
   * :func:`forward`        — full-sequence logits (prefill)
   * :func:`decode_step`    — one token against the cache
   * :func:`init_cache`     — allocate the decode cache
@@ -26,6 +28,13 @@ B, n_cross_tokens, HKV, hd)``, RWKV-6 ``s`` ``(n_periods, B, H, N, N)`` f32
 and ``xt``/``xc`` ``(n_periods, B, D)``, Mamba ``h`` ``(n_periods, B, d_inner, N)`` f32 and
 ``conv`` ``(n_periods, B, d_conv - 1, d_inner)``), and **prefill and decode
 write into it in place**: the caches passed in are the caches returned.
+
+Training builds the parameters with ``trainable=True`` (every leaf
+requires grad) and runs :func:`hidden_states` under the config's
+``remat_policy``, as the reference does: ``"block"`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant: the backward keeps each layer's
+input and recomputes one layer at a time), ``"period"`` each period,
+``"none"`` nothing.  Remat applies only with grad enabled and no cache.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.configs.base import (
@@ -71,18 +81,18 @@ def check_supported(cfg: ModelConfig) -> None:
 
 class ParamTree(nn.Module):
     """Named parameters, nested like the JAX pytree's dicts: ``p["wq"]``,
-    ``"lm_head" in p``, ``p.get("lm_head")``.  Serving only, so nothing
-    requires a gradient."""
+    ``"lm_head" in p``, ``p.get("lm_head")``.  Every leaf requires grad when
+    ``trainable`` (training), none otherwise (serving)."""
 
-    def __init__(self, tree: Dict[str, Any]):
+    def __init__(self, tree: Dict[str, Any], trainable: bool = False):
         super().__init__()
         for name, val in tree.items():
             if isinstance(val, dict):
-                self.add_module(name, ParamTree(val))
+                self.add_module(name, ParamTree(val, trainable))
             elif isinstance(val, nn.Module):
                 self.add_module(name, val)
             else:
-                self.register_parameter(name, nn.Parameter(val, requires_grad=False))
+                self.register_parameter(name, nn.Parameter(val, requires_grad=trainable))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
@@ -94,10 +104,12 @@ class ParamTree(nn.Module):
         return self[name] if name in self else default
 
 
-def make_params(top: Dict[str, Any], blocks: List[Dict[str, Any]]) -> ParamTree:
+def make_params(top: Dict[str, Any], blocks: List[Dict[str, Any]],
+                trainable: bool = False) -> ParamTree:
     """The model's parameters from plain dicts of tensors: ``top`` (embed,
     final_norm[, lm_head]) and one dict per layer, in layer order."""
-    return ParamTree({**top, "blocks": nn.ModuleList(ParamTree(b) for b in blocks)})
+    return ParamTree({**top, "blocks": nn.ModuleList(ParamTree(b, trainable)
+                                                     for b in blocks)}, trainable)
 
 
 def _block_init(generator, spec: LayerSpec, cfg: ModelConfig, device) -> Dict[str, Any]:
@@ -128,7 +140,7 @@ def _block_init(generator, spec: LayerSpec, cfg: ModelConfig, device) -> Dict[st
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
-                device="cuda") -> ParamTree:
+                device="cuda", trainable: bool = False) -> ParamTree:
     """Random weights from ``generator`` (which must live on ``device``).
     The JAX package's initialisers, not its random numbers: parity tests
     carry JAX weights across with ``models.convert.params_from_jax``."""
@@ -143,7 +155,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     n = len(cfg.period)
     blocks = [_block_init(generator, cfg.period[i % n], cfg, device)
               for i in range(cfg.n_layers)]
-    return make_params(top, blocks)
+    return make_params(top, blocks, trainable)
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -360,30 +372,57 @@ def _embed_in(params, cfg, batch) -> torch.Tensor:
     return batch["embeds"].to(_dtype(cfg))
 
 
-def _run_layers(params, cfg, x, caches, cache_len, positions, encoder, decode):
+def _run_layers(params, cfg, x, caches, cache_len, positions, encoder, decode,
+                remat=True):
     """Every layer in order.  Returns (x, aux): the sum over MoE layers of
-    ``moe_aux_loss + moe_z_loss`` (f32 scalar, 0 without MoE layers)."""
+    ``moe_aux_loss + moe_z_loss`` (f32 scalar, 0 without MoE layers).
+
+    ``remat``: True takes ``cfg.remat_policy``, a string names a policy,
+    False is ``"none"``; it applies only with grad enabled and no cache."""
     n = len(cfg.period)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, p in enumerate(params["blocks"]):
+    policy = cfg.remat_policy if remat is True else (remat if isinstance(remat, str)
+                                                      else "none")
+    if policy not in ("block", "period", "none"):
+        raise ValueError(f"remat policy {policy!r}: block | period | none")
+    if caches is not None or not torch.is_grad_enabled():
+        policy = "none"
+    blocks = params["blocks"]
+
+    def layer(i, x, aux):
         per, pos = divmod(i, n)
         cache = (None if caches is None
                  else {name: t[per] for name, t in caches[pos].items()})
-        x, layer_aux = _apply_block(cfg.period[pos], p, cfg, x, cache, cache_len,
+        x, layer_aux = _apply_block(cfg.period[pos], blocks[i], cfg, x, cache, cache_len,
                                     positions, encoder, decode)
-        if layer_aux is not None:
-            aux = aux + layer_aux
+        return x, (aux if layer_aux is None else aux + layer_aux)
+
+    def period(per, x, aux):
+        for i in range(per * n, (per + 1) * n):
+            x, aux = layer(i, x, aux)
+        return x, aux
+
+    def remat_fn(fn, *args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if policy == "period":
+        for per in range(cfg.n_periods):
+            x, aux = remat_fn(period, per, x, aux)
+        return x, aux
+    for i in range(len(blocks)):
+        x, aux = remat_fn(layer, i, x, aux) if policy == "block" else layer(i, x, aux)
     return x, aux
 
 
 def hidden_states(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-                  caches: Optional[Tuple] = None
+                  caches: Optional[Tuple] = None, remat=True
                   ) -> Tuple[torch.Tensor, Optional[Tuple], torch.Tensor]:
     """Full-sequence forward up to the final norm (no logits).  Returns
     (hidden (B, S, D), caches, aux_loss): aux_loss sums each MoE layer's
     ``moe_aux_loss + moe_z_loss`` (0 without MoE layers), as the
     reference's does.  A model with cross layers reads the encoder states
-    ``batch["encoder"]`` ``(B, n_cross_tokens, d_cross)``."""
+    ``batch["encoder"]`` ``(B, n_cross_tokens, d_cross)``.  ``remat`` as
+    :func:`_run_layers` takes it."""
     x = _embed_in(params, cfg, batch)
     encoder = batch.get("encoder")
     if any(spec.mixer == CROSS_ATTN for spec in cfg.period):
@@ -396,7 +435,8 @@ def hidden_states(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Te
                              f"takes {want}")
         encoder = encoder.to(_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, aux = _run_layers(params, cfg, x, caches, 0, positions, encoder, decode=False)
+    x, aux = _run_layers(params, cfg, x, caches, 0, positions, encoder, decode=False,
+                         remat=remat)
     x = L.rms_norm(x, params["final_norm"])
     return x, caches, aux
 
@@ -419,7 +459,8 @@ def decode_step(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tens
     caches)."""
     x = _embed_in(params, cfg, batch)
     positions = torch.full((1, 1), cache_len, device=x.device)
-    x, _ = _run_layers(params, cfg, x, caches, cache_len, positions, None, decode=True)
+    x, _ = _run_layers(params, cfg, x, caches, cache_len, positions, None, decode=True,
+                       remat=False)
     x = L.rms_norm(x, params["final_norm"])
     logits = L.logits_apply(params["embed"], x, params.get("lm_head"), cfg.logit_softcap)
     return logits, caches

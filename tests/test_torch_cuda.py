@@ -807,3 +807,66 @@ def test_pool_measures_in_a_spawned_worker_on_the_card():
     assert pool["start_method"] == "spawn" and pool["workers"] == torch.cuda.device_count()
     assert pool["worker_info"][0]["device"] == "cuda:0"
     assert wrapper.launches == before  # the parent launched nothing
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_backward_kernel_matches_plain_version_on_the_card(d, dtype):
+    """The backward kernel against ``flash_attention_bwd_plain`` on the same
+    inputs (allclose: f32 5e-4, the JAX package's flash-gradient tolerance;
+    bf16 3e-2, the forward's), causal with GQA 4 and ragged S != T, a window
+    and softcap 50; and one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_plain)
+
+    dt = getattr(torch, dtype)
+    lim = 5e-4 if dtype == "float32" else 3e-2
+    g = torch.Generator(device="cuda").manual_seed(d)
+    for (b, s, t, h, hkv, causal, window, softcap) in [(2, 100, 100, 8, 2, True, None, None),
+                                                       (1, 70, 150, 4, 4, False, None, None),
+                                                       (1, 130, 130, 4, 1, True, 40, 50.0)]:
+        q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt) for _ in range(2))
+        dout = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        before = flash_attention_bwd.launches
+        got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.launches == before + 1
+        for a, w in zip(got, flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)):
+            assert a.dtype == dt
+            torch.testing.assert_close(a.float(), w.float(), rtol=lim, atol=lim)
+
+
+@pytest.mark.cuda
+def test_training_step_launches_both_flash_kernels_on_the_card():
+    """Two train steps of musicgen-large's smoke config on the card: the
+    loss is finite and falls on a repeated batch, each step launches flash
+    forward twice a layer (forward and block recompute) and its backward
+    once, every parameter gets a gradient through the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.models import steps as S
+    from repro_torch.optim.schedules import constant
+
+    cfg = get_config("musicgen-large").smoke()
+    params, opt = S.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_dataset(cfg, None, global_batch=2, seq_len=64).batch(0).items()}
+    step = S.make_train_step(cfg, constant(1e-3))
+    fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+    losses = []
+    for _ in range(3):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    assert flash_attention.launches - fwd == 3 * 2 * cfg.n_layers
+    assert flash_attention_bwd.launches - bwd == 3 * cfg.n_layers
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
