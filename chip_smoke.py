@@ -9,12 +9,13 @@ line with its seconds:
 1. device — the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build  — nvcc builds the tiled-matmul, flash-attention, flash backward,
    RWKV-6 scan and Mamba scan kernels from ``src/repro_torch`` and a copy
-   of each scan kernel, two of the flash kernel, one of the flash backward
+   of each scan kernel, two of the flash kernel, two of the flash backward
    and two of the matmul with one term dropped (the mutation checks
    below), in parallel, and reports ptxas'
-   register lines (for each instance of the Mamba scan and of flash's SIMT
-   kernel: registers and spills) and the number of HGMMA (wgmma)
-   instructions in the flash and matmul libraries' SASS;
+   register lines (for each instance of the Mamba scan, of flash's SIMT
+   kernel and of the flash backward: registers and spills) and the number
+   of HGMMA (wgmma) instructions in the flash, flash backward and matmul
+   libraries' SASS;
 3. kernel — the matmul kernel against its plain torch version on the card
    over a sweep of shapes, blocks, grid orders, dtypes and transposed B,
    then its tensor-core route's bf16 cases (musicgen-large's six shapes at
@@ -159,9 +160,11 @@ line with its seconds:
    the same q, k, v, out, dout and lse, and the forward kernel's lse against
    the plain forward's, in f32 and bf16 at every backward head dim (causal,
    a window, softcap 50, GQA 1/4/8, S and T off any tile, rows that see no
-   key, musicgen-large's (4, 1024, 32, 64)), refuses D = 256, and the
-   kernel without its ``- delta`` must fail more than half of the
-   multi-tile cases; scan_grads holds both scans' autograd functions (the
+   key, jamba's (4, 1024, 32/8, 128) and musicgen-large's (4, 1024, 32,
+   64)), each bf16 D = 64/96/128 case on the tensor-core route with the
+   kernel's plan equal to ``bwd_launch_plan``, refuses D = 256, and each
+   route's kernel without its ``- delta`` must fail more than half of that
+   route's multi-tile cases; scan_grads holds both scans' autograd functions (the
    kernel forward, the plain-recompute backward) against plain autograd;
    train_model trains musicgen-large at its published widths (48 layers,
    bf16 with an f32 master copy and f32 moments, remat "block",
@@ -367,6 +370,9 @@ TIE_GAP = 1e-3             # 100x the f32 score tolerance (1e-5 relative)
 FLASH_BWD_LIMIT = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
 LSE_LIMIT = 1e-5
 FLASH_BWD_MUTANT_LINE = "const float ds = pv * (dp[i][j] - dl_s[r]) * fac;  // ds = p (dP - delta)"
+# the same term on the tensor-core route (its dk/dv kernel)
+TC_FLASH_BWD_MUTANT_LINE = ("const float ds = s[i] * (dp[i] - dl);  "
+                            "// dS^T = P^T (dP^T - delta), by fragment")
 SCAN_GRAD_RWKV = (2, 256, 4, 64)      # (B, S, H, N)
 SCAN_GRAD_MAMBA = (2, 256, 256, 16)   # (B, S, C, N)
 SCAN_LIMIT_GRAD = 2e-4
@@ -2571,11 +2577,14 @@ def phase_zoo(out_dir: Path) -> dict:
 # ---------------------------------------------------------------------------
 
 
+MUSICGEN_BWD_CASE = (4, 1024, 1024, 32, 32, 64, True, None, None, torch.bfloat16)
+
+
 def flash_bwd_cases() -> list:
     """(B, S, T, H, HKV, D, causal, window, softcap, dtype): every head dim
     with a backward instance in f32 and bf16, causal, a window, softcap 50,
     GQA 1/4/8, S and T off any 64-row tile (S != T too), rows that see no
-    key, and musicgen-large's training shape."""
+    key, jamba's (4, 1024, 32/8, 128) and musicgen-large's training shape."""
     from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
 
     cases = []
@@ -2589,19 +2598,23 @@ def flash_bwd_cases() -> list:
             if i % 2 == 0:
                 cases.append((1, 120, 90, 4, 1, d, True, 24, None, dt))    # rows 113-119 see no key
         cases.append((1, 40, 24, 2, 2, 16, False, None, None, dt))         # one tile each way
-    cases.append((4, 1024, 1024, 32, 32, 64, True, None, None, torch.bfloat16))
+    cases.append((4, 1024, 1024, 32, 8, 128, True, None, None, torch.bfloat16))  # jamba's, GQA 4
+    cases.append(MUSICGEN_BWD_CASE)
     return cases
 
 
 def flash_bwd_case_check(case, g) -> dict:
     """One case: the backward kernel against ``flash_attention_bwd_plain``
     on the same q, k, v, out, dout and lse (the forward kernel's), and the
-    forward kernel's lse against the plain forward's."""
-    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+    forward kernel's lse against the plain forward's; the case's route, and
+    whether the kernel's own plan equals ``bwd_launch_plan``."""
+    from repro_torch.kernels.flash_attention import (bwd_launch_plan, flash_attention,
+                                                     flash_attention_bwd,
                                                      flash_attention_bwd_plain,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain, kernel_bwd_plan)
 
     b, s, t, h, hkv, d, causal, window, softcap, dt = case
+    plan = bwd_launch_plan(s, t, d=d, dtype=dt)
     q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
     k, v = (torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt) for _ in range(2))
     dout = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
@@ -2617,19 +2630,24 @@ def flash_bwd_case_check(case, g) -> dict:
     lse_ratio = ((lse - plain_lse).abs() / (LSE_LIMIT + LSE_LIMIT * plain_lse.abs())).max().item()
     return {"bsthd": [b, s, t, h, hkv, d], "causal": causal, "window": window,
             "softcap": softcap, "dtype": str(dt).replace("torch.", ""), "limit": lim,
+            "route": plan["route"], "plan": plan,
+            "plan_equal": kernel_bwd_plan(s, t, d=d, dtype=dt) == plan,
             "ratio_to_limit": ratios, "worst_ratio": max(ratios.values()),
             "max_abs_err": max((a.float() - r.float()).abs().max().item()
                                for a, r in zip(got, want)),
             "lse_ratio_to_limit": lse_ratio}
 
 
-def phase_flash_bwd(cases_f, mutant: Path) -> dict:
+def phase_flash_bwd(cases_f, mutant: Path, tc_mutant: Path) -> dict:
     """The backward kernel against its plain version over
-    :func:`flash_bwd_cases` (and the forward's lse), a head dim without an
-    instance refused, then the mutant without ``- delta`` through the same
-    wrapper over the multi-tile cases: more than half must fail."""
+    :func:`flash_bwd_cases` (and the forward's lse), every bf16 D = 64/96/128
+    case on the "wgmma" route with the kernel's plan equal to
+    ``bwd_launch_plan``, a head dim without an instance refused, then each
+    route's mutant without ``- delta`` through the same wrapper over that
+    route's multi-tile cases: more than half must fail."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import _declare_bwd, flash_attention_bwd
+    from repro_torch.kernels.flash_attention import (BWD_TC_HEAD_DIMS, _declare_bwd,
+                                                     flash_attention_bwd)
 
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2639,7 +2657,9 @@ def phase_flash_bwd(cases_f, mutant: Path) -> dict:
         c = flash_bwd_case_check(case, g)
         cases_f.write(json.dumps({"flash_bwd": c}) + "\n")
         rows.append(c)
-        if not (c["worst_ratio"] <= 1.0 and c["lse_ratio_to_limit"] <= 1.0):
+        tc = case[9] == torch.bfloat16 and case[5] in BWD_TC_HEAD_DIMS
+        if not (c["worst_ratio"] <= 1.0 and c["lse_ratio_to_limit"] <= 1.0
+                and c["plan_equal"] and (c["route"] == "wgmma") == tc):
             failures.append(c)
     x = torch.zeros(1, 8, 2, 256, device="cuda")
     lse = torch.zeros(1, 2, 8, device="cuda")
@@ -2648,32 +2668,41 @@ def phase_flash_bwd(cases_f, mutant: Path) -> dict:
         refused = False
     except ValueError:
         refused = True
-    multi = [case for case in cases if max(case[1], case[2]) > 64]
-    with _build.substitute("flash_attention_bwd", mutant, _declare_bwd):
-        mut = [flash_bwd_case_check(case, g) for case in multi]
-    for c in mut:
-        cases_f.write(json.dumps({"flash_bwd_mutant": c}) + "\n")
-    outside = sum(not c["worst_ratio"] <= 1.0 for c in mut)
+    mutation = {}
+    for route, path, line in (("simt", mutant, FLASH_BWD_MUTANT_LINE),
+                              ("wgmma", tc_mutant, TC_FLASH_BWD_MUTANT_LINE)):
+        multi = [case for case, c in zip(cases, rows)
+                 if max(case[1], case[2]) > 64 and c["route"] == route]
+        with _build.substitute("flash_attention_bwd", path, _declare_bwd):
+            mut = [flash_bwd_case_check(case, g) for case in multi]
+        for c in mut:
+            cases_f.write(json.dumps({"flash_bwd_mutant": c}) + "\n")
+        mutation[route] = {"dropped": line, "multi_tile_cases": len(mut),
+                           "outside_limit": sum(not c["worst_ratio"] <= 1.0 for c in mut),
+                           "min_ratio_to_limit": min(c["worst_ratio"] for c in mut)}
     by = {}
     for c in rows:
-        key = f"{c['dtype']} D={c['bsthd'][5]}"
+        key = f"{c['route']} {c['dtype']} D={c['bsthd'][5]}"
         by[key] = max(by.get(key, 0.0), c["worst_ratio"])
-    row = {"cases": len(rows), "limits": {"float32": FLASH_BWD_LIMIT[torch.float32],
-                                          "bfloat16": FLASH_BWD_LIMIT[torch.bfloat16],
-                                          "lse": LSE_LIMIT},
-           "worst_ratio_by_head_dim": by,
+    routes = {r: sum(c["route"] == r for c in rows) for r in ("wgmma", "simt")}
+    row = {"cases": len(rows), "cases_by_route": routes,
+           "limits": {"float32": FLASH_BWD_LIMIT[torch.float32],
+                      "bfloat16": FLASH_BWD_LIMIT[torch.bfloat16], "lse": LSE_LIMIT},
+           "worst_ratio_by_route_and_head_dim": by,
            "worst_lse_ratio": max(c["lse_ratio_to_limit"] for c in rows),
-           "musicgen_shape": rows[-1], "d256_refused": refused, "failures": failures[:5]}
+           "plans_equal": all(c["plan_equal"] for c in rows),
+           "musicgen_shape": rows[cases.index(MUSICGEN_BWD_CASE)], "d256_refused": refused,
+           "failures": failures[:5]}
     emit("flash_bwd", t0, **row)
-    emit("mutation", t0, kernel="flash_attention_bwd", dropped=FLASH_BWD_MUTANT_LINE,
-         multi_tile_cases=len(mut), outside_limit=outside,
-         min_ratio_to_limit=min(c["worst_ratio"] for c in mut))
+    for route, m in mutation.items():
+        emit("mutation", t0, kernel="flash_attention_bwd", route=route, **m)
     if failures or not refused:
-        raise SystemExit(f"flash_bwd: {len(failures)} cases outside their limits, "
-                         f"D = 256 refused: {refused}")
-    if not outside > len(mut) / 2:
-        raise SystemExit(f"flash_bwd mutant: only {outside} of {len(mut)} multi-tile cases "
-                         f"outside their limit")
+        raise SystemExit(f"flash_bwd: {len(failures)} cases outside their limits, off their "
+                         f"route or with another plan; D = 256 refused: {refused}")
+    for route, m in mutation.items():
+        if not m["outside_limit"] > m["multi_tile_cases"] / 2:
+            raise SystemExit(f"flash_bwd {route} mutant: only {m['outside_limit']} of "
+                             f"{m['multi_tile_cases']} multi-tile cases outside their limit")
     return row
 
 
@@ -2967,10 +2996,12 @@ def phase_train_launcher() -> dict:
 def phase_flash_bwd_timing(card: str, g) -> dict:
     """The backward kernel at musicgen-large's training shape (bf16, causal)
     against its plain version, autograd's backward of one SDPA call
-    (yardstick only) and its bound; and the forward with and without its
-    lse output."""
+    (yardstick only) and its bound (the function's five products; the
+    design's seven, S and dP in both launches, beside it), with its route
+    and plan; and the forward with and without its lse output."""
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
-                                                     flash_attention_bwd_plain)
+                                                     flash_attention_bwd_plain,
+                                                     kernel_bwd_plan)
 
     t0 = time.perf_counter()
     flush = flush_buffer()
@@ -3002,11 +3033,14 @@ def phase_flash_bwd_timing(card: str, g) -> dict:
     peak = BF16_PEAK["pcie" if "PCIe" in card else "sxm"]
     ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     del flush
-    row = {"bshd": list(TRAIN_FA_SHAPE), "dtype": "bfloat16", "causal": True, "ms": ms,
+    design_ops_ms = 14 * b * h * d * pairs / peak * 1e3
+    row = {"bshd": list(TRAIN_FA_SHAPE), "dtype": "bfloat16", "causal": True,
+           "plan": kernel_bwd_plan(s, s, d=d, dtype=dt), "ms": ms,
            "device_ms": device_ms, "device_ms_source": "cuda_events", "plain_ms": plain_ms,
            "library_ms": library_ms, "library": "SDPA backward (autograd of one call)",
            "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms,
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "design_products": 7, "design_ops_ms": design_ops_ms,
            "tflops": flops / ms / 1e9, "max_abs_err": max_abs,
            "forward_ms": fwd_ms, "forward_with_lse_ms": fwd_lse_ms}
     emit("timing_flash_bwd", t0, **row)
@@ -3401,7 +3435,9 @@ def main() -> int:
             ("matmul_simt", "matmul", SIMT_MUTANT_LINE,
              "return (K + kd - 1) / kd - 1;  // mutation: the last k stage dropped"),
             ("flash_attention_bwd", "flash_attention_bwd", FLASH_BWD_MUTANT_LINE,
-             "const float ds = pv * dp[i][j] * fac;  // mutation: - delta dropped")):
+             "const float ds = pv * dp[i][j] * fac;  // mutation: - delta dropped"),
+            ("flash_bwd_tc", "flash_attention_bwd", TC_FLASH_BWD_MUTANT_LINE,
+             "const float ds = s[i] * dp[i];  // mutation: - delta dropped")):
         mutants[key] = ROOT / "build" / "mutant" / f"{key}_mutant.cu"
         mutants[key].parent.mkdir(parents=True, exist_ok=True)
         src = (_build.CSRC / f"{name}.cu").read_text()
@@ -3413,7 +3449,7 @@ def main() -> int:
     names = ["matmul", "flash_attention", "flash_attention_bwd", "rwkv6_scan", "mamba_scan"]
     _build.build_all(names + list(mutants.values()))  # one nvcc per source, all at once
     hgmma = {}
-    for name in ("flash_attention", "matmul"):
+    for name in ("flash_attention", "matmul", "flash_attention_bwd"):
         sass = subprocess.run(
             [str(Path(_build.nvcc()).parent / "cuobjdump"), "--dump-sass",
              str(_build.build(name))], capture_output=True, text=True, check=True).stdout
@@ -3434,6 +3470,8 @@ def main() -> int:
          flash_hgmma_in_sass=hgmma["flash_attention"],
          flash_wgmma_warnings=warnings("flash_attention"),
          matmul_hgmma_in_sass=hgmma["matmul"], matmul_wgmma_warnings=warnings("matmul"),
+         flash_bwd_hgmma_in_sass=hgmma["flash_attention_bwd"],
+         flash_bwd_wgmma_warnings=warnings("flash_attention_bwd"),
          matmul_c7519_arrive_injected=sum(
              "C7519" in ln for ln in str(_build.BUILD_INFO["matmul"]["log"]).splitlines()),
          # the two kernels redesigned last, kernel by kernel
@@ -3519,7 +3557,7 @@ def main() -> int:
     # gradients, then musicgen-large trained at full width (counts set to 0
     # and read inside) and the launcher's runs (each in its own process)
     with open(out_dir / "chip_smoke_cases.jsonl", "a") as cases_f:
-        phase_flash_bwd(cases_f, mutants["flash_attention_bwd"])
+        phase_flash_bwd(cases_f, mutants["flash_attention_bwd"], mutants["flash_bwd_tc"])
     phase_scan_grads()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3598,8 +3636,8 @@ def main() -> int:
                          "custom_vjp): the JAX package has no Pallas backward kernel",
         **launches("flash_attention_bwd"),
         **{k: fa_bwd[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                                  "bound_by", "library_ms", "library", "bshd", "dtype",
-                                  "forward_ms", "forward_with_lse_ms")},
+                                  "bound_by", "library_ms", "library", "bshd", "dtype", "plan",
+                                  "design_ops_ms", "forward_ms", "forward_with_lse_ms")},
     }, {
         "name": "rwkv6_scan",
         "route": "cuda",

@@ -40,7 +40,12 @@ q is ``(B, S, H, D)``, k and v ``(B, T, HKV, D)`` with ``H % HKV == 0``
 
 The gradient: :func:`flash_attention_bwd` launches the backward kernel in
 ``csrc/flash_attention_bwd.cu`` (two launches: dk/dv a kv tile, dq a q tile;
-see the note there) at the head dims in :data:`BWD_HEAD_DIMS`, and takes
+see the note there) at the head dims in :data:`BWD_HEAD_DIMS`, on two routes
+by (dtype, D) alone (:func:`bwd_launch_plan`): bf16 at D = 64, 96 and 128
+runs on the tensor cores ("wgmma": every product on wgmma, P and dS rounded
+to bf16, the q-side or kv-side tiles in a two-stage cp.async ring, D = 96
+staged as 128 zero-padded columns); f32 at every D and bf16 at D = 8, 16, 32
+run the SIMT kernels ("simt"). It takes
 :func:`flash_attention_bwd_plain`, the JAX model attention's hand-written
 backward (``repro/models/layers.py::_flash_bwd``) in torch ops, for CPU
 tensors.  :class:`FlashAttention` ties the two into autograd: its forward is
@@ -63,6 +68,10 @@ NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (8, 16, 32, 64, 96, 128, 256)  # the kernel's instances: the JAX tests', the zoo's
 BWD_HEAD_DIMS = (8, 16, 32, 64, 96, 128)  # the backward kernel's (D = 256: too many registers)
+#: the backward's "wgmma" tiles by head dim, as ``kTcTiles`` in the source:
+#: (warpgroups of a dk/dv CTA, its q tile, warpgroups of a dq CTA, its kv tile)
+BWD_TC_TILES = {64: (1, 32, 1, 32), 96: (1, 32, 1, 32), 128: (1, 32, 1, 32)}
+BWD_TC_HEAD_DIMS = tuple(BWD_TC_TILES)  # bf16 backward at these runs on the tensor cores
 TC_HEAD_DIMS = (64, 96, 128, 256)  # bf16 at these runs on the tensor cores
 TC_KV_CAP = 4096  # the tensor-core kv tile is at most TC_KV_CAP // tc_width(D) keys
 SIMT_SMEM_MAX = 232448  # shared memory a CTA can have on the card
@@ -96,8 +105,10 @@ def _lib() -> ctypes.CDLL:
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.looptune_flash_attention_bwd.argtypes = (
-        [p] * 9 + [i] * 6 + [ll] * 12 + [f, f, i, i, i, i, p])
+        [p] * 10 + [i] * 6 + [ll] * 12 + [f, f, i, i, i, i, p])
     lib.looptune_flash_attention_bwd.restype = i
+    lib.looptune_flash_attention_bwd_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+    lib.looptune_flash_attention_bwd_plan.restype = i
 
 
 def _lib_bwd() -> ctypes.CDLL:
@@ -357,9 +368,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of flash attention from the forward's ``out`` and
     ``lse`` and the output gradient ``dout``.
 
-    A CUDA tensor launches the backward kernel (delta = rowsum(dout . out)
-    in torch ops first), on the current stream and without synchronising;
-    a CPU tensor runs :func:`flash_attention_bwd_plain`.  A head dim
+    A CUDA tensor launches the backward kernel, on the current stream and
+    without synchronising (delta = rowsum(dout . out) in torch ops first on
+    the "simt" route; on "wgmma" the dq kernel computes it); a CPU tensor
+    runs :func:`flash_attention_bwd_plain`.  A head dim
     without a backward instance (not in :data:`BWD_HEAD_DIMS`) raises on
     CUDA tensors only.  ``bk`` is the plain version's kv block."""
     b, s, t, hq, hkv, d = _check_bwd(q, k, v, out, dout, lse, softcap)
@@ -375,9 +387,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"out and dout must be {q.dtype}; got {out.dtype}, {dout.dtype}")
     if not (q.stride(3) == k.stride(3) == v.stride(3) == 1):
         raise ValueError("flash_attention_bwd needs the head dim contiguous")
-    dout = dout.contiguous()
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # (B, H, S)
-    lse = lse.contiguous()
+    dout, out, lse = dout.contiguous(), out.contiguous(), lse.contiguous()
+    if bwd_launch_plan(s, t, d=d, dtype=q.dtype)["route"] == "wgmma":
+        check_aligned(q, k, v, dout, out)
+        delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)  # the kernel's
+    else:
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # (B, H, S)
     dq = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, t, hkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, t, hkv, d), dtype=q.dtype, device=q.device)
@@ -385,9 +400,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _lib_bwd().looptune_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, t, hq, hkv,
-            d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *dout.stride()[:3],
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, s, t, hq, hkv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *dout.stride()[:3],
             1.0 / math.sqrt(d), float(softcap or 0.0), int(causal), int(window is not None),
             w, int(q.dtype == torch.bfloat16), stream)
     if err != 0:
@@ -400,6 +416,37 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: wrapper calls that launched the backward kernels (each launches dk/dv and
 #: dq) since the count was last set to 0; the CPU path does not count
 flash_attention_bwd.launches = 0
+
+
+def bwd_launch_plan(s: int, t: int, *, d: int, dtype: torch.dtype) -> dict:
+    """The backward's route and tiles at (S, T), head dim ``d`` and ``dtype``:
+    keys of a dk/dv CTA and its q tile, q rows of a dq CTA and its kv tile.
+    On "wgmma" a CTA has the table's warpgroups of 64 rows, or one where T
+    (dk/dv) or S (dq) fits 64 rows; "simt" runs 64 x 64 tiles.  A head dim
+    without a backward instance (D = 256 among them) raises.  Pure Python;
+    the kernel computes the same (``looptune_flash_attention_bwd_plan``,
+    held equal on the card)."""
+    if min(s, t) < 1:
+        raise ValueError(f"bad plan arguments {(s, t)}")
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"head_dim {d}: the flash backward kernel has instances at "
+                         f"{BWD_HEAD_DIMS} only")
+    if dtype == torch.bfloat16 and d in BWD_TC_HEAD_DIMS:
+        wk, nq, wq, tk = BWD_TC_TILES[d]
+        return {"route": "wgmma", "dkdv_kv_rows": 64 if t <= 64 else 64 * wk,
+                "dkdv_q_tile": nq, "dq_q_rows": 64 if s <= 64 else 64 * wq, "dq_kv_tile": tk}
+    return {"route": "simt", "dkdv_kv_rows": 64, "dkdv_q_tile": 64, "dq_q_rows": 64,
+            "dq_kv_tile": 64}
+
+
+def kernel_bwd_plan(s: int, t: int, *, d: int, dtype: torch.dtype) -> dict:
+    """The backward plan as the built kernel computes it (needs the library)."""
+    out = (ctypes.c_int * 5)()
+    if _lib_bwd().looptune_flash_attention_bwd_plan(s, t, d, int(dtype == torch.bfloat16),
+                                                    out) != 0:
+        raise ValueError(f"bad plan arguments {(s, t)} at head_dim {d}")
+    return {"route": "wgmma" if out[0] else "simt", "dkdv_kv_rows": out[1],
+            "dkdv_q_tile": out[2], "dq_q_rows": out[3], "dq_kv_tile": out[4]}
 
 
 class FlashAttention(torch.autograd.Function):

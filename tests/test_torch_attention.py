@@ -22,9 +22,12 @@ from repro.models import layers as RL
 from repro_torch.core import ScheduleRegistry as TRegistry
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, SIMT_SMEM_MAX, check_aligned,
-                                                 flash_attention, flash_attention_plain,
-                                                 launch_plan, simt_smem_bytes, tc_width)
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS, BWD_TC_TILES, HEAD_DIMS,
+                                                 SIMT_SMEM_MAX, bwd_launch_plan,
+                                                 check_aligned, flash_attention,
+                                                 flash_attention_plain, launch_plan,
+                                                 simt_smem_bytes, tc_width)
 from repro_torch.models import layers as TL
 
 TOL = {"float32": 3e-5, "bfloat16": 3e-2}
@@ -306,6 +309,85 @@ def test_tensor_core_route_refuses_misaligned_views():
     odd = torch.zeros(2, 10, 4, 68, dtype=torch.bfloat16)[..., :64]
     with pytest.raises(ValueError, match="16-byte"):
         check_aligned(odd)                                  # head stride 68
+
+
+# ---------------------------------------------------------------------------
+# the backward's plan: route and tiles by (dtype, D) and (S, T) (pure Python)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 96, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 8, "simt"), (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
+    (torch.float32, 8, "simt"), (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
+    (torch.float32, 64, "simt"), (torch.float32, 96, "simt"), (torch.float32, 128, "simt")])
+def test_bwd_launch_plan_route_by_dtype_and_head_dim(dtype, d, route):
+    """bf16 at D = 64, 96 and 128 runs on the tensor cores; f32 at every D
+    and bf16 at D <= 32 on the SIMT kernels, at 64 x 64 tiles."""
+    plan = bwd_launch_plan(1024, 1024, d=d, dtype=dtype)
+    assert plan["route"] == route
+    if route == "simt":
+        assert [plan[k] for k in ("dkdv_kv_rows", "dkdv_q_tile", "dq_q_rows",
+                                  "dq_kv_tile")] == [64] * 4
+
+
+@pytest.mark.parametrize("s,t,d,want", [
+    (1024, 1024, 64, (64, 32, 64, 32)),    # musicgen-large's training shape
+    (1024, 1024, 128, (64, 32, 64, 32)),   # jamba's (4, 1024, 32/8, 128)
+    (1024, 1024, 96, (64, 32, 64, 32)),    # phi3-mini's
+    (100, 150, 64, (64, 32, 64, 32))])
+def test_bwd_launch_plan_tiles_at_the_models_shapes(s, t, d, want):
+    """One warpgroup of 64 rows a CTA in both kernels (the loop is
+    latency-bound: more CTAs an SM beat larger ones on the card), the dk/dv
+    q tile (wgmma's N of S^T and dP^T) and the dq kv tile 32."""
+    plan = bwd_launch_plan(s, t, d=d, dtype=torch.bfloat16)
+    assert (plan["dkdv_kv_rows"], plan["dkdv_q_tile"], plan["dq_q_rows"],
+            plan["dq_kv_tile"]) == want
+
+
+@pytest.mark.parametrize("s,t,want", [
+    (40, 40, (64, 64)), (64, 64, (64, 64)), (65, 64, (128, 64)), (64, 65, (64, 128)),
+    (1, 1024, (64, 128)), (1024, 1, (128, 64)), (100, 150, (128, 128))])
+def test_bwd_launch_plan_clamps_to_small_s_and_t(s, t, want):
+    """One warpgroup where T (dk/dv: keys) or S (dq: q rows) fits 64 rows;
+    the tiles along the other dim do not change."""
+    for d in (64, 96, 128):
+        plan = bwd_launch_plan(s, t, d=d, dtype=torch.bfloat16)
+        wk, nq, wq, tk = BWD_TC_TILES[d]
+        assert (plan["dq_q_rows"], plan["dkdv_kv_rows"]) == (
+            min(want[0], 64 * wq), min(want[1], 64 * wk))
+        assert (plan["dkdv_q_tile"], plan["dq_kv_tile"]) == (nq, tk)
+
+
+@pytest.mark.parametrize("d", [256, 12, 48, 200, 1])
+def test_bwd_launch_plan_refuses_a_head_dim_without_an_instance(d):
+    """D = 256 has no backward instance on either route (its dk and dv
+    accumulators alone would be 128 registers a thread); nor has any D
+    outside the instances."""
+    assert d not in BWD_HEAD_DIMS
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="instances"):
+            bwd_launch_plan(1024, 1024, d=d, dtype=dtype)
+
+
+def test_bwd_launch_plan_rejects_empty_arguments():
+    for s, t in ((0, 4), (4, 0), (-1, 4)):
+        with pytest.raises(ValueError):
+            bwd_launch_plan(s, t, d=64, dtype=torch.bfloat16)
+
+
+def test_bwd_tiles_are_the_kernel_sources():
+    """``BWD_TC_TILES`` is the source's ``kTcTiles`` table, row by row (the
+    kernel's own plan is held equal on the card), and each tile is one the
+    kernels take: warpgroups 1 or 2, wgmma N of 16, 32 or 64."""
+    import re
+
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    line = re.search(r"constexpr int kTcTiles\[3\]\[4\] = \{(.*)\};", src).group(1)
+    rows = [tuple(int(x) for x in r.split(",")) for r in re.findall(r"\{([^{}]*)\}", line)]
+    assert rows == [BWD_TC_TILES[d] for d in (64, 96, 128)]
+    for wk, nq, wq, tk in rows:
+        assert wk in (1, 2) and wq in (1, 2) and nq in (16, 32, 64) and tk in (16, 32, 64)
 
 
 # ---------------------------------------------------------------------------

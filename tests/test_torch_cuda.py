@@ -811,16 +811,19 @@ def test_pool_measures_in_a_spawned_worker_on_the_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 96, 128])
 def test_flash_backward_kernel_matches_plain_version_on_the_card(d, dtype):
     """The backward kernel against ``flash_attention_bwd_plain`` on the same
     inputs (allclose: f32 5e-4, the JAX package's flash-gradient tolerance;
     bf16 3e-2, the forward's), causal with GQA 4 and ragged S != T, a window
-    and softcap 50; and one launch counted a call."""
+    and softcap 50; one launch counted a call; bf16 at D >= 64 on the
+    "wgmma" route, the rest on "simt", and the kernel's own plan equal to
+    ``bwd_launch_plan``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
-                                                     flash_attention_bwd_plain)
+    from repro_torch.kernels.flash_attention import (bwd_launch_plan, flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_plain, kernel_bwd_plan)
 
     dt = getattr(torch, dtype)
     lim = 5e-4 if dtype == "float32" else 3e-2
@@ -832,6 +835,9 @@ def test_flash_backward_kernel_matches_plain_version_on_the_card(d, dtype):
         k, v = (torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt) for _ in range(2))
         dout = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
         kw = dict(causal=causal, window=window, softcap=softcap)
+        plan = bwd_launch_plan(s, t, d=d, dtype=dt)
+        assert plan["route"] == ("wgmma" if dtype == "bfloat16" and d >= 64 else "simt")
+        assert kernel_bwd_plan(s, t, d=d, dtype=dt) == plan
         out, lse = flash_attention(q, k, v, return_lse=True, **kw)
         before = flash_attention_bwd.launches
         got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
