@@ -178,6 +178,23 @@ line with its seconds:
    olmoe's smoke config through an injected failure and a resume,
    phi3-mini's with int8 gradient compression, rwkv6-7b's and jamba's
    launching their scans, every loss falling;
+   dist   — the seventh path, the distributed runtime: one nccl rank on
+   cuda:0 through a FileStore under ``chiprun_out/``, a (1, 1) mesh over
+   ("data", "model"); dist_train trains musicgen-large as train_model does
+   (the same seed, batch and lr) with its parameters DTensors placed by the
+   FSDP specs and AdamW's moments and master by the ZeRO specs, each
+   step's loss held against train_model's for that step, flash forward 96
+   and backward 48 launches a step, no other kernel, peak memory under 80
+   GB, its step p50 beside train_model's; dist_serve serves olmoe-1b-7b at
+   its published widths (4 x 1024 prompt, 4 decode steps, bf16,
+   registry=None) without a mesh and then placed on it (flash 16 a wave),
+   holding the logits and greedy tokens with every token routed to all
+   experts; dist_roofline prints the training cell's model FLOPs,
+   ``train_mfu`` of both training runs on ``analysis/roofline.py``'s H100
+   constants, the step's roofline terms from an analytic record, and the
+   card's memory against ``HBM_GIB``; dist_two_rank, with two cards or
+   more, trains on a (2, 1) mesh of two spawned ranks against the 1-rank
+   loss, and otherwise prints that it did not run;
 6. timing — per contraction, in f32 on the SIMT route: the kernel at its
    tuned block and at 128^3 (each with its TFLOP/s), the plain version,
    ``torch.matmul`` (the library yardstick only), and the bound (bytes over
@@ -201,7 +218,9 @@ line with its seconds:
    time and a block sweep; then the flash backward at musicgen-large's
    training shape against its plain version, autograd's backward of one
    SDPA call (yardstick only) and its bound, and the forward with and
-   without its lse output.
+   without its lse output; dist_roofline_ceiling holds the six bf16
+   contractions' TFLOP/s, the kernel's and cuBLAS's, under
+   ``PEAK_FLOPS``.
 
 All five kernels' launch counts are set to 0 before phase 4 and read after
 phase 5, set to 0 again before the policy phase and read after it, and
@@ -211,8 +230,10 @@ added to the parent's), set to 0 before the
 model's ``tune_model`` and read right after its serve run, and set to 0
 before rwkv6-7b's and jamba's serve runs and each zoo model's and read
 right after each (path zoo sums its seven), and set to 0 before path
-train's four training steps and read after them; each path must launch its
-own kernels and no other.
+train's four training steps and read after them, and set to 0 before
+dist_train's steps and dist_serve's run under the mesh and read after each
+(path dist sums the two); each path must launch its own kernels and no
+other.
 Launches made to
 compare, trace, check or time do not count.  Per-case detail goes to
 ``chiprun_out/chip_smoke_cases.jsonl``.  Any failure exits non-zero before
@@ -220,9 +241,11 @@ the last line, which is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import queue
 import shutil
@@ -2993,6 +3016,371 @@ def phase_train_launcher() -> dict:
     return row
 
 
+# path dist (the distributed runtime on one card: a (1, 1) mesh of one nccl
+# rank, parameters and optimizer state as DTensors)
+DIST_MESH = ((1, 1), ("data", "model"))
+# dist_train's loss against train_model's, step by step, relative: on a
+# (1, 1) mesh every placement is Replicate and the arithmetic is the same;
+# the first reading was 0.0 at all four steps (NVIDIA H100 80GB HBM3, 700
+# W), so this allows only the grad norm's sums in another order (~8 f32
+# ulps of a loss of ~160)
+DIST_LOSS_LIMIT = 1e-6
+DIST_SERVE = dict(batch=4, prompt_len=1024, decodes=4, max_len=1040)
+# olmoe's logits under the mesh against the same weights without one, f32
+# with every token routed to all 64 experts (no discrete choice to flip, no
+# bf16 atomics), every step, max abs diff / max abs: about twice the first
+# reading, 9.7e-6 (NVIDIA H100 80GB HBM3, 700 W).  In bf16 the two runs
+# read 0.06-0.39 apart at prefill: the combine's bf16 index_add_ adds in no
+# fixed order, and top-8 routing flips
+DIST_SERVE_LIMIT = 2e-5
+
+
+def dist_store(out_dir: Path, name: str) -> str:
+    """A fresh FileStore path under ``chiprun_out/`` (no sockets)."""
+    path = out_dir / "dist" / name
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if path.exists():
+        path.unlink()
+    return str(path)
+
+
+def phase_dist_train(mesh, train: dict) -> dict:
+    """musicgen-large at its published widths under the mesh: parameters
+    placed by the FSDP specs, the AdamW moments and master by the ZeRO
+    specs, the same seed, batch and lr as train_model, TRAIN_STEPS steps
+    (launches counted from 0 just before and read just after); each step's
+    loss against train_model's for the same step; then one traced step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_dataset
+    from repro_torch.models import steps as S
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime import sharding as SH
+
+    t0 = time.perf_counter()
+    cfg = get_config("musicgen-large")
+    b, s = TRAIN_BATCH
+    ds = make_dataset(cfg, None, seed=SEED, global_batch=b, seq_len=s)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in ds.batch(0).items()}
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = S.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                     "cuda", mesh=mesh)
+    placed = S.distribute_batch(batch, mesh)
+    step = S.make_train_step(cfg, constant(TRAIN_LR), weight_decay=0.1, max_grad_norm=1.0)
+    kinds = sorted({type(p).__name__ for p in params.parameters()}
+                   | {type(t).__name__ for t in opt.mu.values()})
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    losses, times = [], []
+    with SH.use_mesh(mesh):
+        reset_launches()  # the path's training drive starts here
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, placed)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(float(m["loss"]))
+        launches = read_launches()  # ... and ends here
+        peak = torch.cuda.max_memory_allocated()
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, placed)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    traced = device_times(prof, wall, ROOT / "chiprun_out" / "trace.json")
+    del params, opt, m, step, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    p50 = sorted(times[1:])[len(times[1:]) // 2]
+    diff = [abs(a - w) / abs(w) for a, w in zip(losses, train["loss"])]
+    row = {"arch": cfg.name, "mesh": dict(zip(DIST_MESH[1], DIST_MESH[0])),
+           "backend": "nccl", "leaf_types": kinds, "init_s": init_s,
+           "loss": losses, "train_model_loss": train["loss"], "loss_rel_diff": diff,
+           "loss_limit": DIST_LOSS_LIMIT, "step_s": times, "step_ms_p50": p50 * 1e3,
+           "train_model_step_ms_p50": train["step_ms_p50"],
+           "dtensor_overhead_ms": p50 * 1e3 - train["step_ms_p50"],
+           "tokens_per_s": b * s / p50, "max_memory_allocated": peak, "launches": launches,
+           "launches_per_step": {k: n / TRAIN_STEPS for k, n in launches.items()},
+           "traced_step": {k: traced.get(k) for k in (
+               "wall_ms", "busy_ms", "flash_attention_ms", "flash_attention_bwd_ms",
+               "other_ms", "idle_share")}}
+    emit("dist_train", t0, **row)
+    check_path_launches("dist_train", launches, ("flash_attention", "flash_attention_bwd"))
+    checks = {
+        "every leaf a DTensor": kinds == ["DTensor"] or all("DTensor" in k for k in kinds),
+        f"flash forward {2 * cfg.n_layers} a step": launches["flash_attention"]
+            == 2 * cfg.n_layers * TRAIN_STEPS,
+        f"flash backward {cfg.n_layers} a step": launches["flash_attention_bwd"]
+            == cfg.n_layers * TRAIN_STEPS,
+        f"loss within {DIST_LOSS_LIMIT} of train_model's": max(diff) <= DIST_LOSS_LIMIT,
+        "loss falls": losses[-1] < losses[0],
+        "peak memory under 80 GB": peak < CARD_BYTES,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"dist_train failed: {bad}")
+    return row
+
+
+def _serve_steps(cfg, params, prompts, decodes: int, max_len: int, mesh=None,
+                 feed=None) -> tuple:
+    """prefill + ``decodes`` decode steps, under ``mesh`` if given, each step
+    fed its own greedy token or, with ``feed`` (decodes, B), those tokens.
+    Returns ([last logits, each decode step's logits] as plain f32 CUDA
+    tensors, the greedy tokens (decodes, B), prefill ms, decode ms)."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import steps as S
+    from repro_torch.runtime import sharding as SH
+
+    make_inputs = SV.input_fn(cfg, "cuda")
+    place = (lambda x: S.distribute_batch(x, mesh)) if mesh is not None else (lambda x: x)
+    prefill = S.make_prefill_step(cfg, max_len)
+    decode = S.make_decode_step(cfg)
+    ctx = SH.use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    logits, greedy, dec_ms = [], [], []
+    with ctx:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        last, caches, n = prefill(params, place(make_inputs(prompts)))
+        last = SH.to_plain(last)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t) * 1e3
+        for i in range(decodes + 1):
+            logits.append(last.float())
+            greedy.append(torch.argmax(last, -1).cpu().numpy())
+            if i == decodes:
+                break
+            tok = greedy[-1] if feed is None else feed[i]
+            t = time.perf_counter()
+            _, step_logits, caches = decode(params, place(make_inputs(tok[:, None])), caches,
+                                            n + i)
+            last = SH.to_plain(step_logits)[:, -1]
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t) * 1e3)
+    del caches
+    return logits, np.stack(greedy[:decodes]), pre_ms, dec_ms
+
+
+def _unplace(params) -> None:
+    """DTensor parameters back to plain tensors, in place (their whole
+    values)."""
+    for mod in params.modules():
+        for name, p in list(mod._parameters.items()):
+            mod._parameters[name] = torch.nn.Parameter(p.full_tensor().detach(),
+                                                       requires_grad=False)
+
+
+def phase_dist_serve(mesh) -> dict:
+    """olmoe-1b-7b at its published widths, bf16, registry=None, 4 x 1024
+    and 4 greedy decode steps: without a mesh, then the same weights placed
+    on the mesh (the TP specs) under it, each a warm-up run and a timed
+    one, launches counted from 0 just before the mesh's first run and read
+    just after (flash 16 a wave, the zoo path's).  The check: the same
+    weights widened to f32 with every token routed to all experts (no
+    discrete routing choice, no bf16 atomics in the combine), without the
+    mesh and then under it fed the same tokens: every step's logits, and
+    the greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import steps as S
+
+    t0 = time.perf_counter()
+    cfg = get_config("olmoe-1b-7b")
+    bsz, plen, decodes, max_len = (DIST_SERVE[k] for k in ("batch", "prompt_len", "decodes",
+                                                           "max_len"))
+    torch.cuda.reset_peak_memory_stats()
+    params = SV.init_model(cfg, SEED, "cuda")
+    wave = SV.request_pool(cfg, bsz, plen, 1, SEED)
+    prompts = np.stack([r.prompt for r in wave])
+    args = (prompts, decodes, max_len)
+    plain = [_serve_steps(cfg, params, *args) for _ in range(2)]
+    S.place_params(params, cfg, mesh, "tp")
+    reset_launches()  # the path's serving drive starts here
+    placed = [_serve_steps(cfg, params, *args, mesh=mesh)]
+    launches = read_launches()  # ... and ends here
+    placed.append(_serve_steps(cfg, params, *args, mesh=mesh))
+    served = {"prefill_ms": placed[1][2], "plain_prefill_ms": plain[1][2],
+              "decode_ms_p50": float(np.median(placed[1][3])),
+              "plain_decode_ms_p50": float(np.median(plain[1][3])),
+              "first_run_prefill_ms": [plain[0][2], placed[0][2]],
+              "prefill_rel_diff_bf16": ((placed[1][0][0] - plain[1][0][0]).abs().max()
+                                        / plain[1][0][0].abs().max()).item(),
+              "tokens_equal_bf16": bool(np.array_equal(placed[1][1], plain[1][1])),
+              "finite": all(bool(torch.isfinite(x).all()) for x in placed[1][0])}
+    del plain, placed
+    # the check, in f32 with dense routing: on the mesh, then without it
+    dense = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, top_k=cfg.moe.n_experts, capacity_factor=1.0))
+    _unplace(params)
+    params.float()
+    off_mesh = _serve_steps(dense, params, *args)
+    S.place_params(params, dense, mesh, "tp")
+    on_mesh = _serve_steps(dense, params, *args, mesh=mesh, feed=off_mesh[1])
+    errs = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(on_mesh[0], off_mesh[0])]
+    peak = torch.cuda.max_memory_allocated()
+    row = {"arch": cfg.name, "params": sum(p.numel() for p in params.parameters()),
+           "mesh": dict(zip(DIST_MESH[1], DIST_MESH[0])), "batch": bsz, "prompt_len": plen,
+           "decodes": decodes, "launches": launches, "served_bf16": served,
+           "check_f32_dense_routing": {"rel_diff_by_step": errs, "worst": max(errs),
+                                       "tokens_equal": bool(np.array_equal(on_mesh[1],
+                                                                           off_mesh[1])),
+                                       "finite": all(bool(torch.isfinite(x).all())
+                                                     for x in on_mesh[0])},
+           "limit": DIST_SERVE_LIMIT, "max_memory_allocated": peak}
+    del params, on_mesh, off_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("dist_serve", t0, **row)
+    check_path_launches("dist_serve", launches, ("flash_attention",))
+    c = row["check_f32_dense_routing"]
+    checks = {
+        "flash 16 a wave": launches["flash_attention"] == cfg.n_layers,
+        f"f32 dense routing within {DIST_SERVE_LIMIT}": c["worst"] <= DIST_SERVE_LIMIT,
+        "f32 dense routing: equal greedy tokens": c["tokens_equal"],
+        "finite logits": c["finite"] and served["finite"],
+        "peak memory under 80 GB": peak < CARD_BYTES,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"dist_serve failed: {bad}")
+    return row
+
+
+def phase_dist_roofline(train: dict, dist_train: dict, card: str, smi: str) -> dict:
+    """The training cell's roofline on the H100's constants
+    (``analysis/roofline.py``): model FLOPs of a musicgen-large step at 4 x
+    1024, ``train_mfu`` = model FLOPs / (p50 x PEAK_FLOPS) for train_model
+    and dist_train, and the step's ``RooflineTerms`` from an analytic
+    record: executed FLOPs (the model's, with the remat recompute of the
+    forward: 4/3) and the parameters' and optimizer's bytes (bf16 weights
+    read three times and their gradient written and read, the f32 moments
+    and master read and written, the weights written: 38 bytes a parameter;
+    activations not counted, so a lower bound)."""
+    from repro_torch.analysis import roofline as RF
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+
+    t0 = time.perf_counter()
+    cfg = get_config("musicgen-large")
+    b, s = TRAIN_BATCH
+    cell = ShapeCell("train_1k", s, b, "train")
+    mf = RF.model_flops(cfg, cell)
+    n = cfg.param_count()
+    peak_gib = dist_train["max_memory_allocated"] / 2 ** 30
+    terms = RF.RooflineTerms(arch=cfg.name, shape=f"train {b}x{s}", mesh="1x1", chips=1,
+                             flops=mf * 4 / 3, mem_bytes=38.0 * n, coll_bytes=0.0,
+                             model_flops_global=mf, hbm_gib=peak_gib,
+                             fits_hbm=peak_gib <= RF.HBM_GIB).finalize()
+    total = torch.cuda.get_device_properties(0).total_memory
+    row = {"card": card, "nvidia_smi": smi, "peak_flops": RF.PEAK_FLOPS, "hbm_bw": RF.HBM_BW,
+           "link_bw": RF.LINK_BW, "total_memory": total, "total_memory_gib": total / 2 ** 30,
+           "hbm_gib_constant": RF.HBM_GIB, "cell": {"batch": b, "seq": s, "kind": "train"},
+           "model_flops": mf,
+           "train_mfu": {"train_model": mf / (train["step_ms_p50"] / 1e3 * RF.PEAK_FLOPS),
+                         "dist_train": mf / (dist_train["step_ms_p50"] / 1e3 * RF.PEAK_FLOPS)},
+           "terms": {"flops": terms.flops, "mem_bytes": terms.mem_bytes,
+                     "t_compute_s": terms.t_compute, "t_memory_s": terms.t_memory,
+                     "t_collective_s": terms.t_collective, "dominant": terms.dominant,
+                     "t_step_s": terms.t_step, "useful_ratio": terms.useful_ratio,
+                     "roofline_fraction_at_bound": terms.roofline_fraction,
+                     "peak_gib": terms.hbm_gib, "fits_hbm": terms.fits_hbm}}
+    emit("dist_roofline", t0, **row)
+    if not abs(total / 2 ** 30 - RF.HBM_GIB) < 0.01:
+        raise SystemExit(f"dist_roofline: HBM_GIB {RF.HBM_GIB} is not this card's "
+                         f"{total / 2 ** 30:.4f} GiB")
+    return row
+
+
+def _dist_two_rank(rank: int, store: str, out: str) -> None:
+    """One rank of the optional 2-rank dist_train (mesh (2, 1))."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_dataset
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import steps as S
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime import sharding as SH
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 2), rank=rank, world_size=2)
+    mesh = make_mesh((2, 1), ("data", "model"), "cuda")
+    cfg = get_config("musicgen-large")
+    b, s = TRAIN_BATCH
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in
+             make_dataset(cfg, None, seed=SEED, global_batch=b, seq_len=s).batch(0).items()}
+    params, opt = S.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                                     "cuda", mesh=mesh)
+    step = S.make_train_step(cfg, constant(TRAIN_LR), weight_decay=0.1, max_grad_norm=1.0)
+    losses = []
+    with SH.use_mesh(mesh):
+        for _ in range(TRAIN_STEPS):
+            params, opt, m = step(params, opt, S.distribute_batch(batch, mesh))
+            losses.append(float(m["loss"]))
+    if rank == 0:
+        Path(out).write_text(json.dumps(losses))
+    dist.destroy_process_group()
+
+
+def phase_dist(out_dir: Path, train: dict, card: str, smi: str) -> dict:
+    """Path dist: one nccl rank on cuda:0 through a FileStore under
+    ``chiprun_out/``, a (1, 1) mesh; dist_train, dist_serve, dist_roofline;
+    with two cards or more also a 2-rank dist_train (mesh (2, 1)) held
+    against the 1-rank loss."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(dist_store(out_dir, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(*DIST_MESH, "cuda")
+        dtrain = phase_dist_train(mesh, train)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dserve = phase_dist_serve(mesh)
+        roof = phase_dist_roofline(train, dtrain, card, smi)
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    two = {"ran": False, "cards": torch.cuda.device_count()}
+    if torch.cuda.device_count() >= 2:
+        import torch.multiprocessing as mp
+
+        out = out_dir / "dist" / "two_rank.json"
+        mp.spawn(_dist_two_rank, args=(dist_store(out_dir, "store2"), str(out)), nprocs=2)
+        two2 = json.loads(out.read_text())
+        diff = [abs(a - w) / abs(w) for a, w in zip(two2, dtrain["loss"])]
+        two = dict(two, ran=True, loss=two2, loss_rel_diff=diff)
+        if max(diff) > DIST_LOSS_LIMIT:
+            raise SystemExit(f"dist_two_rank: loss {two2} against {dtrain['loss']}")
+    else:
+        two["note"] = "one card: the 2-rank dist_train (mesh (2, 1)) did not run"
+    emit("dist_two_rank", t0, **two)
+    return {"launches": {k: dtrain["launches"][k] + dserve["launches"][k]
+                         for k in dtrain["launches"]},
+            "dist_train": dtrain, "dist_serve": dserve, "dist_roofline": roof}
+
+
+def phase_dist_ceiling(rows_bf16: list) -> None:
+    """dist_roofline's last check, once the six bf16 contractions are
+    timed: neither the tiled matmul's nor cuBLAS's measured TFLOP/s may
+    exceed PEAK_FLOPS, or the constant is no ceiling."""
+    from repro_torch.analysis.roofline import PEAK_FLOPS
+
+    t0 = time.perf_counter()
+    rates = [{"mkn": r["mkn"], "kernel_tflops": r["tflops"],
+              "library_tflops": 2 * math.prod(r["mkn"]) / r["library_ms"] / 1e9}
+             for r in rows_bf16]
+    top = max(max(r["kernel_tflops"], r["library_tflops"]) for r in rates)
+    emit("dist_roofline_ceiling", t0, peak_tflops=PEAK_FLOPS / 1e12, top_tflops=top,
+         contractions=rates)
+    if top * 1e12 > PEAK_FLOPS:
+        raise SystemExit(f"a bf16 contraction ran at {top} TFLOP/s, over PEAK_FLOPS")
+
+
 def phase_flash_bwd_timing(card: str, g) -> dict:
     """The backward kernel at musicgen-large's training shape (bf16, causal)
     against its plain version, autograd's backward of one SDPA call
@@ -3566,6 +3954,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_launcher()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # path dist: the distributed runtime on a (1, 1) mesh (counts set to 0
+    # and read inside, around dist_train's steps and dist_serve's mesh run)
+    dist = phase_dist(out_dir, train, card, smi)
+    by_path["dist"] = dist["launches"]
+    check_path_launches("dist", dist["launches"], ("flash_attention", "flash_attention_bwd"))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     def launches(name: str) -> dict:
         per = {path: counts[name] for path, counts in by_path.items()}
@@ -3573,6 +3971,7 @@ def main() -> int:
 
     rows = phase_timing(registry, card, g)
     rows_bf16 = phase_timing_bf16(model_registry, card, g)
+    phase_dist_ceiling(rows_bf16)
     fa = phase_flash_timing(card, g)
     # the headline sums musicgen-large's and jamba's bf16 shapes, as in
     # earlier slices; the zoo's D = 96 and 256 rows are in "by_head_dim"
@@ -3667,5 +4066,33 @@ def main() -> int:
     return 0
 
 
+def main_dist() -> int:
+    """``python3 chip_smoke.py --dist``: the flash kernels' build, path
+    train's train_model (which dist_train is held against) and path dist
+    alone, for iterating on that path."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    smi = nvidia_smi_line()
+    card = torch.cuda.get_device_name(0)
+    emit("device", t0, nvidia_smi=smi, name=card, torch=torch.__version__,
+         cuda=torch.version.cuda, count=torch.cuda.device_count())
+    t0 = time.perf_counter()
+    _build.build_all(["flash_attention", "flash_attention_bwd"])
+    emit("build", t0)
+    train = phase_train_model(out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = phase_dist(out_dir, train, card, smi)
+    check_path_launches("dist", dist["launches"], ("flash_attention", "flash_attention_bwd"))
+    print(smi, flush=True)
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_dist() if sys.argv[1:] == ["--dist"] else main())

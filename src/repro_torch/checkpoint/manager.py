@@ -24,6 +24,14 @@ mid-save never corrupts the latest checkpoint; the ``keep_n`` newest are
 kept.  :meth:`CheckpointManager.restore_latest` returns (step, state,
 extras) with every leaf a CPU tensor, and verifies the checksums: a
 truncated leaf fails loudly, not with NaNs.
+
+DTensor leaves (a state under a mesh) are saved whole, in the same layout
+and keys: every rank gathers each leaf (``full_tensor``, a collective that
+all ranks must reach), rank 0 alone writes, and all ranks wait for the
+write.  On restore each rank reads the files, and a leaf whose template is
+a DTensor is placed as the template is (its mesh and placements); so a
+checkpoint written by N ranks restores at any other count, and in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.runtime.sharding import is_dtensor
 
 _BF16_DESCR = "<V2"
 
@@ -71,9 +81,26 @@ def map_with_keys(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") ->
     return fn(prefix, tree)
 
 
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of the default group, or the only
+    process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def _records(leaf: Any) -> Tuple[np.ndarray, str]:
     """(the leaf as a numpy array of its bytes, its dtype's name); bf16 as
-    uint16 records."""
+    uint16 records.  A DTensor is gathered whole first (a collective)."""
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -100,22 +127,28 @@ def _crc(arr: np.ndarray) -> int:
 
 
 def save_pytree(tree: Any, path: str, extras: Optional[dict] = None) -> None:
+    write = _writer()
     tmp = path + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if write:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
     manifest = {}
     for i, (key, leaf) in enumerate(sorted(keystr_leaves(tree), key=lambda kv: kv[0])):
         fname = f"leaf_{i:05d}.npy"
-        arr, dtype = _records(leaf)
+        arr, dtype = _records(leaf)  # every rank: a DTensor leaf's gather
+        if not write:
+            continue
         _save_leaf(os.path.join(tmp, fname), arr, dtype)
         manifest[key] = {"file": fname, "shape": list(arr.shape), "dtype": dtype,
                          "crc": _crc(arr)}
-    with open(os.path.join(tmp, "meta.json"), "w") as f:
-        json.dump({"manifest": manifest, "extras": extras or {}}, f)
-    if os.path.exists(path):
-        shutil.rmtree(path)
-    os.replace(tmp, path)  # atomic publish
+    if write:
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({"manifest": manifest, "extras": extras or {}}, f)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)  # atomic publish
+    _barrier()
 
 
 def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
@@ -127,7 +160,8 @@ def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 def load_pytree(template: Any, path: str, check: bool = True) -> Tuple[Any, dict]:
     """Restore into the structure of ``template`` (shapes checked): every
-    leaf a CPU tensor of the manifest's dtype."""
+    leaf a CPU tensor of the manifest's dtype, or, where the template's leaf
+    is a DTensor, a DTensor placed as it is."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     manifest = meta["manifest"]
@@ -142,7 +176,13 @@ def load_pytree(template: Any, path: str, check: bool = True) -> Tuple[Any, dict
                 raise IOError(f"checksum mismatch for {key}")
             if list(arr.shape) != list(np.shape(leaf)):
                 raise ValueError(f"{key}: shape {arr.shape} != template {tuple(np.shape(leaf))}")
-        return _tensor(arr, ent["dtype"])
+        t = _tensor(arr, ent["dtype"])
+        if is_dtensor(leaf):
+            from torch.distributed.tensor import distribute_tensor
+
+            t = distribute_tensor(t.to(leaf.to_local().device), leaf.device_mesh,
+                                  leaf.placements, src_data_rank=None)
+        return t
 
     return map_with_keys(one, template), meta["extras"]
 
@@ -173,6 +213,8 @@ class CheckpointManager:
         return path
 
     def _gc(self) -> None:
+        if not _writer():
+            return
         steps = self.steps()
         for s in steps[: max(0, len(steps) - self.keep_n)]:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)

@@ -25,6 +25,17 @@ registry hit that would launch the tiled matmul raises (it has no backward,
 ROADMAP.md §C 6): no entry point returns a result without a ``grad_fn``
 under grad.  The CPU fallback of :func:`tuned_einsum` is ``torch.einsum``
 and stays differentiable.
+
+**Under a mesh** (``runtime/sharding.py``): given DTensors, the flash and
+scan entry points run their kernel (or, on the CPU, its plain version) on
+each rank's local shard through ``local_map``: attention per (batch shard,
+head shard), the RWKV-6 scan per (batch, head) shard and the Mamba scan per
+(batch, channel) shard, with the layer's placements; their autograd
+functions run inside, on the local tensors.  Attention's K and V follow the
+kv-head fallback: where the kv heads do not divide the model axis they are
+replicated, and each rank cuts out the kv heads of its own q heads, so the
+kernel's GQA map (q head h reads kv head h / (HQ / HKV) of the tensors it
+is given) holds on the shard.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.core.registry import ScheduleRegistry, current_hardware
+from repro_torch.runtime import sharding as SH
 
 from .flash_attention import flash_attention as _flash_attention
 from .mamba_scan import mamba_scan as _mamba_scan
@@ -264,8 +276,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if entry and "block" in entry:
             bq = int(entry["block"].get("q", bq))
             bk = int(entry["block"].get("k", bk))
+    if SH.is_dtensor(q):
+        return _flash_sharded(q, k, v, causal=causal, window=window, softcap=softcap,
+                              bq=bq, bk=bk)
     return _flash_attention(q, k, v, causal=causal, window=window,
                             softcap=softcap, bq=bq, bk=bk)
+
+
+def _flash_sharded(q, k, v, **opts):
+    """Flash attention on DTensors: per (batch shard, q-head shard), K and V
+    on the q heads' mesh dims only where the kv heads divide them; else
+    replicated there, each rank cutting out its q heads' kv heads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    hq, hkv = q.shape[2], k.shape[2]
+    qp = SH.spec_placements(q, ("batch", None, "heads", None))
+    kvp = SH.spec_placements(k, ("batch", None, "kv", None))
+    head_dims = [i for i, p in enumerate(qp) if p == Shard(2)]
+    parts = 1
+    for i in head_dims:
+        parts *= mesh.size(i)
+    if head_dims and all(kvp[i] == Shard(2) for i in head_dims):
+        kv_in, cut = qp, False
+    else:
+        kv_in = tuple(Replicate() if i in head_dims else p for i, p in enumerate(qp))
+        cut = bool(head_dims)
+
+    def body(q_l, k_l, v_l):
+        if cut:
+            coord = 0
+            for i in head_dims:
+                coord = coord * mesh.size(i) + mesh.get_local_rank(i)
+            hq_l, g = hq // parts, hq // hkv
+            h0 = coord * hq_l
+            if hq_l % g == 0 or g % hq_l == 0:
+                k_l = k_l[:, :, h0 // g:h0 // g + max(hq_l // g, 1)]
+                v_l = v_l[:, :, h0 // g:h0 // g + max(hq_l // g, 1)]
+            else:  # the slice crosses a group: its own kv head for each q head
+                k_l = k_l.repeat_interleave(g, dim=2)[:, :, h0:h0 + hq_l]
+                v_l = v_l.repeat_interleave(g, dim=2)[:, :, h0:h0 + hq_l]
+        return _flash_attention(q_l, k_l, v_l, **opts)
+
+    return SH.local_call(body, (q, k, v), (qp, kv_in, kv_in), (qp,))
 
 
 def rwkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -280,6 +333,20 @@ def rwkv6_chunk_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         entry = _REGISTRY.get("rwkv6", (r.shape[1], r.shape[3]))
         if entry and "block" in entry:
             chunk = int(entry["block"].get("l", chunk))
+    if SH.is_dtensor(r):
+        # per (batch, head) shard: the state is per head
+        sp = SH.spec_placements(r, ("batch", None, "model", None))
+        up = SH.spec_placements(u, ("model", None))
+        args, specs = [r, k, v, logw, u], [sp, sp, sp, sp, up]
+        if s0 is not None:
+            args.append(s0)
+            specs.append(SH.spec_placements(s0, ("batch", "model", None, None)))
+        state_p = tuple(type(p)(1) if p.is_shard(2) else p for p in sp)  # (B, H, N, N)
+
+        def body(*xs):
+            return _rwkv6_chunk_scan(*xs[:5], chunk=chunk, s0=xs[5] if len(xs) > 5 else None)
+
+        return SH.local_call(body, args, specs, (sp, state_p))
     return _rwkv6_chunk_scan(r, k, v, logw, u, chunk=chunk, s0=s0)
 
 
@@ -297,4 +364,28 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tens
         if entry and "block" in entry:
             chunk = int(entry["block"].get("l", chunk))
             bd = int(entry["block"].get("c", bd))
+    if SH.is_dtensor(x):
+        return _mamba_sharded(x, dt, a, b, c, chunk=chunk, bd=bd, h0=h0)
     return _mamba_scan(x, dt, a, b, c, chunk=chunk, bd=bd, h0=h0)
+
+
+def _mamba_sharded(x, dt, a, b, c, *, chunk, bd, h0):
+    """The Mamba scan on DTensors, per (batch shard, channel shard): the
+    reference keeps d_inner model-sharded through its scan (its
+    ``models/mamba.py`` chunk buffers and state).  B and C are replicated
+    over the channel shards."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    xp = SH.spec_placements(x, ("batch", None, "model"))
+    ap = SH.spec_placements(a, ("model", None))
+    bp = tuple(p if p != Shard(2) else Replicate() for p in xp)
+    hp = tuple(p if p != Shard(2) else Shard(1) for p in xp)  # (B, C, N)
+    args, specs = [x, dt, a, b, c], [xp, xp, ap, bp, bp]
+    if h0 is not None:
+        args.append(h0)
+        specs.append(hp)
+
+    def body(*xs):
+        return _mamba_scan(*xs[:5], chunk=chunk, bd=bd, h0=xs[5] if len(xs) > 5 else None)
+
+    return SH.local_call(body, args, specs, (xp, hp))

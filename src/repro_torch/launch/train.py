@@ -17,9 +17,21 @@ On the card every attention runs the flash kernel forward and backward,
 every RWKV-6 time-mix and Mamba mixer its scan kernel forward (their
 backward recomputes the plain scan).  Checkpoints are the JAX package's
 layout and keys: one written here restores in ``repro.launch.train`` and
-the reverse.  One device only: ``--mesh auto`` is that device, ``single``
-and ``multi`` (the production meshes) raise until the sharding runtime is
-ported (ROADMAP.md, A5).
+the reverse, and at any world size.
+
+Every run trains under a mesh (``runtime/sharding.py``): parameters are
+DTensors placed by the reference's FSDP rules, AdamW's state by its ZeRO
+rules, and each rank builds the same global batch from the pipeline and
+places it on the batch axes.  ``--mesh auto`` is ``(world, 1)`` over
+``("data", "model")``, where the world is the launcher's (``torchrun
+--nproc-per-node N``, one card a rank) or 1 without one (a single-rank
+process group through a ``FileStore``, no sockets); ``single`` and
+``multi`` are the production meshes (16 x 16, 2 x 16 x 16) and raise
+unless the world matches.  The straggler watchdog watches the data axis's
+ranks.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch olmoe-1b-7b \\
+        --mesh auto --steps 50 --batch 8 --seq 128
 """
 from __future__ import annotations
 
@@ -33,14 +45,18 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.data import make_dataset
+from repro_torch.launch.mesh import (PRODUCTION_MULTI, PRODUCTION_SINGLE, init_process_group,
+                                     make_mesh)
 from repro_torch.models import steps as S
 from repro_torch.models.convert import from_jax_layout, to_jax_layout
 from repro_torch.optim import AdamWState
 from repro_torch.optim.schedules import cosine_with_warmup
+from repro_torch.runtime import sharding as SH
 from repro_torch.runtime.compress import compress_grads, ef_init
 from repro_torch.runtime.ft import FailureInjector, FaultTolerantRunner, StragglerWatchdog
 
@@ -93,6 +109,35 @@ def build(args, registry=None):
     return cfg, step_fn
 
 
+def mesh_layout(mesh: str, world: int) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """``--mesh``'s shape and axes for a process group of ``world`` ranks;
+    raises where they differ in size (naming both)."""
+    if mesh == "auto":
+        return (world, 1), ("data", "model")
+    if mesh not in ("single", "multi"):
+        raise ValueError(f"--mesh {mesh!r}: auto | single | multi")
+    shape, axes = PRODUCTION_SINGLE if mesh == "single" else PRODUCTION_MULTI
+    size = int(np.prod(shape))
+    if size != world:
+        raise ValueError(f"--mesh {mesh} is {dict(zip(axes, shape))}, {size} ranks; the "
+                         f"world size is {world}")
+    return shape, axes
+
+
+def _host_times(step_s: float, mesh, device) -> np.ndarray:
+    """Every rank's step seconds, gathered; the slowest rank of each index
+    of the data axis (the watchdog's hosts)."""
+    t = torch.tensor([step_s], dtype=torch.float64, device=device)
+    out = [torch.zeros_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, t)
+    times = torch.cat(out).cpu().numpy().reshape(tuple(mesh.shape))
+    names = list(mesh.mesh_dim_names)
+    if "data" not in names:
+        return np.array([times.max()])
+    data = names.index("data")
+    return times.max(axis=tuple(i for i in range(times.ndim) if i != data))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
@@ -114,8 +159,8 @@ def main(argv=None) -> int:
                     help="inject failures at these steps (FT demo)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--mesh", default="auto",
-                    help="'auto' (the one device) | 'single' | 'multi' (not ported: "
-                         "ROADMAP.md A5)")
+                    help="'auto' (every rank on the data axis) | 'single' (16 x 16) | "
+                         "'multi' (2 x 16 x 16)")
     ap.add_argument("--registry", default=None,
                     help="tuned-schedule registry JSON (dense sites consult it; default: "
                          "the plain @).  On the card a hit launches the tiled matmul, "
@@ -125,14 +170,19 @@ def main(argv=None) -> int:
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
 
-    if args.mesh != "auto":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the production meshes need the sharding runtime, "
-            f"not ported yet (ROADMAP.md, A5); --mesh auto trains on one device")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device; --device cpu runs the kernels' "
                            "plain versions")
+    own_group = not dist.is_initialized()
+    world = dist.get_world_size() if not own_group else int(os.environ.get("WORLD_SIZE", 1))
+    shape, axes = mesh_layout(args.mesh, world)
+    init_process_group(device.type)
+
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(shape, axes, device.type)
+    lead = dist.get_rank() == 0
 
     registry = None
     if args.registry:
@@ -141,7 +191,7 @@ def main(argv=None) -> int:
     cfg, raw_step = build(args, registry=registry)
     ds = make_dataset(cfg, None, seed=args.seed, global_batch=args.batch, seq_len=args.seq)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params, opt = S.init_train_state(cfg, gen, device)
+    params, opt = S.init_train_state(cfg, gen, device, mesh=mesh)
 
     if args.compress_grads:
         ef_box = [ef_init(dict(params.named_parameters()))]
@@ -168,14 +218,15 @@ def main(argv=None) -> int:
 
         state = (params, opt)
 
-    def batch_fn(step):
-        return {k: torch.from_numpy(v).to(device) for k, v in ds.batch(step).items()}
+    def batch_fn(step):  # the same global batch on every rank, placed on the batch axes
+        return S.distribute_batch({k: torch.from_numpy(v).to(device)
+                                   for k, v in ds.batch(step).items()}, mesh)
 
     ckpt = TrainCheckpoints(CheckpointManager(
         args.ckpt_dir or os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"), keep_n=3),
         cfg)
     injector = FailureInjector(args.fail_at) if args.fail_at else None
-    watchdog = StragglerWatchdog(n_hosts=1)
+    watchdog = StragglerWatchdog(n_hosts=SH.mesh_sizes(mesh).get("data", 1))
     runner = FaultTolerantRunner(
         step_fn, ckpt, save_every=args.save_every, injector=injector,
         extras_fn=lambda s: {"data_seed": args.seed, "arch": cfg.name})
@@ -184,22 +235,24 @@ def main(argv=None) -> int:
     restored = ckpt.restore_latest(state)
     if restored is not None:
         start, state, _ = restored
-        print(f"[train] resumed from step {start}", flush=True)
+        if lead:
+            print(f"[train] resumed from step {start}", flush=True)
 
     t0 = time.time()
     losses = []
 
     def log_hook(step, m):
         losses.append(m["loss"])
-        watchdog.record(step, np.array([m["step_time_s"]]))  # one host
-        if step % args.log_every == 0:
+        watchdog.record(step, _host_times(m["step_time_s"], mesh, device))
+        if step % args.log_every == 0 and lead:
             tput = args.batch * args.seq / m["step_time_s"]
             print(f"[train] step {step:5d} loss {m['loss']:.4f} "
                   f"ce {m.get('ce', float('nan')):.4f} "
                   f"gnorm {m['grad_norm']:.3f} tok/s {tput:,.0f}", flush=True)
 
-    state, final_step, _ = runner.run(state, batch_fn, start, args.steps - start,
-                                      hooks=[log_hook])
+    with SH.use_mesh(mesh):
+        state, final_step, _ = runner.run(state, batch_fn, start, args.steps - start,
+                                          hooks=[log_hook])
     dt = time.time() - t0
     summary = {
         "arch": cfg.name, "steps": final_step, "wall_s": round(dt, 1),
@@ -209,7 +262,11 @@ def main(argv=None) -> int:
         "straggler_events": len(watchdog.events),
         "tokens_per_s": round(args.batch * args.seq * len(losses) / dt, 1),
     }
-    print("[train] done:", json.dumps(summary), flush=True)
+    if lead:
+        print(f"[train] mesh {dict(zip(axes, shape))}", flush=True)
+        print("[train] done:", json.dumps(summary), flush=True)
+    if own_group:
+        dist.destroy_process_group()
     return 0
 
 

@@ -10,6 +10,11 @@ backward is the flash backward kernel);
 decode (S == 1) is plain torch, as it is plain jnp in the reference.
 Dense sites go through ``kernels.ops.tuned_einsum`` while a tuned-schedule
 registry is being served.
+
+Under a mesh (``runtime/sharding.py``) the same functions take DTensors:
+DTensor runs each op on the shards, and the kernels run on each rank's
+local shard through ``local_map`` (``kernels/ops.py``; a served dense site
+too, :func:`_sharded_contraction`).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as K
+from repro_torch.runtime import sharding as SH
 
 # ---------------------------------------------------------------------------
 # Initializers
@@ -53,7 +59,35 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if K.serving_registry() is None:
         return x @ w
     free = "abce"[: x.ndim - 1]  # skip k/n (bound in the spec)
+    if SH.is_dtensor(x):
+        return _sharded_contraction(
+            lambda a, b: K.tuned_einsum(f"{free}k,kn->{free}n", a, b), x, w, w_k=0)
     return K.tuned_einsum(f"{free}k,kn->{free}n", x, w)
+
+
+def _sharded_contraction(fn, x, w, w_k: int):
+    """``fn(x, w)`` contracting x's last dim with the 2-D w's dim ``w_k``, on
+    each rank's shards (``local_map``; serving only: the tiled matmul has no
+    backward).  Mesh dim by mesh dim: where x is sharded on a leading dim,
+    w is gathered there (FSDP) and the result keeps x's shard; else where w
+    is sharded on its output dim (column-parallel), x is gathered and the
+    result is sharded on its last dim; else where w is sharded on the
+    contracted dim (row-parallel), x is cut to match and each rank holds a
+    partial sum; else both are whole."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    last, w_n = x.ndim - 1, 1 - w_k
+    x_in, w_in, out = [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if isinstance(xp, Shard) and xp.dim != last:
+            x_in.append(xp), w_in.append(Replicate()), out.append(xp)
+        elif wp == Shard(w_n):
+            x_in.append(Replicate()), w_in.append(wp), out.append(Shard(last))
+        elif wp == Shard(w_k):
+            x_in.append(Shard(last)), w_in.append(wp), out.append(Partial())
+        else:
+            x_in.append(Replicate()), w_in.append(Replicate()), out.append(Replicate())
+    return SH.local_call(fn, (x, w), (tuple(x_in), tuple(w_in)), (tuple(out),))
 
 
 # ---------------------------------------------------------------------------
@@ -238,7 +272,16 @@ def embed_params(generator, vocab: int, d_model: int, dtype, device
 
 
 def embed_apply(p, tokens: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
-    x = p["table"][tokens]
+    if SH.is_dtensor(tokens):
+        # the whole table on each rank's tokens (the row gather's backward
+        # would build a plain tensor among DTensors)
+        from torch.distributed.tensor import Replicate
+
+        whole = tuple(Replicate() for _ in tokens.placements)
+        x = SH.local_call(lambda t, ids: t[ids], (p["table"], tokens),
+                          (whole, tuple(tokens.placements)), (tuple(tokens.placements),))
+    else:
+        x = p["table"][tokens]
     if scale is not None:
         x = x * torch.tensor(scale, dtype=x.dtype, device=x.device)
     return x
@@ -252,8 +295,15 @@ def logits_apply(embed_p, x: torch.Tensor, head_p: Any = None,
     """f32 logits ``x (B, S, D) . table (V, D)`` (bf16 operands are
     multiplied exactly and summed in f32, as ``preferred_element_type``)."""
     table = head_p if head_p is not None else embed_p["table"]
-    if K.serving_registry() is not None:
+    if K.serving_registry() is not None and SH.is_dtensor(x):
+        logits = _sharded_contraction(
+            lambda a, b: K.tuned_einsum("bsd,vd->bsv", a, b, out_dtype=torch.float32),
+            x, table, w_k=1)
+    elif K.serving_registry() is not None:
         logits = K.tuned_einsum("bsd,vd->bsv", x, table, out_dtype=torch.float32)
+    elif SH.is_dtensor(x):
+        # DTensor runs the product on the shards (vocab-parallel on model)
+        logits = torch.einsum("bsd,vd->bsv", x.float(), table.float())
     else:
         # the table is widened to f32 a slice of LOGITS_CHUNK rows at a time:
         # a 256k x 8192 head would otherwise add an 8.4 GB f32 copy

@@ -10,7 +10,9 @@ with data-dependent (selective) dt, B and C.  Prefill (:func:`mamba_apply`)
 is one call of the hand-written selective scan through
 ``kernels.ops.mamba_scan`` (the CUDA kernel on a CUDA tensor, its plain
 version on a CPU tensor) in place of the reference's ``lax.scan`` over
-chunks with an associative scan inside; decode (:func:`mamba_decode`) is the
+chunks with an associative scan inside (under a mesh the reference's
+constraints on the scan's buffers become the placements of the kernel's
+``local_map``: d_inner over model); decode (:func:`mamba_decode`) is the
 plain single-token recurrence, as it is plain jnp in the reference.  The
 step-size projection, its bias, ``a_log`` and the skip ``d`` stay f32 in a
 bf16 model, as the JAX initialiser makes them.
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as K
+from repro_torch.runtime.sharding import ashard
 
 from .layers import dense_init
 
@@ -91,8 +94,11 @@ def mamba_apply(p, x: torch.Tensor, state: Optional[MambaState] = None,
     xz, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
     xz, conv_out = _conv_causal(xz, p["conv_w"], p["conv_b"],
                                 state.conv if state is not None else None)
-    xz = F.silu(xz)
+    # d_inner stays model-sharded through the scan, as in the reference;
+    # the scan's local_map (kernels/ops.py) keeps it so on each shard
+    xz = ashard(F.silu(xz), ("batch", None, "model"))
     dt, bmat, cmat = _ssm_inputs(p, xz)
+    dt = ashard(dt, ("batch", None, "model"))
     a = -torch.exp(p["a_log"])  # (d_inner, N)
     y, h_final = K.mamba_scan(xz, dt, a, bmat, cmat, chunk=chunk,
                               h0=state.h if state is not None else None)

@@ -16,12 +16,26 @@ reference.
 
 Covers jamba (16 experts top-2) and, with a shared expert, llama4-scout's
 layout.
+
+Under a mesh the reference's constraints hold (``ashard``): tokens on
+``tokens_dp`` (batch axes), the expert buffer on (``expert`` -> model,
+``seq`` -> data).  DTensor has no sharding strategy for the slot assignment
+(``searchsorted``, the scatters) or the combine's ``index_add_``, so those
+run through ``local_map``, and so do the top-k routing (token by token, on
+each rank's tokens) and the dispatch's gather, whose backwards would build
+plain tensors among DTensors: the assignment and the gather on the whole
+(replicated) routing and tokens, the same on every rank, and the combine on each rank's slice of the expert
+buffer into a partial (N, D) sum that ``ashard`` then reduces, as GSPMD
+lowers the reference's scatter (local updates + a reduction).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+
+from repro_torch.runtime import sharding as SH
+from repro_torch.runtime.sharding import ashard
 
 from .layers import _ACTS, dense_init, mlp_apply, mlp_params
 
@@ -47,10 +61,19 @@ def _capacity(n_tokens: int, moe_cfg) -> int:
 def _route(p, xt: torch.Tensor, moe_cfg):
     """Router: top-k gates + expert assignment.  xt: (N, D)."""
     logits = xt.float() @ p["router"]  # (N, E) f32
+    if SH.is_dtensor(logits):  # token by token, on each rank's tokens
+        pl = tuple(logits.placements)
+        return (logits, *SH.local_call(lambda lg: _gates(lg, moe_cfg.top_k), (logits,), (pl,),
+                                       (pl, pl, pl)))
+    return (logits, *_gates(logits, moe_cfg.top_k))
+
+
+def _gates(logits: torch.Tensor, top_k: int):
+    """(probs, the top-k gates renormalised, their experts), each (N, ...)."""
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(probs, moe_cfg.top_k, dim=-1)  # (N, K), sorted
+    gate_vals, expert_idx = torch.topk(probs, top_k, dim=-1)  # (N, K), sorted
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
-    return logits, probs, gate_vals, expert_idx
+    return probs, gate_vals, expert_idx
 
 
 def _dispatch_indices(expert_idx: torch.Tensor, e: int, cap: int):
@@ -101,31 +124,85 @@ def _moe_chunk(p, xt: torch.Tensor, moe_cfg, act: str):
     n, d = xt.shape
     e = moe_cfg.n_experts
     cap = _capacity(n, moe_cfg)
+    xt = ashard(xt, ("tokens_dp", None))
 
     logits, probs, gate_vals, expert_idx = _route(p, xt, moe_cfg)
-    slot, keep, token_map, filled = _dispatch_indices(expert_idx, e, cap)
+    if SH.is_dtensor(xt):
+        out, frac_tokens, drop = _dispatch_combine_sharded(p, xt, gate_vals, expert_idx,
+                                                           e, cap, act)
+    else:
+        slot, keep, token_map, filled = _dispatch_indices(expert_idx, e, cap)
 
-    # dispatch: gather tokens into the expert buffer (zero for unfilled slots)
-    xe = torch.where(filled[:, None], xt[token_map], torch.zeros((), dtype=xt.dtype,
-                                                                 device=xt.device))
-    ye = _experts_ffn(p, xe.reshape(e, cap, d), act).reshape(e * cap, d)
+        # dispatch: gather tokens into the expert buffer (zero for unfilled slots)
+        xe = torch.where(filled[:, None], xt[token_map],
+                         torch.zeros((), dtype=xt.dtype, device=xt.device))
+        ye = _experts_ffn(p, xe.reshape(e, cap, d), act).reshape(e * cap, d)
 
-    # combine: add each slot's output back to its source token, weighted by
-    # the gate (gates mapped onto slots the way the tokens were)
-    gate_map = torch.zeros(e * cap + 1, dtype=torch.float32, device=xt.device)
-    gate_map[slot.reshape(-1)] = gate_vals.reshape(-1)
-    weight = (gate_map[:-1] * filled.float()).to(ye.dtype)
-    out = torch.zeros((n, d), dtype=xt.dtype, device=xt.device)
-    out.index_add_(0, token_map, ye * weight[:, None])
+        # combine: add each slot's output back to its source token, weighted by
+        # the gate (gates mapped onto slots the way the tokens were)
+        weight = _slot_weights(slot, gate_vals, filled, e, cap).to(ye.dtype)
+        out = torch.zeros((n, d), dtype=xt.dtype, device=xt.device)
+        out.index_add_(0, token_map, ye * weight[:, None])
+        frac_tokens = _frac_tokens(expert_idx, e)
+        drop = 1.0 - keep.float().mean()
 
     # Switch-style router losses
-    frac_tokens = torch.zeros(e, dtype=torch.float32, device=xt.device).index_add_(
-        0, expert_idx[:, 0], torch.ones(n, dtype=torch.float32, device=xt.device)) / n
     frac_probs = probs.mean(0)
     aux_loss = moe_cfg.aux_loss * e * torch.sum(frac_tokens * frac_probs)
     z_loss = moe_cfg.router_z_loss * torch.mean(torch.logsumexp(logits, dim=-1).square())
-    drop = 1.0 - keep.float().mean()
     return out, (aux_loss, z_loss, drop)
+
+
+def _slot_weights(slot, gate_vals, filled, e: int, cap: int) -> torch.Tensor:
+    """Each capacity slot's gate (0 where unfilled), f32 (E*C,)."""
+    gate_map = torch.zeros(e * cap + 1, dtype=torch.float32, device=slot.device)
+    gate_map[slot.reshape(-1)] = gate_vals.reshape(-1)
+    return gate_map[:-1] * filled.float()
+
+
+def _frac_tokens(expert_idx, e: int) -> torch.Tensor:
+    """The share of tokens whose first choice is each expert."""
+    n = expert_idx.shape[0]
+    return torch.zeros(e, dtype=torch.float32, device=expert_idx.device).index_add_(
+        0, expert_idx[:, 0], torch.ones(n, dtype=torch.float32, device=expert_idx.device)) / n
+
+
+def _dispatch_combine_sharded(p, xt, gate_vals, expert_idx, e: int, cap: int, act: str):
+    """Dispatch, experts and combine on DTensors.  Returns (out (N, D) on
+    ``tokens_dp``, the first-choice shares, the dropped share)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    n, d = xt.shape
+    whole = tuple(Replicate() for _ in xt.placements)
+
+    def assign(idx, gates):  # the whole routing, the same on every rank
+        slot, keep, token_map, filled = _dispatch_indices(idx, e, cap)
+        return (token_map, filled, _slot_weights(slot, gates, filled, e, cap),
+                _frac_tokens(idx, e), 1.0 - keep.float().mean())
+
+    token_map, filled, weight, frac_tokens, drop = SH.local_call(
+        assign, (expert_idx, gate_vals), (whole, whole), (whole,) * 5)
+
+    def gather(x, tm, f):  # dispatch: the expert buffer, zero for unfilled slots
+        return torch.where(f[:, None], x[tm], torch.zeros((), dtype=x.dtype, device=x.device))
+
+    xe = SH.local_call(gather, (xt, token_map, filled), (whole,) * 3, (whole,))
+    xe = ashard(xe.reshape(e, cap, d), ("expert", "seq", None))
+    ye = ashard(_experts_ffn(p, xe, act), ("expert", "seq", None))
+
+    # combine: each rank adds its slots' outputs into a partial (N, D) sum
+    slots = tuple(ye.placements)
+    partial = tuple(Partial() if pl.is_shard() else Replicate() for pl in slots)
+
+    def combine(ye_l, tm_l, w_l):
+        out = torch.zeros((n, d), dtype=ye_l.dtype, device=ye_l.device)
+        out.index_add_(0, tm_l.reshape(-1),
+                       (ye_l * w_l[..., None].to(ye_l.dtype)).reshape(-1, d))
+        return out
+
+    out = SH.local_call(combine, (ye, token_map.reshape(e, cap), weight.reshape(e, cap)),
+                        (slots, slots, slots), (partial,))
+    return ashard(out, ("tokens_dp", None)), frac_tokens, drop
 
 
 def moe_apply(p, x: torch.Tensor, moe_cfg, act: str = "silu"
@@ -142,13 +219,17 @@ def moe_apply(p, x: torch.Tensor, moe_cfg, act: str = "silu"
         n_chunks -= 1
 
     if n_chunks == 1:
-        out, (aux_l, z_l, drop) = _moe_chunk(p, x.reshape(n, d), moe_cfg, act)
+        xt = ashard(x.reshape(n, d), ("tokens_dp", None))
+        out, (aux_l, z_l, drop) = _moe_chunk(p, xt, moe_cfg, act)
     else:
         sl = s // n_chunks
         outs, auxes = [], []
         for i in range(n_chunks):
-            o, a = _moe_chunk(p, x[:, i * sl:(i + 1) * sl].reshape(b * sl, d), moe_cfg, act)
-            outs.append(o.reshape(b, sl, d))
+            # each chunk spans all batch shards (the reference's scan over
+            # (None, "batch", None, None) slices)
+            xc = ashard(x[:, i * sl:(i + 1) * sl], ("batch", None, None))
+            o, a = _moe_chunk(p, xc.reshape(b * sl, d), moe_cfg, act)
+            outs.append(ashard(o.reshape(b, sl, d), ("batch", None, None)))
             auxes.append(torch.stack(a))
         out = torch.cat(outs, dim=1).reshape(n, d)
         aux_l, z_l, drop = torch.stack(auxes).mean(0)

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as K
+from repro_torch.runtime import sharding as SH
 
 from .layers import dense_init
 
@@ -116,6 +117,8 @@ def time_mix_chunked(p, x: torch.Tensor, head_dim: int, chunk: int = 128,
         # and no decay (logw = 0), so the carried state is exactly the
         # state after the s real tokens.
         valid = (torch.arange(sp, device=x.device) < s)[None, :, None]
+        if SH.is_dtensor(x):  # the where's backward reads the mask
+            valid = SH.distribute(valid, x.device_mesh, ())
         k = torch.where(valid, k, torch.zeros((), dtype=k.dtype, device=k.device))
         logw = torch.where(valid, logw, 0.0)
     y, final_state = K.rwkv6_chunk_scan(_heads(r, n), _heads(k, n), _heads(v, n),

@@ -11,9 +11,7 @@ Python loop.  Parameters are read by name as in the JAX pytree
 The port runs every layer kind of the JAX package: attention (global and
 sliding-window), cross-attention (self-attention, then attention over the
 encoder states ``batch["encoder"]``, llama-3.2-vision's), RWKV-6 time-mix +
-channel-mix and Mamba mixers, dense MLP and MoE FFNs.  Sharding annotations
-(``ashard``) are dropped until ``runtime/sharding.py`` is ported.  Entry
-points:
+channel-mix and Mamba mixers, dense MLP and MoE FFNs.  Entry points:
 
   * :func:`hidden_states`  — full-sequence forward to the final norm
     (training's loss reads it through a seq-chunked CE)
@@ -35,9 +33,18 @@ requires grad) and runs :func:`hidden_states` under the config's
 (``torch.utils.checkpoint``, non-reentrant: the backward keeps each layer's
 input and recomputes one layer at a time), ``"period"`` each period,
 ``"none"`` nothing.  Remat applies only with grad enabled and no cache.
+
+Under a mesh (``runtime/sharding.use_mesh``, parameters and inputs as
+DTensors) the same code runs sharded: the reference's ``ashard`` sites hold
+the residual stream at ``("batch", "act_seq", None)`` and the logits at
+``("batch", None, "model")``; the caches are DTensors placed by
+``cache_pspecs`` (:func:`init_cache` with ``mesh``), written in place shard
+by shard.  Each layer re-enters the mesh context it was built under, so a
+remat recompute in the backward runs as its forward did.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -56,6 +63,9 @@ from repro_torch.configs.base import (
     LayerSpec,
     ModelConfig,
 )
+
+from repro_torch.runtime import sharding as SH
+from repro_torch.runtime.sharding import ashard
 
 from . import layers as L
 from . import mamba as M
@@ -177,7 +187,7 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 # ---------------------------------------------------------------------------
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda", mesh=None
                ) -> Tuple[Dict[str, torch.Tensor], ...]:
     """Decode cache: one dict per period position, leaves stacked over
     ``n_periods``.  Attention keeps ``k``/``v`` ``(n_periods, batch, buf,
@@ -189,7 +199,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"
     ``(n_periods, batch, d_inner, N)`` and the conv window ``conv``
     ``(n_periods, batch, d_conv - 1, d_inner)``; a cross layer also keeps the
     encoder's k/v projections ``ck``/``cv`` ``(n_periods, batch,
-    n_cross_tokens, HKV, hd)``, written at prefill and read at decode."""
+    n_cross_tokens, HKV, hd)``, written at prefill and read at decode.
+
+    With ``mesh`` every leaf is a zero DTensor placed by the reference's
+    ``cache_pspecs`` (batch over the batch axes, kv heads or else the
+    sequence over model, Mamba's d_inner and RWKV-6's heads over model),
+    allocated shard by shard."""
+    if mesh is not None:
+        shapes = init_cache(cfg, batch, max_len, device="meta")
+        specs = SH.cache_pspecs(shapes, mesh, batch, cfg.n_kv_heads)
+        return tuple({k: SH.zeros(c[k].shape, c[k].dtype, mesh, spec[k]) for k in c}
+                     for c, spec in zip(shapes, specs))
     check_supported(cfg)
     dt = _dtype(cfg)
     caches = []
@@ -229,6 +249,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
+
+
+def _write(dst: torch.Tensor, src: torch.Tensor, t0: int) -> None:
+    """``dst[:, t0:t0 + src.shape[1]] = src`` in place.  On DTensors each rank
+    writes its own shard: where ``dst`` (a cache) is sharded on that dim,
+    only the overlap of the rank's slots with the written ones."""
+    if not SH.is_dtensor(dst):
+        dst[:, t0:t0 + src.shape[1]] = src
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = dst.device_mesh
+    pl = tuple(dst.placements)
+    src_l = src.redistribute(mesh, tuple(Replicate() if p == Shard(1) else p for p in pl)
+                             ).to_local()
+    dst_l = dst.to_local()
+    if mesh.get_coordinate() is None:
+        return
+    shape, offset = compute_local_shape_and_global_offset(dst.shape, mesh, pl)
+    lo, hi = max(t0, offset[1]), min(t0 + src.shape[1], offset[1] + shape[1])
+    if lo < hi:
+        dst_l[:, lo - offset[1]:hi - offset[1]] = src_l[:, lo - t0:hi - t0]
 
 
 def _apply_rwkv(p, cfg, h, cache, decode):
@@ -297,11 +340,11 @@ def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, encoder, decode):
         if cache is not None:
             buf, s = cache["k"].shape[1], k.shape[1]
             if buf >= s:
-                cache["k"][:, :s] = k
-                cache["v"][:, :s] = v
+                _write(cache["k"], k, 0)
+                _write(cache["v"], v, 0)
             else:  # a windowed cache is a ring: the last buf keys, position p in slot p % buf
-                cache["k"].copy_(torch.roll(k[:, -buf:], shifts=s % buf, dims=1))
-                cache["v"].copy_(torch.roll(v[:, -buf:], shifts=s % buf, dims=1))
+                _write(cache["k"], torch.roll(k[:, -buf:], shifts=s % buf, dims=1), 0)
+                _write(cache["v"], torch.roll(v[:, -buf:], shifts=s % buf, dims=1), 0)
     else:
         buf = cache["k"].shape[1]
         kv_positions = None
@@ -314,8 +357,8 @@ def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, encoder, decode):
             # p % buf == j (negative: never written)
             at = cache_len % buf
             kv_positions = cache_len - (cache_len - torch.arange(buf, device=h.device)) % buf
-        cache["k"][:, at:at + 1] = k
-        cache["v"][:, at:at + 1] = v
+        _write(cache["k"], k, at)
+        _write(cache["v"], v, at)
         out = L.attention(q, cache["k"], cache["v"], causal=True, q_offset=cache_len,
                           kv_len=cache_len + 1, window=window,
                           softcap=cfg.attn_softcap, kv_positions=kv_positions)
@@ -351,12 +394,12 @@ def _apply_block(spec, p, cfg, x, cache, cache_len, positions, encoder, decode):
         mix = L.rms_norm(mix, p["post_attn"])
     if cfg.parallel_block:
         ff, aux = _apply_ffn(spec, p, cfg, h, cache, decode)
-        return x + mix.to(x.dtype) + ff.to(x.dtype), aux
+        return ashard(x + mix.to(x.dtype) + ff.to(x.dtype), ("batch", "act_seq", None)), aux
     x = x + mix.to(x.dtype)
     ff, aux = _apply_ffn(spec, p, cfg, L.rms_norm(x, p["norm_ffn"]), cache, decode)
     if cfg.post_norm:
         ff = L.rms_norm(ff, p["post_ffn"])
-    return x + ff.to(x.dtype), aux
+    return ashard(x + ff.to(x.dtype), ("batch", "act_seq", None)), aux
 
 
 # ---------------------------------------------------------------------------
@@ -367,9 +410,10 @@ def _apply_block(spec, p, cfg, x, cache, cache_len, positions, encoder, decode):
 def _embed_in(params, cfg, batch) -> torch.Tensor:
     if cfg.frontend == "tokens":
         scale = math.sqrt(cfg.d_model) if cfg.embed_scale else None
-        return L.embed_apply(params["embed"], batch["tokens"], scale)
-    # audio / stub frontends supply precomputed frame embeddings
-    return batch["embeds"].to(_dtype(cfg))
+        x = L.embed_apply(params["embed"], batch["tokens"], scale)
+    else:  # audio / stub frontends supply precomputed frame embeddings
+        x = batch["embeds"].to(_dtype(cfg))
+    return ashard(x, ("batch", "act_seq", None))
 
 
 def _run_layers(params, cfg, x, caches, cache_len, positions, encoder, decode,
@@ -387,14 +431,16 @@ def _run_layers(params, cfg, x, caches, cache_len, positions, encoder, decode,
     if caches is not None or not torch.is_grad_enabled():
         policy = "none"
     blocks = params["blocks"]
+    ctx = SH.capture()  # the mesh context a recompute re-enters
 
     def layer(i, x, aux):
         per, pos = divmod(i, n)
         cache = (None if caches is None
                  else {name: t[per] for name, t in caches[pos].items()})
-        x, layer_aux = _apply_block(cfg.period[pos], blocks[i], cfg, x, cache, cache_len,
-                                    positions, encoder, decode)
-        return x, (aux if layer_aux is None else aux + layer_aux)
+        with SH.mesh_scope(ctx):
+            x, layer_aux = _apply_block(cfg.period[pos], blocks[i], cfg, x, cache,
+                                        cache_len, positions, encoder, decode)
+            return x, (aux if layer_aux is None else aux + layer_aux)
 
     def period(per, x, aux):
         for i in range(per * n, (per + 1) * n):
@@ -405,6 +451,8 @@ def _run_layers(params, cfg, x, caches, cache_len, positions, encoder, decode,
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if SH.is_dtensor(x):
+        aux = SH.distribute(aux, x.device_mesh, ())
     if policy == "period":
         for per in range(cfg.n_periods):
             x, aux = remat_fn(period, per, x, aux)
@@ -414,6 +462,19 @@ def _run_layers(params, cfg, x, caches, cache_len, positions, encoder, decode,
     return x, aux
 
 
+def _scoped(fn):
+    """``fn`` inside the current mesh context with implicit replication (a
+    no-op outside a mesh)."""
+
+    @functools.wraps(fn)
+    def inner(*args, **kwargs):
+        with SH.mesh_scope(SH.capture()):
+            return fn(*args, **kwargs)
+
+    return inner
+
+
+@_scoped
 def hidden_states(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                   caches: Optional[Tuple] = None, remat=True
                   ) -> Tuple[torch.Tensor, Optional[Tuple], torch.Tensor]:
@@ -435,12 +496,15 @@ def hidden_states(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Te
                              f"takes {want}")
         encoder = encoder.to(_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)[None]
+    if SH.is_dtensor(x):  # RoPE's tables a DTensor: its backward reads them
+        positions = SH.distribute(positions, x.device_mesh, ())
     x, aux = _run_layers(params, cfg, x, caches, 0, positions, encoder, decode=False,
                          remat=remat)
     x = L.rms_norm(x, params["final_norm"])
     return x, caches, aux
 
 
+@_scoped
 def forward(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             caches: Optional[Tuple] = None
             ) -> Tuple[torch.Tensor, Optional[Tuple], torch.Tensor]:
@@ -448,9 +512,10 @@ def forward(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     place).  Returns (logits (B, S, V) f32, caches, aux_loss)."""
     x, caches, aux = hidden_states(params, cfg, batch, caches)
     logits = L.logits_apply(params["embed"], x, params.get("lm_head"), cfg.logit_softcap)
-    return logits, caches, aux
+    return ashard(logits, ("batch", None, "model")), caches, aux
 
 
+@_scoped
 def decode_step(params: ParamTree, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                 caches: Tuple, cache_len: int) -> Tuple[torch.Tensor, Tuple]:
     """One decode step at position ``cache_len`` (the valid cache length);

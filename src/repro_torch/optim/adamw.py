@@ -13,12 +13,21 @@ updates in place to save memory: the moments and the master copy are
 written into ``state``'s own tensors, and the parameters into ``params``'
 tensors (under ``torch.no_grad``).  It works one leaf at a time, so its
 temporaries are one leaf's f32 copies, not the model's.
+
+DTensor leaves (a model under a mesh): each gradient is brought to its
+moments' placements (ZeRO), the update runs on each rank's local shards
+of the moments, master and gradient, and the parameter (FSDP) receives the
+new shards redistributed to its own placements.  :func:`global_norm` sums
+each rank's local squares (a leaf replicated over a mesh dim counted once)
+and reduces the total over the mesh before the clip.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.runtime.sharding import is_dtensor
 
 Tree = Dict[str, torch.Tensor]
 
@@ -42,10 +51,26 @@ def adamw_init(params: Tree, keep_master: bool = False) -> AdamWState:
 
 def global_norm(grads: Tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    total = None
+    total, mesh = None, None
     for g in grads.values():
-        sq = torch.sum(torch.square(g.float()))
+        if is_dtensor(g):
+            # this rank's shard, once per copy across the mesh dims that
+            # replicate it; the total is reduced over the mesh below
+            mesh = g.device_mesh
+            copies = 1
+            for i, pl in enumerate(g.placements):
+                if pl.is_partial():
+                    raise ValueError("global_norm of a partial gradient: reduce it first")
+                if pl.is_replicate():
+                    copies *= mesh.size(i)
+            sq = torch.sum(torch.square(g.to_local().float())) / copies
+        else:
+            sq = torch.sum(torch.square(g.float()))
         total = sq if total is None else total + sq
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor, Partial
+
+        total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim).full_tensor()
     return torch.sqrt(total)
 
 
@@ -77,17 +102,29 @@ def adamw_update(grads: Tree, state: AdamWState, params: Tree, lr, *,
     lr = torch.as_tensor(lr, dtype=torch.float32, device=device)
     with torch.no_grad():
         for name, p in params.items():
-            g = grads[name].float()
+            m, v = state.mu[name], state.nu[name]
+            ref = state.master[name] if state.master is not None else p
+            g = grads[name]
+            if is_dtensor(m):  # the update on this rank's shards of the leaf
+                mesh, pl = m.device_mesh, tuple(m.placements)
+                g = g.redistribute(mesh, pl).to_local()
+                ref = ref.redistribute(mesh, pl) if tuple(ref.placements) != pl else ref
+                m, v, ref = m.to_local(), v.to_local(), ref.to_local()
+            g = g.float()
             if scale is not None:
                 g = g * scale
-            m, v = state.mu[name], state.nu[name]
             m.copy_(b1 * m + (1 - b1) * g)
             v.copy_(b2 * v + (1 - b2) * g * g)
-            ref = state.master[name] if state.master is not None else p
             p32 = ref.float()
             u = (m / c1) / (torch.sqrt(v / c2) + eps)
             new = p32 - lr * (u + weight_decay * p32)
             if state.master is not None:
-                state.master[name].copy_(new)
-            p.copy_(new.to(p.dtype))
+                ref.copy_(new)
+            if is_dtensor(p):
+                from torch.distributed.tensor import DTensor
+
+                new_p = DTensor.from_local(new.to(p.dtype), mesh, pl, run_check=False)
+                p.to_local().copy_(new_p.redistribute(mesh, p.placements).to_local())
+            else:
+                p.copy_(new.to(p.dtype))
     return params, AdamWState(step, state.mu, state.nu, state.master), gnorm

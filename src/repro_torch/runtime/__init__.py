@@ -1,3 +1,3 @@
-"""Runtime of the port's training loop: fault tolerance (ft.py) and int8
-gradient compression (compress.py).  The JAX package's sharding rules,
-mesh context and elastic remesh are not ported yet (ROADMAP.md, A5)."""
+"""Runtime of the port: fault tolerance (ft.py), int8 gradient compression
+(compress.py), the logical-axis sharding rules and mesh context on DTensor
+(sharding.py) and elastic remesh (elastic.py)."""

@@ -5,9 +5,8 @@ of ``grads + ef`` is quantised to int8 with one scale a leaf (max |x| / 127
 + 1e-12), and the quantisation residual becomes the next step's error
 feedback, which the caller carries (in the train state, so that it
 survives checkpoints).  ``torch.round`` rounds half to even, as
-``jnp.round`` does.  On one device there is no all-reduce to shrink: the
-transform is the arithmetic, ready for the data-parallel port (ROADMAP.md,
-A5)."""
+``jnp.round`` does.  The transform is the arithmetic on each leaf (under a
+mesh, on DTensor leaves); the gradients' reduction has already run."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -28,8 +27,8 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def ef_init(params: Tree) -> Tree:
-    return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            for k, p in params.items()}
+    """f32 zeros like each parameter (a DTensor's in its placements)."""
+    return {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
 
 
 def compress_grads(grads: Tree, ef: Tree) -> Tuple[Tree, Tree]:

@@ -876,3 +876,46 @@ def test_training_step_launches_both_flash_kernels_on_the_card():
     assert flash_attention.launches - fwd == 3 * 2 * cfg.n_layers
     assert flash_attention_bwd.launches - bwd == 3 * cfg.n_layers
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_train_step_under_a_mesh_on_the_card(tmp_path):
+    """One nccl rank, a (1, 1) mesh: two train steps of musicgen-large's
+    smoke config with DTensor parameters and AdamW state launch flash
+    forward twice a layer and its backward once a step, and give the same
+    losses as the steps without a mesh from the same seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import steps as S
+    from repro_torch.optim.schedules import constant
+    from repro_torch.runtime import sharding as SH
+
+    cfg = get_config("musicgen-large").smoke()
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_dataset(cfg, None, global_batch=2, seq_len=64).batch(0).items()}
+    step = S.make_train_step(cfg, constant(1e-3))
+    params, opt = S.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    want = [float(step(params, opt, batch)[2]["loss"]) for _ in range(2)]
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        params, opt = S.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                         "cuda", mesh=mesh)
+        fwd, bwd = flash_attention.launches, flash_attention_bwd.launches
+        with SH.use_mesh(mesh):
+            got = [float(step(params, opt, S.distribute_batch(batch, mesh))[2]["loss"])
+                   for _ in range(2)]
+        torch.cuda.synchronize()
+        assert flash_attention.launches - fwd == 2 * 2 * cfg.n_layers
+        assert flash_attention_bwd.launches - bwd == 2 * cfg.n_layers
+        assert all(SH.is_dtensor(p) for p in params.parameters())
+    finally:
+        dist.destroy_process_group()
+    assert got == pytest.approx(want, rel=1e-6)

@@ -111,6 +111,9 @@ def test_registry_file_drives_the_other_package(tuned, tmp_path, writer):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
+            "import repro_torch.runtime.sharding, repro_torch.runtime.elastic\n"
+            "import repro_torch.launch.mesh, repro_torch.analysis.roofline\n"
+            "import repro_torch.analysis, repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n")
