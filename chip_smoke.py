@@ -3027,11 +3027,13 @@ DIST_MESH = ((1, 1), ("data", "model"))
 DIST_LOSS_LIMIT = 1e-6
 DIST_SERVE = dict(batch=4, prompt_len=1024, decodes=4, max_len=1040)
 # olmoe's logits under the mesh against the same weights without one, f32
-# with every token routed to all 64 experts (no discrete choice to flip, no
-# bf16 atomics), every step, max abs diff / max abs: about twice the first
-# reading, 9.7e-6 (NVIDIA H100 80GB HBM3, 700 W).  In bf16 the two runs
-# read 0.06-0.39 apart at prefill: the combine's bf16 index_add_ adds in no
-# fixed order, and top-8 routing flips
+# with every token routed to all 64 experts (no discrete choice to flip),
+# every step, max abs diff / max abs: about twice the first reading, 9.7e-6
+# (8.3e-6 in a second call; NVIDIA H100 80GB HBM3, 700 W).  In bf16 at
+# top-8 the plain run reads 0.45 from its own repeat at prefill (the
+# combine's index_add_ adds in no fixed order on the card, and routings
+# flip), so bf16 is held with PyTorch's deterministic algorithms on, where
+# the plain run repeats and the mesh's run equals it bit for bit
 DIST_SERVE_LIMIT = 2e-5
 
 
@@ -3162,6 +3164,31 @@ def _serve_steps(cfg, params, prompts, decodes: int, max_len: int, mesh=None,
     return logits, np.stack(greedy[:decodes]), pre_ms, dec_ms
 
 
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic algorithms (``index_add_`` on the card adds in
+    a fixed order), their warnings for ops that have none silenced."""
+    import warnings as warn
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warn.catch_warnings():
+            warn.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _repeat(run, ref) -> dict:
+    """One ``_serve_steps`` run against another: each step's max abs diff /
+    max abs, whether every step's logits are equal bit for bit, and whether
+    the greedy tokens are."""
+    rel = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(run[0], ref[0])]
+    return {"rel_diff_by_step": rel,
+            "bitwise_equal": all(bool(torch.equal(a, b)) for a, b in zip(run[0], ref[0])),
+            "tokens_equal": bool(np.array_equal(run[1], ref[1]))}
+
+
 def _unplace(params) -> None:
     """DTensor parameters back to plain tensors, in place (their whole
     values)."""
@@ -3176,11 +3203,15 @@ def phase_dist_serve(mesh) -> dict:
     and 4 greedy decode steps: without a mesh, then the same weights placed
     on the mesh (the TP specs) under it, each a warm-up run and a timed
     one, launches counted from 0 just before the mesh's first run and read
-    just after (flash 16 a wave, the zoo path's).  The check: the same
-    weights widened to f32 with every token routed to all experts (no
-    discrete routing choice, no bf16 atomics in the combine), without the
-    mesh and then under it fed the same tokens: every step's logits, and
-    the greedy tokens."""
+    just after (flash 16 a wave, the zoo path's).  In bf16 each run is
+    recorded against its repeat (the combine's ``index_add_`` adds in no
+    fixed order on the card).  The checks: with PyTorch's deterministic
+    algorithms on (the combine then adds in a fixed order), the bf16 plain
+    run against its repeat and the mesh's run fed the same tokens against
+    the plain one, bit for bit; and the same weights widened to f32 with
+    every token routed to all experts (no discrete routing choice), without
+    the mesh and then under it fed the same tokens: every step's logits,
+    and the greedy tokens."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve as SV
     from repro_torch.models import steps as S
@@ -3195,11 +3226,15 @@ def phase_dist_serve(mesh) -> dict:
     prompts = np.stack([r.prompt for r in wave])
     args = (prompts, decodes, max_len)
     plain = [_serve_steps(cfg, params, *args) for _ in range(2)]
+    with _deterministic():
+        det_plain = [_serve_steps(cfg, params, *args) for _ in range(2)]
     S.place_params(params, cfg, mesh, "tp")
     reset_launches()  # the path's serving drive starts here
     placed = [_serve_steps(cfg, params, *args, mesh=mesh)]
     launches = read_launches()  # ... and ends here
     placed.append(_serve_steps(cfg, params, *args, mesh=mesh))
+    with _deterministic():
+        det_mesh = _serve_steps(cfg, params, *args, mesh=mesh, feed=det_plain[0][1])
     served = {"prefill_ms": placed[1][2], "plain_prefill_ms": plain[1][2],
               "decode_ms_p50": float(np.median(placed[1][3])),
               "plain_decode_ms_p50": float(np.median(plain[1][3])),
@@ -3207,8 +3242,12 @@ def phase_dist_serve(mesh) -> dict:
               "prefill_rel_diff_bf16": ((placed[1][0][0] - plain[1][0][0]).abs().max()
                                         / plain[1][0][0].abs().max()).item(),
               "tokens_equal_bf16": bool(np.array_equal(placed[1][1], plain[1][1])),
+              "plain_repeat": _repeat(plain[1], plain[0]),
+              "mesh_repeat": _repeat(placed[1], placed[0]),
+              "deterministic": {"plain_repeat": _repeat(det_plain[1], det_plain[0]),
+                                "mesh_vs_plain": _repeat(det_mesh, det_plain[0])},
               "finite": all(bool(torch.isfinite(x).all()) for x in placed[1][0])}
-    del plain, placed
+    del plain, placed, det_plain, det_mesh
     # the check, in f32 with dense routing: on the mesh, then without it
     dense = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
         cfg.moe, top_k=cfg.moe.n_experts, capacity_factor=1.0))
@@ -3235,8 +3274,13 @@ def phase_dist_serve(mesh) -> dict:
     emit("dist_serve", t0, **row)
     check_path_launches("dist_serve", launches, ("flash_attention",))
     c = row["check_f32_dense_routing"]
+    det = served["deterministic"]
     checks = {
         "flash 16 a wave": launches["flash_attention"] == cfg.n_layers,
+        "bf16 deterministic: the plain run repeats bit for bit":
+            det["plain_repeat"]["bitwise_equal"],
+        "bf16 deterministic: the mesh's run equals the plain one bit for bit":
+            det["mesh_vs_plain"]["bitwise_equal"] and det["mesh_vs_plain"]["tokens_equal"],
         f"f32 dense routing within {DIST_SERVE_LIMIT}": c["worst"] <= DIST_SERVE_LIMIT,
         "f32 dense routing: equal greedy tokens": c["tokens_equal"],
         "finite logits": c["finite"] and served["finite"],
@@ -4066,33 +4110,5 @@ def main() -> int:
     return 0
 
 
-def main_dist() -> int:
-    """``python3 chip_smoke.py --dist``: the flash kernels' build, path
-    train's train_model (which dist_train is held against) and path dist
-    alone, for iterating on that path."""
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    from repro_torch.kernels import _build
-
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    t0 = time.perf_counter()
-    smi = nvidia_smi_line()
-    card = torch.cuda.get_device_name(0)
-    emit("device", t0, nvidia_smi=smi, name=card, torch=torch.__version__,
-         cuda=torch.version.cuda, count=torch.cuda.device_count())
-    t0 = time.perf_counter()
-    _build.build_all(["flash_attention", "flash_attention_bwd"])
-    emit("build", t0)
-    train = phase_train_model(out_dir)
-    gc.collect()
-    torch.cuda.empty_cache()
-    dist = phase_dist(out_dir, train, card, smi)
-    check_path_launches("dist", dist["launches"], ("flash_attention", "flash_attention_bwd"))
-    print(smi, flush=True)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main_dist() if sys.argv[1:] == ["--dist"] else main())
+    sys.exit(main())

@@ -19,13 +19,14 @@ backward recomputes the plain scan).  Checkpoints are the JAX package's
 layout and keys: one written here restores in ``repro.launch.train`` and
 the reverse, and at any world size.
 
-Every run trains under a mesh (``runtime/sharding.py``): parameters are
-DTensors placed by the reference's FSDP rules, AdamW's state by its ZeRO
-rules, and each rank builds the same global batch from the pipeline and
-places it on the batch axes.  ``--mesh auto`` is ``(world, 1)`` over
-``("data", "model")``, where the world is the launcher's (``torchrun
---nproc-per-node N``, one card a rank) or 1 without one (a single-rank
-process group through a ``FileStore``, no sockets); ``single`` and
+Over more than one rank a run trains under a mesh
+(``runtime/sharding.py``): parameters are DTensors placed by the
+reference's FSDP rules, AdamW's state by its ZeRO rules, and each rank
+builds the same global batch from the pipeline and places it on the batch
+axes.  ``--mesh auto`` is ``(world, 1)`` over ``("data", "model")``, where
+the world is the launcher's (``torchrun --nproc-per-node N``, one card a
+rank) or 1 without one; at a world of 1 that mesh shards nothing, so the
+run keeps plain tensors and starts no process group.  ``single`` and
 ``multi`` are the production meshes (16 x 16, 2 x 16 x 16) and raise
 unless the world matches.  The straggler watchdog watches the data axis's
 ranks.
@@ -36,6 +37,7 @@ ranks.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -177,12 +179,14 @@ def main(argv=None) -> int:
     own_group = not dist.is_initialized()
     world = dist.get_world_size() if not own_group else int(os.environ.get("WORLD_SIZE", 1))
     shape, axes = mesh_layout(args.mesh, world)
-    init_process_group(device.type)
-
-    if device.type == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device())
-    mesh = make_mesh(shape, axes, device.type)
-    lead = dist.get_rank() == 0
+    mesh = None  # one rank: plain tensors (a (1, 1) mesh shards nothing)
+    if world > 1:
+        init_process_group(device.type)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        mesh = make_mesh(shape, axes, device.type)
+    own_group = own_group and dist.is_initialized()
+    lead = mesh is None or dist.get_rank() == 0
 
     registry = None
     if args.registry:
@@ -219,14 +223,15 @@ def main(argv=None) -> int:
         state = (params, opt)
 
     def batch_fn(step):  # the same global batch on every rank, placed on the batch axes
-        return S.distribute_batch({k: torch.from_numpy(v).to(device)
-                                   for k, v in ds.batch(step).items()}, mesh)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in ds.batch(step).items()}
+        return batch if mesh is None else S.distribute_batch(batch, mesh)
 
     ckpt = TrainCheckpoints(CheckpointManager(
         args.ckpt_dir or os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"), keep_n=3),
         cfg)
     injector = FailureInjector(args.fail_at) if args.fail_at else None
-    watchdog = StragglerWatchdog(n_hosts=SH.mesh_sizes(mesh).get("data", 1))
+    watchdog = StragglerWatchdog(n_hosts=1 if mesh is None
+                                 else SH.mesh_sizes(mesh).get("data", 1))
     runner = FaultTolerantRunner(
         step_fn, ckpt, save_every=args.save_every, injector=injector,
         extras_fn=lambda s: {"data_seed": args.seed, "arch": cfg.name})
@@ -243,14 +248,15 @@ def main(argv=None) -> int:
 
     def log_hook(step, m):
         losses.append(m["loss"])
-        watchdog.record(step, _host_times(m["step_time_s"], mesh, device))
+        watchdog.record(step, np.array([m["step_time_s"]]) if mesh is None
+                        else _host_times(m["step_time_s"], mesh, device))
         if step % args.log_every == 0 and lead:
             tput = args.batch * args.seq / m["step_time_s"]
             print(f"[train] step {step:5d} loss {m['loss']:.4f} "
                   f"ce {m.get('ce', float('nan')):.4f} "
                   f"gnorm {m['grad_norm']:.3f} tok/s {tput:,.0f}", flush=True)
 
-    with SH.use_mesh(mesh):
+    with SH.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
         state, final_step, _ = runner.run(state, batch_fn, start, args.steps - start,
                                           hooks=[log_hook])
     dt = time.time() - t0

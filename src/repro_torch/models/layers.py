@@ -67,22 +67,25 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _sharded_contraction(fn, x, w, w_k: int):
     """``fn(x, w)`` contracting x's last dim with the 2-D w's dim ``w_k``, on
-    each rank's shards (``local_map``; serving only: the tiled matmul has no
-    backward).  Mesh dim by mesh dim: where x is sharded on a leading dim,
-    w is gathered there (FSDP) and the result keeps x's shard; else where w
-    is sharded on its output dim (column-parallel), x is gathered and the
-    result is sharded on its last dim; else where w is sharded on the
-    contracted dim (row-parallel), x is cut to match and each rank holds a
-    partial sum; else both are whole."""
+    each rank's shards (``local_map``).  Mesh dim by mesh dim: where x is
+    sharded on its batch dim, w is gathered there (FSDP) and the result
+    keeps x's shard; else where w is sharded on its output dim
+    (column-parallel: the vocab of the head), x is gathered and the result
+    is sharded on its last dim; else where x is sharded on another leading
+    dim (the sequence), w is gathered and the result keeps x's shard; else
+    where w is sharded on the contracted dim (row-parallel), x is cut to
+    match and each rank holds a partial sum; else both are whole."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     last, w_n = x.ndim - 1, 1 - w_k
     x_in, w_in, out = [], [], []
     for xp, wp in zip(x.placements, w.placements):
-        if isinstance(xp, Shard) and xp.dim != last:
+        if xp == Shard(0) and last != 0:
             x_in.append(xp), w_in.append(Replicate()), out.append(xp)
         elif wp == Shard(w_n):
             x_in.append(Replicate()), w_in.append(wp), out.append(Shard(last))
+        elif isinstance(xp, Shard) and xp.dim != last:
+            x_in.append(xp), w_in.append(Replicate()), out.append(xp)
         elif wp == Shard(w_k):
             x_in.append(Shard(last)), w_in.append(wp), out.append(Partial())
         else:
@@ -273,18 +276,47 @@ def embed_params(generator, vocab: int, d_model: int, dtype, device
 
 def embed_apply(p, tokens: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
     if SH.is_dtensor(tokens):
-        # the whole table on each rank's tokens (the row gather's backward
-        # would build a plain tensor among DTensors)
-        from torch.distributed.tensor import Replicate
-
-        whole = tuple(Replicate() for _ in tokens.placements)
-        x = SH.local_call(lambda t, ids: t[ids], (p["table"], tokens),
-                          (whole, tuple(tokens.placements)), (tuple(tokens.placements),))
-    else:
-        x = p["table"][tokens]
+        return _vocab_parallel_lookup(p["table"], tokens, scale)
+    x = p["table"][tokens]
     if scale is not None:
         x = x * torch.tensor(scale, dtype=x.dtype, device=x.device)
     return x
+
+
+def _vocab_parallel_lookup(table, tokens, scale: Optional[float]):
+    """The embedding lookup on each rank's vocab shard, as GSPMD lowers the
+    reference's: each rank reads the rows of its own shard (ids outside it
+    give zeros) and the result is a ``Partial`` sum over the vocab's mesh
+    dims, which the caller's ``ashard`` reduces.  The table is gathered
+    only over the other mesh dims (FSDP's), the tokens only over the
+    vocab's (in ``local_map``: the row gather's backward would build a
+    plain tensor among DTensors)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = tokens.device_mesh
+    t_in, ids_in, out = [], [], []
+    for tp, ip in zip(table.placements, tokens.placements):
+        if tp == Shard(0):
+            t_in.append(tp), ids_in.append(Replicate()), out.append(Partial())
+        else:
+            t_in.append(Replicate()), ids_in.append(ip), out.append(ip)
+    rows, offset = compute_local_shape_and_global_offset(table.shape, mesh, tuple(t_in))
+    lo, n = offset[0], rows[0]
+    whole = n == table.shape[0]
+
+    def lookup(t, ids):
+        if whole:
+            x = t[ids]
+        else:
+            local = ids - lo
+            mine = (local >= 0) & (local < n)
+            x = t[torch.where(mine, local, 0)] * mine[..., None].to(t.dtype)
+        if scale is not None:
+            x = x * torch.tensor(scale, dtype=x.dtype, device=x.device)
+        return x
+
+    return SH.local_call(lookup, (table, tokens), (tuple(t_in), tuple(ids_in)), (tuple(out),))
 
 
 LOGITS_CHUNK = 32768  # vocab rows widened to f32 at once by logits_apply
@@ -302,15 +334,20 @@ def logits_apply(embed_p, x: torch.Tensor, head_p: Any = None,
     elif K.serving_registry() is not None:
         logits = K.tuned_einsum("bsd,vd->bsv", x, table, out_dtype=torch.float32)
     elif SH.is_dtensor(x):
-        # DTensor runs the product on the shards (vocab-parallel on model)
-        logits = torch.einsum("bsd,vd->bsv", x.float(), table.float())
+        # each rank's vocab shard of the head (vocab-parallel on model)
+        logits = _sharded_contraction(_f32_logits, x, table, w_k=1)
     else:
-        # the table is widened to f32 a slice of LOGITS_CHUNK rows at a time:
-        # a 256k x 8192 head would otherwise add an 8.4 GB f32 copy
-        xf = x.float()
-        logits = torch.empty(*x.shape[:-1], table.shape[0], dtype=torch.float32,
-                             device=x.device)
-        for v0 in range(0, table.shape[0], LOGITS_CHUNK):
-            logits[..., v0:v0 + LOGITS_CHUNK] = torch.einsum(
-                "bsd,vd->bsv", xf, table[v0:v0 + LOGITS_CHUNK].float())
+        logits = _f32_logits(x, table)
     return _softcap(logits, softcap)
+
+
+def _f32_logits(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``x . table^T`` in f32, the table widened a slice of LOGITS_CHUNK rows
+    at a time: a 256k x 8192 head would otherwise add an 8.4 GB f32 copy."""
+    xf = x.float()
+    logits = torch.empty(*x.shape[:-1], table.shape[0], dtype=torch.float32,
+                         device=x.device)
+    for v0 in range(0, table.shape[0], LOGITS_CHUNK):
+        logits[..., v0:v0 + LOGITS_CHUNK] = torch.einsum(
+            "bsd,vd->bsv", xf, table[v0:v0 + LOGITS_CHUNK].float())
+    return logits

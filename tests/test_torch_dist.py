@@ -12,114 +12,54 @@ weights and batch:
   ``tests/test_torch_train.py``), then two AdamW steps against the
   reference's ``make_train_step`` (the first step's loss, grad norm and
   each parameter within 1e-5 relative per leaf, the second's within 5e-4);
-  on 4 ranks also prefill and a decode step under the mesh
-  against the unsharded port (1e-4, equal greedy tokens), a checkpoint of
-  the trained state written by the 4 ranks and restored at 1 rank and in
-  ``repro.checkpoint``, and ``remesh`` 4 -> 2 -> 1 -> 4 bit for bit;
+  on 4 ranks also prefill and a decode step under the mesh against the
+  reference's and the unsharded port's (1e-4, equal greedy tokens), a
+  checkpoint of the trained state written by the 4 ranks and restored at
+  1 rank and in ``repro.checkpoint``, and ``remesh`` 4 -> 2 -> 1 -> 4 bit
+  for bit;
 * llama4-scout's smoke config (4 q heads, 2 kv heads) on a (1, 4) mesh,
   where K and V are replicated over the model axis and each rank cuts out
-  its q head's kv head: the loss against the unsharded port (1e-4) and
-  every gradient (5e-4).
-"""
-import functools
-import json
-import os
-import subprocess
-import sys
+  its q head's kv head: the loss and every gradient against the
+  reference's (1e-5, 5e-4) and the unsharded port's; then a prefill and a
+  decode step whose caches put their sequence dim on the model axis, each
+  rank writing its own slots: the logits against the reference's and the
+  unsharded port's, and the whole caches against the port's (1e-4).
 
-import jax
-import jax.numpy as jnp
+The reference's side is ``tests/torch_dist_ref.py``.
+"""
 import numpy as np
 import pytest
 import torch
 
 from repro.checkpoint import CheckpointManager as RManager
-from repro.configs import get_config as r_get_config
-from repro.data import make_dataset
-from repro.models import steps as RS
-from repro.models import transformer as RT
 from repro.optim import AdamWState as RAdamWState
 from repro.optim import adamw_init as r_adamw_init
-from repro.optim.schedules import cosine_with_warmup as r_cosine
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import get_config
 from repro_torch.launch.train import TrainCheckpoints
 from repro_torch.models import steps as TS
-from repro_torch.models.convert import from_jax_layout
+from torch_dist_ref import (
+    inputs_of,
+    jax_training,
+    llama4_serving,
+    loss_and_grads,
+    port_names,
+    reference,
+    rel,
+    run_ranks,
+    serving,
+)
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 GRAD_LIMIT = 5e-4
 STEP_LIMIT = 1e-5
 SERVE_LIMIT = 1e-4
-LR = (3e-3, 2, 20)  # torch_dist_ranks.LR
 BATCH = 8  # divides the data axis of both meshes
 
 
-def _rel(a, b):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
-
-
-def _flat(tree, prefix):
-    out = {}
-    for key, val in tree.items():
-        if isinstance(val, dict):
-            out.update(_flat(val, f"{prefix}/{key}"))
-        elif isinstance(val, tuple):
-            out.update(_flat({str(i): v for i, v in enumerate(val)}, f"{prefix}/{key}"))
-        else:
-            out[f"{prefix}/{key}"] = np.asarray(val)
-    return out
-
-
-def _ranks(tmp_path, scenario, world, params, batch, timeout):
-    """Run the scenario on ``world`` ranks; returns (arrays, json)."""
-    np.savez(tmp_path / "inputs.npz", **_flat(params, "params"),
-             **{k: np.asarray(v) for k, v in batch.items()})
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, os.path.join(HERE, "torch_dist_ranks.py"), scenario,
-                           str(world), str(tmp_path)], env=env, capture_output=True, text=True,
-                          timeout=timeout)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    with open(tmp_path / "result.json") as f:
-        return np.load(tmp_path / "result.npz"), json.load(f)
-
-
-def _port_names(tree, cfg):
-    """A JAX-layout tree as numpy arrays keyed by the port's names."""
-    return {k: np.asarray(v) for k, v in from_jax_layout(jax.tree.map(np.asarray, tree),
-                                                         cfg).items()}
-
-
-def _reference(arch, batch_size):
-    r_cfg, t_cfg = r_get_config(arch).smoke(), get_config(arch).smoke()
-    params = RT.init_params(r_cfg, jax.random.PRNGKey(0))
-    batch = make_dataset(r_cfg, None, seed=0, global_batch=batch_size, seq_len=16).batch(1)
-    return r_cfg, t_cfg, params, batch
-
-
-@functools.lru_cache(maxsize=None)
-def _jax_training(arch, batch_size):
-    """The reference's loss and gradients, then its two train steps' metrics
-    and parameters (keyed by the port's names), on ``_reference``'s inputs."""
-    r_cfg, t_cfg, params, batch = _reference(arch, batch_size)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    (loss, _), grads = jax.jit(jax.value_and_grad(RS.make_loss_fn(r_cfg), has_aux=True))(
-        params, jb)
-    step = jax.jit(RS.make_train_step(r_cfg, r_cosine(*LR)))
-    opt, steps = r_adamw_init(params), []
-    for _ in (1, 2):
-        params, opt, m = step(params, opt, jb)
-        steps.append(({k: float(m[k]) for k in ("loss", "grad_norm")},
-                      _port_names(params, t_cfg)))
-    return float(loss), _port_names(grads, t_cfg), steps
-
-
 def _check_training(res, js, arch, batch_size):
-    loss, grads, steps = _jax_training(arch, batch_size)
+    loss, grads, steps = jax_training(arch, batch_size)
     assert abs(js["loss0"] - loss) <= STEP_LIMIT * abs(loss)
-    bad = {k: _rel(res[f"grad/{k}"], w) for k, w in grads.items()
-           if np.abs(w).max() > 0 and not _rel(res[f"grad/{k}"], w) <= GRAD_LIMIT}
+    bad = {k: rel(res[f"grad/{k}"], w) for k, w in grads.items()
+           if np.abs(w).max() > 0 and not rel(res[f"grad/{k}"], w) <= GRAD_LIMIT}
     assert not bad, bad
     # one AdamW step at 1e-5 on the parameters; the second step's Adam
     # ratios amplify the first step's rounding (the unsharded port reads
@@ -127,16 +67,16 @@ def _check_training(res, js, arch, batch_size):
     for i, limit, (m, want) in zip((1, 2), (STEP_LIMIT, GRAD_LIMIT), steps):
         for key in ("loss", "grad_norm"):
             assert abs(js[f"{key}{i}"] - m[key]) <= limit * abs(m[key]), (i, key)
-        bad = {k: _rel(res[f"step{i}/{k}"], w) for k, w in want.items()
-               if not _rel(res[f"step{i}/{k}"], w) <= limit}
+        bad = {k: rel(res[f"step{i}/{k}"], w) for k, w in want.items()
+               if not rel(res[f"step{i}/{k}"], w) <= limit}
         assert not bad, (i, bad)
 
 
 @pytest.fixture(scope="module")
 def olmoe4(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("olmoe4")
-    r_cfg, t_cfg, params, batch = _reference("olmoe-1b-7b", BATCH)
-    res, js = _ranks(tmp, "olmoe", 4, params, batch, timeout=240)
+    r_cfg, t_cfg, params, batch = reference("olmoe-1b-7b", BATCH)
+    res, js = run_ranks(tmp, "olmoe", 4, inputs_of(params, batch), timeout=240)
     return tmp, res, js, (r_cfg, t_cfg, params, batch)
 
 
@@ -154,6 +94,14 @@ def test_olmoe_prefill_and_decode_on_2x2_match_the_unsharded_port(olmoe4):
     assert js["tokens_equal"]
     # batch over data, the kv heads over model (cache_pspecs)
     assert js["cache_placements"]["k"] == "(Shard(dim=1), Shard(dim=3))"
+
+
+def test_olmoe_prefill_and_decode_on_2x2_match_jax(olmoe4):
+    _, res, _, (r_cfg, _, params, batch) = olmoe4
+    tokens = np.asarray(batch["tokens"])
+    last, logits = serving(r_cfg, params, tokens, tokens[:, :1], 48)
+    assert rel(res["prefill"], last) <= SERVE_LIMIT
+    assert rel(res["decode"], logits) <= SERVE_LIMIT
 
 
 def test_remesh_4_2_1_4_keeps_every_value(olmoe4):
@@ -180,22 +128,29 @@ def test_checkpoint_of_4_ranks_restores_at_1_rank_and_in_jax(olmoe4):
     template = (params, r_adamw_init(params))
     step, (j_params, j_opt), _ = RManager(str(tmp / "ckpt")).restore_latest(template)
     assert step == 2 and int(j_opt.step) == 2
-    for k, v in _port_names(j_params, t_cfg).items():
+    for k, v in port_names(j_params, t_cfg).items():
         np.testing.assert_array_equal(v, res[f"step2/{k}"], err_msg=k)
     assert isinstance(j_opt, RAdamWState)
 
 
 def test_olmoe_train_steps_on_4x2_match_jax(tmp_path):
-    _, _, params, batch = _reference("olmoe-1b-7b", BATCH)
-    res, js = _ranks(tmp_path, "olmoe", 8, params, batch, timeout=300)
+    _, _, params, batch = reference("olmoe-1b-7b", BATCH)
+    res, js = run_ranks(tmp_path, "olmoe", 8, inputs_of(params, batch), timeout=300)
     _check_training(res, js, "olmoe-1b-7b", BATCH)
     assert js["placements"]["blocks.0.moe.w_gate"] == "(Shard(dim=2), Shard(dim=0))"
 
 
-def test_llama4_gqa_on_1x4_cuts_the_replicated_kv_heads(tmp_path):
-    r_cfg, t_cfg, params, batch = _reference("llama4-scout-17b-a16e", 2)
+@pytest.fixture(scope="module")
+def llama4(tmp_path_factory):
+    r_cfg, t_cfg, params, batch = reference("llama4-scout-17b-a16e", 2)
     assert (t_cfg.n_heads, t_cfg.n_kv_heads) == (4, 2)
-    _, js = _ranks(tmp_path, "llama4", 4, params, batch, timeout=240)
+    res, js = run_ranks(tmp_path_factory.mktemp("llama4"), "llama4", 4,
+                        inputs_of(params, batch), timeout=240)
+    return res, js, (r_cfg, t_cfg, params, batch)
+
+
+def test_llama4_gqa_on_1x4_cuts_the_replicated_kv_heads(llama4):
+    res, js, (r_cfg, t_cfg, params, batch) = llama4
     assert abs(js["loss"] - js["want"]) <= SERVE_LIMIT * abs(js["want"])
     # gradients at the gradient limit: the router's sums its experts' shards
     # in another order (read 1.03e-4; the unsharded port's router is 6.9e-5
@@ -203,3 +158,24 @@ def test_llama4_gqa_on_1x4_cuts_the_replicated_kv_heads(tmp_path):
     bad = {k: e for k, e in js["grad_rel"].items() if not e <= GRAD_LIMIT}
     assert not bad, bad
     assert js["wq_placements"] == "(Replicate(), Shard(dim=1))"
+
+
+def test_llama4_gqa_on_1x4_matches_jax(llama4):
+    res, js, (r_cfg, t_cfg, params, batch) = llama4
+    loss, grads = loss_and_grads(r_cfg, t_cfg, params, batch)
+    assert abs(js["loss"] - loss) <= STEP_LIMIT * abs(loss)
+    bad = {k: rel(res[f"grad/{k}"], w) for k, w in grads.items()
+           if np.abs(w).max() > 0 and not rel(res[f"grad/{k}"], w) <= GRAD_LIMIT}
+    assert not bad, bad
+
+
+def test_llama4_serving_on_1x4_with_the_cache_sequence_on_model(llama4):
+    res, js, (r_cfg, t_cfg, params, batch) = llama4
+    # 2 kv heads do not divide the model axis of 4: the caches' sequence
+    # dim (n_periods, B, T, HKV, D) is on model (cache_pspecs), slots of 8
+    assert js["cache_placements"] == "(Replicate(), Shard(dim=2))"
+    last, logits = llama4_serving(params, batch)
+    assert rel(res["prefill"], last) <= SERVE_LIMIT
+    assert rel(res["decode"], logits) <= SERVE_LIMIT
+    assert js["prefill_rel"] <= SERVE_LIMIT and js["decode_rel"] <= SERVE_LIMIT
+    assert js["cache_rel"] <= SERVE_LIMIT

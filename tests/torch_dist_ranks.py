@@ -15,18 +15,23 @@ Scenarios:
   config from the caller's weights, placed by the FSDP/ZeRO specs: the loss
   and every gradient of one evaluation, then two train steps (the loss and
   the parameters after each); on 4 ranks also prefill and one decode step
-  under the mesh against the unsharded port, a checkpoint of the trained
-  state written by the 4 ranks, and ``remesh`` 4 -> 2 -> 1 -> 4 of the
-  parameters under the ZeRO specs (the data axis shards every leaf it
-  divides) with each leaf's whole value compared bit for bit.
-* ``llama4`` (4 ranks, mesh (1, 4)): llama4-scout's smoke config (4 q heads,
-  2 kv heads: K and V replicated over the model axis, each rank cutting out
-  its q head's kv head): the loss and every gradient against the unsharded
-  port.
-* ``scans`` (4 ranks, mesh (2, 2)): rwkv6-7b's and jamba's smoke configs
-  (the RWKV-6 and Mamba scans per shard, Mamba's d_inner over model), the
-  port's own seeded weights: the loss, every gradient, the prefill's last
-  logits and a decode step's against the unsharded port.
+  under the mesh (their logits, and against the unsharded port), a
+  checkpoint of the trained state written by the 4 ranks, and ``remesh``
+  4 -> 2 -> 1 -> 4 of the parameters under the ZeRO specs (the data axis
+  shards every leaf it divides) with each leaf's whole value compared bit
+  for bit.
+* ``llama4`` (4 ranks, mesh (1, 4)): llama4-scout's smoke config from the
+  caller's weights (4 q heads, 2 kv heads: K and V replicated over the
+  model axis, each rank cutting out its q head's kv head): the loss and
+  every gradient; then a prefill of ``LLAMA4_PROMPT`` tokens and one decode
+  step, whose caches put their sequence dim on the model axis (2 kv heads
+  do not divide 4), so that each rank writes only its own slots: the
+  logits, and the logits and whole caches against the unsharded port.
+* ``scans`` (4 ranks, mesh (2, 2)): rwkv6-7b's smoke config with two heads
+  (``SCAN_OVERRIDES``: the heads, RWKV-6's state and its bonus ``u`` over
+  model) and jamba's (Mamba's d_inner over model), each from the caller's
+  weights: the loss, every gradient, the prefill's last logits and a
+  decode step's, and the same against the unsharded port.
 """
 from __future__ import annotations
 
@@ -46,6 +51,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(HERE), "src"))
 MESHES = {("olmoe", 4): (2, 2), ("olmoe", 8): (4, 2), ("llama4", 4): (1, 4),
           ("scans", 4): (2, 2)}
 SCAN_ARCHS = ("rwkv6-7b", "jamba-v0.1-52b")
+# the smoke configs as the scans scenario runs them: RWKV-6 at head dim 32
+# has 2 heads (its smoke config has one head of 64), which the model axis
+# of 2 shards
+SCAN_OVERRIDES = {"rwkv6-7b": {"rwkv_head_dim": 32}, "jamba-v0.1-52b": {}}
+LLAMA4_PROMPT, LLAMA4_MAX_LEN = 12, 32  # cache seq shards of 8: one and a half filled
 ARCH = {"olmoe": "olmoe-1b-7b", "llama4": "llama4-scout-17b-a16e", "scans": "rwkv6-7b"}
 LR = (3e-3, 2, 20)  # cosine_with_warmup(peak, warmup, total)
 
@@ -63,7 +73,7 @@ def _unstack(inputs, prefix: str) -> dict:
     for key in inputs.files:
         if not key.startswith(prefix + "/"):
             continue
-        parts = key.split("/")[1:]
+        parts = key[len(prefix) + 1:].split("/")
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
@@ -129,10 +139,10 @@ def _olmoe(rank: int, world: int, out: str, mesh, cfg, inputs) -> tuple:
     with SH.use_mesh(mesh):
         last, caches, n = pre(served, S.distribute_batch(prompt, mesh))
         tok, logits, caches = dec(served, S.distribute_batch(one, mesh), caches, n)
-    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
-    js["prefill_rel"] = rel(last.full_tensor(), want_last)
-    js["decode_rel"] = rel(logits.full_tensor(), want_logits)
+    js["prefill_rel"] = _rel(last.full_tensor(), want_last)
+    js["decode_rel"] = _rel(logits.full_tensor(), want_logits)
     js["tokens_equal"] = bool(torch.equal(tok.full_tensor(), want_tok))
+    res.update(prefill=last.full_tensor().numpy(), decode=logits.full_tensor().numpy())
     js["cache_placements"] = {k: str(tuple(v.placements)) for k, v in caches[0].items()}
 
     # a checkpoint of the trained state, written by every rank together
@@ -179,32 +189,66 @@ def _llama4(rank: int, world: int, out: str, mesh, cfg, inputs) -> tuple:
     got, ref = _grads(params), _grads(plain)
     worst = {k: float((got[k] - ref[k]).abs().max() / ref[k].abs().max().clamp_min(1e-30))
              for k in ref}
-    return {}, {"loss": float(loss.full_tensor()), "want": float(want), "grad_rel": worst,
-                "wq_placements": str(tuple(params["blocks"][0]["attn"]["wq"].placements))}
+    res = {f"grad/{k}": g.numpy() for k, g in got.items()}
+    js = {"loss": float(loss.full_tensor()), "want": float(want), "grad_rel": worst,
+          "wq_placements": str(tuple(params["blocks"][0]["attn"]["wq"].placements))}
+
+    # a prefill and one decode step on the TP specs: the caches' sequence
+    # dim is on model, each rank writing the overlap of its slots
+    plain = params_from_jax(weights, cfg, "cpu")
+    served = S.place_params(params_from_jax(weights, cfg, "cpu"), cfg, mesh, "tp")
+    tokens = batch["tokens"]
+    prompt = {"tokens": tokens[:, :LLAMA4_PROMPT]}
+    one = {"tokens": tokens[:, LLAMA4_PROMPT:LLAMA4_PROMPT + 1]}
+    pre, dec = S.make_prefill_step(cfg, LLAMA4_MAX_LEN), S.make_decode_step(cfg)
+    with torch.no_grad():
+        w_last, w_caches, n = pre(plain, prompt)
+        _, w_logits, w_caches = dec(plain, one, w_caches, n)
+        with SH.use_mesh(mesh):
+            last, caches, n = pre(served, S.distribute_batch(prompt, mesh))
+            _, logits, caches = dec(served, S.distribute_batch(one, mesh), caches, n)
+    res.update(prefill=last.full_tensor().numpy(), decode=logits.full_tensor().numpy())
+    js.update(prefill_rel=_rel(last.full_tensor(), w_last),
+              decode_rel=_rel(logits.full_tensor(), w_logits),
+              cache_rel=max(_rel(c[k].full_tensor(), w[k]) for c, w in zip(caches, w_caches)
+                            for k in c),
+              cache_placements=str(tuple(caches[0]["k"].placements)))
+    return res, js
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def scan_config(get_config, arch: str):
+    """``arch``'s smoke config as the scans scenario runs it (``get_config``
+    of either package)."""
+    import dataclasses
+
+    return dataclasses.replace(get_config(arch).smoke(), **SCAN_OVERRIDES[arch])
 
 
 def _scans(rank: int, world: int, out: str, mesh, cfg, inputs) -> tuple:
     from repro_torch.configs import get_config
-    from repro_torch.data import make_dataset
     from repro_torch.models import steps as S
-    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_jax
     from repro_torch.runtime import sharding as SH
 
-    js = {}
+    res, js = {}, {}
     for arch in SCAN_ARCHS:
-        cfg = get_config(arch).smoke()
-        batch = {k: torch.from_numpy(v) for k, v in
-                 make_dataset(cfg, None, seed=0, global_batch=4, seq_len=24).batch(1).items()}
-        params = [T.init_params(cfg, torch.Generator().manual_seed(0), "cpu", trainable=True)
-                  for _ in range(2)]
-        plain = params[0]
-        placed = S.place_params(params[1], cfg, mesh, "fsdp")
+        cfg = scan_config(get_config, arch)
+        weights = _unstack(inputs, f"{arch}/params")
+        batch = {k: torch.from_numpy(inputs[f"{arch}/{k}"]) for k in ("tokens", "labels")}
+        plain = params_from_jax(weights, cfg, "cpu", trainable=True)
+        placed = S.place_params(params_from_jax(weights, cfg, "cpu", trainable=True), cfg,
+                                mesh, "fsdp")
         want, _ = S.make_loss_fn(cfg)(plain, batch)
         want.backward()
         with SH.use_mesh(mesh):
             loss, _ = S.make_loss_fn(cfg)(placed, S.distribute_batch(batch, mesh))
         loss.backward()
         got, ref = _grads(placed), _grads(plain)
+        res.update({f"{arch}/grad/{k}": g.numpy() for k, g in got.items()})
         row = {"loss": float(loss.full_tensor()), "want": float(want),
                "grad_rel": max(float((got[k] - ref[k]).abs().max()
                                      / ref[k].abs().max().clamp_min(1e-30)) for k in ref)}
@@ -217,11 +261,13 @@ def _scans(rank: int, world: int, out: str, mesh, cfg, inputs) -> tuple:
             with SH.use_mesh(mesh):
                 last, caches, n = pre(placed, S.distribute_batch(prompt, mesh))
                 _, step, caches = dec(placed, S.distribute_batch(one, mesh), caches, n)
-        rel = lambda a, b: float((a.full_tensor() - b).abs().max() / b.abs().max())  # noqa: E731
-        row.update(prefill_rel=rel(last, w_last), decode_rel=rel(step, w_step),
+        res.update({f"{arch}/prefill": last.full_tensor().numpy(),
+                    f"{arch}/decode": step.full_tensor().numpy()})
+        row.update(prefill_rel=_rel(last.full_tensor(), w_last),
+                   decode_rel=_rel(step.full_tensor(), w_step),
                    state_placements={k: str(tuple(v.placements)) for k, v in caches[0].items()})
         js[arch] = row
-    return {}, js
+    return res, js
 
 
 def _rank(rank: int, scenario: str, world: int, out: str) -> None:
