@@ -38,6 +38,15 @@ line with its seconds:
    plan held equal to ``launch_plan``; then two mutation checks: the kernel
    with the accumulator's alpha rescale dropped, on each route, must put
    more than half of that route's multi-tile cases outside their limit;
+   attention_offset — the model attention of a block of queries over a
+   cache (``models/layers.attention`` at S > 1 with a q_offset or a kv_len:
+   plain torch ops on the card, no kernel) against the flash kernel's rows,
+   at jamba's (4, 1024, 32/8, 128) in bf16 and f32, and ``local_attention``
+   (its first chunk on the flash kernel) against the kernel's windowed
+   attention at gemma3-12b's local layers (4, 4096, 16/8, 256) bf16 and
+   gemma2-27b's (2, 8192, 32/16, 128) f32 with softcap 50; each call under
+   test launches flash 0 times, or once for local_attention, and nothing
+   else;
    rwkv_scan — the RWKV-6 chunked-scan kernel (two passes: the chunks' own
    products in parallel, then the state's walk over the chunks) against its
    plain version over
@@ -195,6 +204,15 @@ line with its seconds:
    card's memory against ``HBM_GIB``; dist_two_rank, with two cards or
    more, trains on a (2, 1) mesh of two spawned ranks against the 1-rank
    loss, and otherwise prints that it did not run;
+   dryrun — the eighth path, ``launch/dryrun.py`` on the CPU (its reference
+   lowers on the host; no card: two subprocesses started after the build,
+   beside the card's phases, read here): musicgen-large x train_4k on the
+   one-pod mesh of 256 fake ranks through the entry point, which must end
+   ``ok``, and dist_train's 4 x 1024 step on a fake (1, 1) mesh, whose
+   per-device argument bytes are held within 1 % of what
+   ``init_train_state(mesh=...)`` allocated on the card in dist_train; its
+   arguments + temp beside dist_train's peak memory and its counted FLOPs
+   beside ``roofline.model_flops``;
 6. timing — per contraction, in f32 on the SIMT route: the kernel at its
    tuned block and at 128^3 (each with its TFLOP/s), the plain version,
    ``torch.matmul`` (the library yardstick only), and the bound (bytes over
@@ -222,7 +240,8 @@ line with its seconds:
    contractions' TFLOP/s, the kernel's and cuBLAS's, under
    ``PEAK_FLOPS``.
 
-All five kernels' launch counts are set to 0 before phase 4 and read after
+All five kernels' launch counts are set to 0 before each call under test
+of attention_offset and read after it, set to 0 before phase 4 and read after
 phase 5, set to 0 again before the policy phase and read after it, and
 before the actor-critic phase and read after it, before the fleet path and
 read after its farm phase (its workers' launches, counted by their spies,
@@ -237,10 +256,12 @@ other.
 Launches made to
 compare, trace, check or time do not count.  Per-case detail goes to
 ``chiprun_out/chip_smoke_cases.jsonl``.  Any failure exits non-zero before
-the last line, which is ``{"ok": true, "device": {...}}``.
+the last line, which is ``{"ok": true, "device": {...}}``.  Every phase
+line is also appended to ``chiprun_out/chip_smoke_phases.jsonl``.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -452,9 +473,14 @@ def check_path_launches(path: str, launches: dict, used: tuple) -> None:
         raise SystemExit(f"{path}: launches {launches}, expected > 0 only for {used}")
 
 
+PHASES_FILE = ROOT / "chiprun_out" / "chip_smoke_phases.jsonl"  # every phase line, kept
+
+
 def emit(phase: str, t0: float, **kw) -> None:
-    print(json.dumps({"phase": phase, "seconds": round(time.perf_counter() - t0, 3),
-                      **kw}), flush=True)
+    line = json.dumps({"phase": phase, "seconds": round(time.perf_counter() - t0, 3), **kw})
+    print(line, flush=True)
+    with open(PHASES_FILE, "a") as f:
+        f.write(line + "\n")
 
 
 def nvidia_smi_line(query: str = "name,power.limit") -> str:
@@ -788,6 +814,210 @@ def phase_attention_mutant(cases_f, mutant: Path, route: str, dropped: str) -> N
     if not outside > len(mut) / 2:
         raise SystemExit(f"flash {route} mutant: only {outside} of {len(mut)} multi-tile "
                          f"cases outside their limit")
+
+
+# phase attention_offset: (B, S, H, HKV, D, dtype) of the block of queries
+# over a cache, the last OFFSET_ROWS of S at q_offset S - OFFSET_ROWS, and at
+# kv_len OFFSET_KV_LEN; then local_attention at gemma3-12b's local layers and
+# gemma2-27b's (window, softcap: the configs')
+OFFSET_SHAPES = [(4, 1024, 32, 8, 128, torch.bfloat16), (4, 1024, 32, 8, 128, torch.float32)]
+OFFSET_ROWS = 256
+OFFSET_KV_LEN = 900
+LOCAL_SHAPES = [("gemma3-12b", (4, 4096, 16, 8, 256), torch.bfloat16),
+                ("gemma2-27b", (2, 8192, 32, 16, 128), torch.float32)]
+
+
+def _allclose_ratio(out: torch.Tensor, ref: torch.Tensor, lim: float) -> tuple:
+    diff = (out.float() - ref.float()).abs()
+    return diff.max().item(), (diff / (lim + lim * ref.float().abs())).max().item()
+
+
+def phase_attention_offset(g) -> dict:
+    """The model attention of a block of queries over a cache (plain torch
+    ops on the card, no kernel) and ``local_attention`` (its first chunk on
+    the flash kernel, the rest folded into the batch at q_offset = window)
+    against the flash kernel: (a) the last OFFSET_ROWS queries at their
+    offset over all keys against those rows of the kernel's causal
+    attention; (b) the same at kv_len OFFSET_KV_LEN against the kernel over
+    the first OFFSET_KV_LEN keys; (c) local_attention against the kernel's
+    windowed causal attention over the whole sequence.  Limits: phase
+    attention's.  The call under test is counted from 0 just before and read
+    just after (0 flash launches in (a) and (b), exactly 1 in (c), no other
+    kernel); the kernel's own launches, the yardstick's, are not counted.
+    (c) also times local_attention and the windowed kernel (``time_ms``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import layers as L
+
+    t0 = time.perf_counter()
+    rows, failures = [], []
+    total = {name: 0 for name in kernel_wrappers()}
+    flush = flush_buffer()
+
+    def under_test(fn):
+        reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_launches()
+        for name, n in counts.items():
+            total[name] += n
+        return out, counts
+
+    with torch.no_grad():
+        for b, s, h, hkv, d, dt in OFFSET_SHAPES:
+            q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+            k = torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dt)
+            v = torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dt)
+            off = s - OFFSET_ROWS
+            for form, kv_len in (("q_offset", None), ("kv_len", OFFSET_KV_LEN)):
+                out, counts = under_test(lambda: L.attention(
+                    q[:, off:], k, v, causal=True, q_offset=off, kv_len=kv_len))
+                t = s if kv_len is None else kv_len
+                ref = flash_attention(q, k[:, :t], v[:, :t], causal=True)[:, off:]
+                err, ratio = _allclose_ratio(out, ref, ATTN_LIMIT[dt])
+                rows.append({"form": form, "bshkd": [b, s, h, hkv, d], "dtype": str(dt),
+                             "q_offset": off, "kv_len": kv_len, "max_abs_err": err,
+                             "ratio_to_limit": ratio, "limit": ATTN_LIMIT[dt],
+                             "launches": counts})
+        for arch, (b, s, h, hkv, d), dt in LOCAL_SHAPES:
+            cfg = get_config(arch)
+            window = next(sp.window for sp in cfg.period if sp.window)
+            cap = cfg.attn_softcap
+            q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
+            k = torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dt)
+            v = torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dt)
+            out, counts = under_test(lambda: L.local_attention(q, k, v, window=window,
+                                                               softcap=cap))
+            kern = lambda: flash_attention(q, k, v, causal=True, window=window, softcap=cap)
+            err, ratio = _allclose_ratio(out, kern(), ATTN_LIMIT[dt])
+            rows.append({"form": "local_attention", "arch": arch, "bshkd": [b, s, h, hkv, d],
+                         "dtype": str(dt), "window": window, "softcap": cap,
+                         "max_abs_err": err, "ratio_to_limit": ratio,
+                         "limit": ATTN_LIMIT[dt], "launches": counts,
+                         "local_attention_ms": time_ms(
+                             lambda: L.local_attention(q, k, v, window=window, softcap=cap),
+                             flush, 5),
+                         "windowed_kernel_ms": time_ms(kern, flush, 5)})
+            del q, k, v, out
+    for r in rows:
+        want = 1 if r["form"] == "local_attention" else 0
+        others = {n: c for n, c in r["launches"].items() if n != "flash_attention" and c}
+        if not r["ratio_to_limit"] <= 1.0 or r["launches"]["flash_attention"] != want or others:
+            failures.append(r)
+    emit("attention_offset", t0, cases=rows, launches=total, failures=failures)
+    if failures:
+        raise SystemExit(f"attention_offset: {len(failures)} cases outside their limit "
+                         f"or launch count")
+    return total
+
+
+# path dryrun: the dry-run on the CPU, in two subprocesses started after the
+# build and read after path dist: the production cell, and the 4 x 1024
+# training step of path dist on a fake (1, 1) mesh
+DRYRUN_CELL = ("musicgen-large", "train_4k", "single")
+DRYRUN_ARGS_LIMIT = 0.01  # arguments against init_train_state's allocation, relative
+DRYRUN_STEP = """
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_mesh
+with D.fake_world(1):
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cpu")
+    rec = D.trace_cell(get_config("musicgen-large"),
+                       ShapeCell("train_1k", int(sys.argv[2]), int(sys.argv[1]), "train"), mesh)
+open(sys.argv[3], "w").write(json.dumps(rec))
+"""
+
+
+def start_dryrun(out_dir: Path) -> dict:
+    """Start path dryrun's two CPU subprocesses (no card: CUDA_VISIBLE_DEVICES
+    is empty), one thread each."""
+    work = fresh_dir(out_dir / "dryrun")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    arch, shape, mesh = DRYRUN_CELL
+    b, s = TRAIN_BATCH
+    cmds = {"cell": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                     "--shape", shape, "--mesh", mesh, "--force", "--out", str(work)],
+            "step": [sys.executable, "-c", DRYRUN_STEP, str(b), str(s), str(work / "step.json")]}
+    procs = {}
+    for name, cmd in cmds.items():
+        log = open(work / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                        stderr=subprocess.STDOUT), log)
+
+    def stop() -> None:  # a failure before phase dryrun leaves none running
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    atexit.register(stop)
+    return {"dir": work, "procs": procs}
+
+
+def phase_dryrun(started: dict, dist: dict) -> dict:
+    """Path dryrun's results: the production cell must be ``ok``; the 4 x
+    1024 step's per-device argument bytes are held within DRYRUN_ARGS_LIMIT of
+    what path dist's ``init_train_state(mesh=...)`` allocated on the card
+    (both the parameters and the AdamW state; the batch, a few MB, is in the
+    arguments only), and its arguments + temp and counted FLOPs are set
+    beside dist_train's peak memory and ``roofline.model_flops``."""
+    from repro_torch.analysis import roofline as RF
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+
+    t0 = time.perf_counter()
+    for name, (proc, log) in started["procs"].items():
+        try:
+            rc = proc.wait(timeout=1200)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            log.close()
+        if rc != 0:
+            tail = (started["dir"] / f"{name}.log").read_text()[-3000:]
+            raise SystemExit(f"dryrun {name}: exit {rc}\n{tail}")
+    waited = time.perf_counter() - t0
+    arch, shape, mesh = DRYRUN_CELL
+    cell = json.loads((started["dir"] / f"{arch}__{shape}__{mesh}.json").read_text())
+    step = json.loads((started["dir"] / "step.json").read_text())
+    dtrain = dist["dist_train"]
+    b, s = TRAIN_BATCH
+    ma = step["memory_analysis"]
+    args_rel = (abs(ma["argument_size_in_bytes"] - dtrain["init_allocated"])
+                / dtrain["init_allocated"])
+    model_flops = RF.model_flops(get_config("musicgen-large"), ShapeCell("train_1k", s, b, "train"))
+    row = {"waited_s": waited,  # each run's own seconds: its build_s + trace_s
+           "cell": {k: cell.get(k) for k in (
+               "arch", "shape", "mesh", "status", "mesh_shape", "build_s", "trace_s",
+               "memory_analysis", "argument_bytes_by_group", "cost_analysis",
+               "collective_bytes", "collective_counts", "sharding_fallbacks", "error")},
+           "step": {"batch": [b, s], "mesh": [1, 1], "build_s": step["build_s"],
+                    "trace_s": step["trace_s"], "memory_analysis": ma,
+                    "argument_bytes_by_group": step["argument_bytes_by_group"],
+                    "cost_analysis": step["cost_analysis"]},
+           "argument_bytes": ma["argument_size_in_bytes"],
+           "init_train_state_allocated": dtrain["init_allocated"],
+           "arguments_rel_diff": args_rel, "arguments_limit": DRYRUN_ARGS_LIMIT,
+           "arguments_plus_temp": ma["argument_size_in_bytes"] + ma["temp_size_in_bytes"],
+           "dist_train_max_memory_allocated": dtrain["max_memory_allocated"],
+           "arguments_plus_temp_over_peak": (ma["argument_size_in_bytes"]
+                                             + ma["temp_size_in_bytes"])
+                                            / dtrain["max_memory_allocated"],
+           "flops": step["cost_analysis"]["flops"], "model_flops": model_flops,
+           "model_flops_over_flops": model_flops / step["cost_analysis"]["flops"]}
+    emit("dryrun", t0, **row)
+    bad = []
+    if cell["status"] != "ok":
+        bad.append(f"{arch} x {shape} x {mesh}: {cell['status']} {cell.get('error', '')}")
+    if not args_rel <= DRYRUN_ARGS_LIMIT:
+        bad.append(f"arguments {ma['argument_size_in_bytes']} against "
+                   f"{dtrain['init_allocated']} allocated")
+    if bad:
+        raise SystemExit(f"dryrun failed: {bad}")
+    return row
 
 
 def rwkv_cases() -> list:
@@ -3064,8 +3294,12 @@ def phase_dist_train(mesh, train: dict) -> dict:
     ds = make_dataset(cfg, None, seed=SEED, global_batch=b, seq_len=s)
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in ds.batch(0).items()}
     torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     params, opt = S.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                                      "cuda", mesh=mesh)
+    torch.cuda.synchronize()
+    init_allocated = torch.cuda.memory_allocated() - before  # path dryrun's yardstick
     placed = S.distribute_batch(batch, mesh)
     step = S.make_train_step(cfg, constant(TRAIN_LR), weight_decay=0.1, max_grad_norm=1.0)
     kinds = sorted({type(p).__name__ for p in params.parameters()}
@@ -3102,7 +3336,8 @@ def phase_dist_train(mesh, train: dict) -> dict:
            "loss_limit": DIST_LOSS_LIMIT, "step_s": times, "step_ms_p50": p50 * 1e3,
            "train_model_step_ms_p50": train["step_ms_p50"],
            "dtensor_overhead_ms": p50 * 1e3 - train["step_ms_p50"],
-           "tokens_per_s": b * s / p50, "max_memory_allocated": peak, "launches": launches,
+           "tokens_per_s": b * s / p50, "max_memory_allocated": peak,
+           "init_allocated": init_allocated, "launches": launches,
            "launches_per_step": {k: n / TRAIN_STEPS for k, n in launches.items()},
            "traced_step": {k: traced.get(k) for k in (
                "wall_ms", "busy_ms", "flash_attention_ms", "flash_attention_bwd_ms",
@@ -3840,6 +4075,7 @@ def main() -> int:
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    PHASES_FILE.write_text("")
 
     t0 = time.perf_counter()
     smi = nvidia_smi_line()
@@ -3922,6 +4158,7 @@ def main() -> int:
     if spilled or not flash_kernels:
         raise SystemExit(f"flash instances that spill: {spilled} (of {len(flash_kernels)})")
 
+    dryrun = start_dryrun(out_dir)  # path dryrun, on the CPU beside the card's phases
     with open(out_dir / "chip_smoke_cases.jsonl", "w") as cases_f:
         phase_kernel(cases_f)
         phase_matmul_mutant(cases_f, mutants["matmul"], "wgmma", MATMUL_MUTANT_LINE)
@@ -3933,11 +4170,13 @@ def main() -> int:
         phase_mamba_scan(cases_f)
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
+    by_path = {"attention_offset": phase_attention_offset(g)}  # counted inside
+    check_path_launches("attention_offset", by_path["attention_offset"], ("flash_attention",))
     wts = layer_weights(g)
     reset_launches()  # the first path starts here
     registry, tune_rows = phase_tune(lambda: read_launches()["tiled_matmul"])
     phase_serve(registry, wts, g)
-    by_path = {"tune_serve": read_launches()}  # ... and ends here
+    by_path["tune_serve"] = read_launches()  # ... and ends here
     check_path_launches("tune_serve", by_path["tune_serve"], ("tiled_matmul",))
     del wts
     reset_launches()  # the policy path starts here
@@ -4008,6 +4247,7 @@ def main() -> int:
     check_path_launches("dist", dist["launches"], ("flash_attention", "flash_attention_bwd"))
     gc.collect()
     torch.cuda.empty_cache()
+    phase_dryrun(dryrun, dist)  # path dryrun: its subprocesses' records, beside path dist's
 
     def launches(name: str) -> dict:
         per = {path: counts[name] for path, counts in by_path.items()}

@@ -4,11 +4,15 @@ The JAX package's ``models/layers.py`` with the same names, arguments and
 layouts (q ``(B, S, H, D)``, k/v ``(B, T, HKV, D)``, weights ``(in, out)``),
 so converted weights give the same numbers.  Norms and softmax accumulate in
 f32 whatever the activation dtype.  Every prefill and training attention
-(S > 1) runs the hand-written flash-attention kernel through
+(S > 1 from position 0) runs the hand-written flash-attention kernel through
 ``kernels.ops.flash_attention`` (under grad its ``autograd.Function``, whose
 backward is the flash backward kernel);
-decode (S == 1) is plain torch, as it is plain jnp in the reference.
-Dense sites go through ``kernels.ops.tuned_einsum`` while a tuned-schedule
+decode (S == 1) is plain torch, as it is plain jnp in the reference, and
+so is a block of queries over a cache (S > 1 at an offset or with
+``kv_len``): the reference's blocked jnp form, op for op.
+:func:`local_attention` is the reference's chunk-folded O(S·window) form
+(its first chunk on the kernel); the models keep the masked path.  Dense
+sites go through ``kernels.ops.tuned_einsum`` while a tuned-schedule
 registry is being served.
 
 Under a mesh (``runtime/sharding.py``) the same functions take DTensors:
@@ -57,12 +61,27 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (registry lookup; a hit on the card launches the tiled-matmul kernel);
     otherwise it is the plain ``@``."""
     if K.serving_registry() is None:
-        return x @ w
+        return matmul(x, w)
     free = "abce"[: x.ndim - 1]  # skip k/n (bound in the spec)
     if SH.is_dtensor(x):
         return _sharded_contraction(
             lambda a, b: K.tuned_einsum(f"{free}k,kn->{free}n", a, b), x, w, w_k=0)
     return K.tuned_einsum(f"{free}k,kn->{free}n", x, w)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ w (K, N)`` on the plain ``@``; on DTensors of which
+    either is sharded (or ``x`` partial) through :func:`_sharded_contraction`,
+    each rank's product of its shards.  DTensor's own rule for the product
+    flattens ``x`` (and, in the backward, its gradient) to 2-D, which on the
+    card's torch (2.11) it cannot do for a sequence sharded over model: the
+    residual stream's ``("batch", "act_seq", None)`` layout under the
+    production meshes.  Where nothing is sharded (a (1, 1) mesh) the plain
+    ``@`` on DTensors has no such layout to meet, and less host cost."""
+    if SH.is_dtensor(x) and any(not p.is_replicate()
+                                for p in (*x.placements, *w.placements)):
+        return _sharded_contraction(torch.matmul, x, w, w_k=0)
+    return x @ w
 
 
 def _sharded_contraction(fn, x, w, w_k: int):
@@ -130,6 +149,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 
 
+def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """``(B, S, heads * hd)`` -> ``(B, S, heads, hd)``.  A DTensor sharded on
+    its last dim over mesh dims whose size product does not divide
+    ``heads`` is first replicated over them (DTensor cannot cut a head
+    across ranks), and the fallback is recorded, as the spec rules record
+    theirs."""
+    b, s, f = x.shape
+    if SH.is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        pl = tuple(x.placements)
+        cut = [i for i, p in enumerate(pl) if p == Shard(2)]
+        size = math.prod(x.device_mesh.size(i) for i in cut)
+        if size > 1 and heads % size:
+            SH._record_fallback(f"heads {heads} % {size} != 0 -> the head dim replicated")
+            x = x.redistribute(x.device_mesh, tuple(Replicate() if i in cut else p
+                                                    for i, p in enumerate(pl)))
+    return x.reshape(b, s, heads, f // heads)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``(B, S, H, hd)`` -> ``(B, S, H * hd)``, its gradient pinned
+    (:func:`pin_grad`): the backward of the reshape never has to cut a head
+    across ranks."""
+    return pin_grad(x.reshape(*x.shape[:2], -1))
+
+
+def pin_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself; on a DTensor, an identity redistribute whose backward
+    brings the gradient to ``x``'s own placements, so that the backward of
+    the view that made ``x`` never sees a layout it cannot invert (a
+    sequence sharded over model, as the residual stream's gradient is)."""
+    if SH.is_dtensor(x):
+        return x.redistribute(x.device_mesh, x.placements)
+    return x
+
+
 def _softcap(scores: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return scores
@@ -142,25 +198,28 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, q_offset: int = 0, kv_len: Optional[int] = None,
+              causal: bool = True, q_offset: Any = 0, kv_len: Any = None,
               window: Optional[int] = None, softcap: Optional[float] = None,
               kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of q (B, S, HQ, D) over k, v (B, T, HKV, D); HQ % HKV == 0.
 
-    ``q_offset``: absolute position of q[0] — decode (S=1, offset=cache
-    length) or prefill (0).  ``window``: sliding-window size; a query at
+    ``q_offset``: absolute position of q[0] (an int or a 0-dim integer
+    tensor) — decode (S=1, offset=cache length), prefill (0), or a block of
+    queries over a cache.  ``window``: sliding-window size; a query at
     position p sees [p-window+1, p].  ``kv_len``: valid cache length
     (trailing slots masked).  ``kv_positions`` (decode only): the absolute
     position each of the T cache slots holds, negative for a slot never
-    written (a sliding-window ring cache); None means slot t holds position
-    t.  Returns (B, S, HQ, D) in v's dtype.
+    written (a sliding-window ring cache, the port's own layout); None means
+    slot t holds position t.  Returns (B, S, HQ, D) in v's dtype.
 
-    S == 1 is the plain decode branch.  S > 1 with ``q_offset == 0`` and no
-    ``kv_len`` (every prefill self-attention) is the flash-attention kernel.
-    Any other S > 1 call raises: attention of a block of queries over a
-    cache is not ported (ROADMAP.md, A4b).  The kernel applies
-    1/sqrt(D); there is no ``scale`` argument, and the reference's
-    ``q_block``/``kv_block`` are the "fa" registry block here.
+    S == 1 is the plain decode branch.  S > 1 with ``q_offset`` the int 0
+    and no ``kv_len`` (every prefill and training self-attention) is the
+    flash-attention kernel.  Any other S > 1 call (a block of queries over a
+    cache) is :func:`_attention_blocked`, the reference's jnp ``_flash``
+    in plain torch ops, whose gradients come from autograd.  The kernel
+    applies 1/sqrt(D); there is no ``scale`` argument, and the reference's
+    ``q_block``/``kv_block`` are the "fa" registry block for the kernel and
+    the reference's defaults for the blocked form.
     """
     b, s, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
@@ -181,13 +240,91 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         scores = torch.where(mask[None, None, None], scores, -1e30)
         p = torch.softmax(scores, dim=-1)
         return torch.einsum("bhqt,bthd->bqhd", p.to(v.dtype), _repeat_kv(v, groups))
-    if q_offset != 0 or kv_len is not None or kv_positions is not None:
+    if kv_positions is not None:
         raise NotImplementedError(
-            "attention of S > 1 queries at an offset or over a partly filled "
-            "cache is not ported (ROADMAP.md, A4b); prefill calls it "
-            "with q_offset=0 and kv_len=None")
-    return K.flash_attention(q, k, v, causal=causal, window=window,
-                             softcap=softcap).to(v.dtype)
+            "kv_positions (the slot positions of the port's ring decode cache) "
+            "takes one query row (S == 1)")
+    if isinstance(q_offset, int) and q_offset == 0 and kv_len is None:
+        return K.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap).to(v.dtype)
+    return _attention_blocked(q, k, v, causal=causal, q_offset=q_offset,
+                              kv_valid=t if kv_len is None else kv_len, window=window,
+                              softcap=softcap)
+
+
+def _attention_blocked(q, k, v, *, causal, q_offset, kv_valid, window, softcap,
+                       q_block: int = 512, kv_block: int = 1024) -> torch.Tensor:
+    """The JAX model attention's S > 1 branch (``_flash`` over ``_block_mask``),
+    op for op: GQA repeated, S and T zero-padded to block multiples only
+    when they exceed a block, q pre-scaled in its own dtype, f32 scores
+    (softcapped, masked to -1e30), running max and sum from -1e30, p cast to
+    v's dtype for p·v, ``l`` clamped to 1e-30.  A row that sees no key is
+    the mean of v over the padded kv length, as there."""
+    b, s, hq, d = q.shape
+    t, groups = k.shape[1], hq // k.shape[2]
+    k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+    qb = q_block if s > q_block else s
+    tb = kv_block if t > kv_block else t
+    s_pad = -s % qb
+    t_pad = -t % tb
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=q.dtype, device=q.device)
+    qs = F.pad(q, (0, 0, 0, 0, 0, s_pad)).transpose(1, 2) * scale   # (B, H, S', D)
+    kt = F.pad(k, (0, 0, 0, 0, 0, t_pad)).transpose(1, 2).float()   # (B, H, T', D)
+    vt = F.pad(v, (0, 0, 0, 0, 0, t_pad)).transpose(1, 2)
+    outs = []
+    for q0 in range(0, s + s_pad, qb):
+        q_blk = qs[:, :, q0:q0 + qb].float()
+        q_pos = q_offset + q0 + torch.arange(qb, device=q.device)
+        acc = torch.zeros(b, hq, qb, d, dtype=torch.float32, device=q.device)
+        m = torch.full((b, hq, qb), -1e30, dtype=torch.float32, device=q.device)
+        l = torch.zeros(b, hq, qb, dtype=torch.float32, device=q.device)
+        for t0 in range(0, t + t_pad, tb):
+            scores = _softcap(q_blk @ kt[:, :, t0:t0 + tb].transpose(-1, -2), softcap)
+            kv_pos = t0 + torch.arange(tb, device=q.device)
+            mask = kv_pos[None, :] < kv_valid
+            if causal:
+                mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+            scores = torch.where(mask, scores, -1e30)
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            p = torch.exp(scores - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + p.to(v.dtype).float() @ vt[:, :, t0:t0 + tb].float()
+            m = m_new
+        outs.append(acc / l.clamp_min(1e-30)[..., None])
+    return torch.cat(outs, dim=2).transpose(1, 2)[:, :s].to(v.dtype)
+
+
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """Sliding-window causal self-attention in O(S·window), the reference's
+    chunk-folded form: the sequence is cut into chunks of ``window``; chunk 0
+    attends to its own keys (:func:`attention` at offset 0: the flash
+    kernel on the card), and chunks 1..n-1 are folded into the batch with
+    kv = (previous chunk, own chunk) at ``q_offset = window`` (the blocked
+    form), so that every key a query may see is present and the causal +
+    window mask is exact.  q (B, S, HQ, D), k and v (B, S, HKV, D).  The
+    models keep the masked path, as the reference's do."""
+    b, s, hq, d = q.shape
+    c = window
+    if s <= c:  # the window covers everything: plain causal
+        return attention(q, k, v, causal=True, softcap=softcap)
+    pad = -s % c
+    if pad:
+        q, k, v = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (q, k, v))
+    sp = q.shape[1]
+    nc = sp // c
+    qc, kc, vc = (x.reshape(b, nc, c, *x.shape[2:]) for x in (q, k, v))
+    out0 = attention(qc[:, 0], kc[:, 0], vc[:, 0], causal=True, softcap=softcap)
+    hkv = k.shape[2]
+    qf = qc[:, 1:].reshape(b * (nc - 1), c, hq, d)
+    kf = torch.cat([kc[:, :-1], kc[:, 1:]], dim=2).reshape(b * (nc - 1), 2 * c, hkv, d)
+    vf = torch.cat([vc[:, :-1], vc[:, 1:]], dim=2).reshape(b * (nc - 1), 2 * c, hkv, d)
+    outf = attention(qf, kf, vf, causal=True, q_offset=c, window=window, softcap=softcap)
+    out = torch.cat([out0[:, None], outf.reshape(b, nc - 1, c, hq, d)], dim=1)
+    return out.reshape(b, sp, hq, d)[:, :s]
 
 
 # ---------------------------------------------------------------------------
@@ -230,9 +367,9 @@ def attn_qkv(p, cfg, x: torch.Tensor, kv_src: Optional[torch.Tensor] = None,
     v = dense(kv_src, p["wv"])
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, kv_src.shape[1], cfg.n_kv_heads, hd)
-    v = v.reshape(b, kv_src.shape[1], cfg.n_kv_heads, hd)
+    q = split_heads(q, cfg.n_heads)
+    k = split_heads(k, cfg.n_kv_heads)
+    v = split_heads(v, cfg.n_kv_heads)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])

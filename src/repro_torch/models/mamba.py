@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as K
 from repro_torch.runtime.sharding import ashard
 
-from .layers import dense_init
+from .layers import dense_init, matmul
 
 
 class MambaState(NamedTuple):
@@ -79,9 +79,9 @@ def _ssm_inputs(p, xz: torch.Tensor):
     full-sequence streams), and B and C as views of the ``x_proj`` output."""
     d_state = p["a_log"].shape[1]
     dt_rank = p["dt_proj"].shape[0]
-    proj = xz @ p["x_proj"]
+    proj = matmul(xz, p["x_proj"])
     dt_low, bmat, cmat = torch.split(proj, [dt_rank, d_state, d_state], dim=-1)
-    dt = F.softplus(dt_low.float() @ p["dt_proj"] + p["dt_bias"])  # f32
+    dt = F.softplus(matmul(dt_low.float(), p["dt_proj"]) + p["dt_bias"])  # f32
     return dt.to(xz.dtype), bmat, cmat
 
 
@@ -91,7 +91,7 @@ def mamba_apply(p, x: torch.Tensor, state: Optional[MambaState] = None,
     conv window and h in (zeros when None).  The scan is one
     ``kernels.ops.mamba_scan`` call with ``chunk`` tokens a tile (the
     ``"mamba"`` registry block may set it)."""
-    xz, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    xz, z = torch.chunk(matmul(x, p["in_proj"]), 2, dim=-1)
     xz, conv_out = _conv_causal(xz, p["conv_w"], p["conv_b"],
                                 state.conv if state is not None else None)
     # d_inner stays model-sharded through the scan, as in the reference;
@@ -103,14 +103,14 @@ def mamba_apply(p, x: torch.Tensor, state: Optional[MambaState] = None,
     y, h_final = K.mamba_scan(xz, dt, a, bmat, cmat, chunk=chunk,
                               h0=state.h if state is not None else None)
     y = y + xz.float() * p["d"]  # skip term (f32)
-    out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    out = matmul(y.to(x.dtype) * F.silu(z), p["out_proj"])
     return out, MambaState(h_final, conv_out)
 
 
 def mamba_decode(p, x: torch.Tensor, state: MambaState
                  ) -> Tuple[torch.Tensor, MambaState]:
     """Single-token step.  x: (B, 1, D)."""
-    xz, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    xz, z = torch.chunk(matmul(x, p["in_proj"]), 2, dim=-1)
     xz, conv_out = _conv_causal(xz, p["conv_w"], p["conv_b"], state.conv)
     xz = F.silu(xz)
     dt, bmat, cmat = _ssm_inputs(p, xz)
@@ -121,7 +121,7 @@ def mamba_decode(p, x: torch.Tensor, state: MambaState
     h = state.h * decay + u
     y = (torch.einsum("bcn,bn->bc", h, cmat[:, 0].float())
          + xz[:, 0].float() * p["d"])
-    out = (y[:, None].to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    out = matmul(y[:, None].to(x.dtype) * F.silu(z), p["out_proj"])
     return out, MambaState(h, conv_out)
 
 

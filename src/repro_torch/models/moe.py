@@ -37,7 +37,7 @@ import torch
 from repro_torch.runtime import sharding as SH
 from repro_torch.runtime.sharding import ashard
 
-from .layers import _ACTS, dense_init, mlp_apply, mlp_params
+from .layers import _ACTS, dense_init, matmul, mlp_apply, mlp_params, pin_grad
 
 
 def moe_params(generator, d_model: int, moe_cfg, dtype, device) -> Dict[str, Any]:
@@ -60,9 +60,11 @@ def _capacity(n_tokens: int, moe_cfg) -> int:
 
 def _route(p, xt: torch.Tensor, moe_cfg):
     """Router: top-k gates + expert assignment.  xt: (N, D)."""
-    logits = xt.float() @ p["router"]  # (N, E) f32
-    if SH.is_dtensor(logits):  # token by token, on each rank's tokens
-        pl = tuple(logits.placements)
+    logits = matmul(xt.float(), p["router"])  # (N, E) f32
+    if SH.is_dtensor(logits):  # token by token, on each rank's tokens, every expert whole
+        from torch.distributed.tensor import Replicate
+
+        pl = tuple(Replicate() if q.is_shard(1) else q for q in logits.placements)
         return (logits, *SH.local_call(lambda lg: _gates(lg, moe_cfg.top_k), (logits,), (pl,),
                                        (pl, pl, pl)))
     return (logits, *_gates(logits, moe_cfg.top_k))
@@ -212,6 +214,9 @@ def moe_apply(p, x: torch.Tensor, moe_cfg, act: str = "silu"
     averages the chunks' aux values, as the reference's scan does."""
     b, s, d = x.shape
     n = b * s
+    # the tokens flatten with the sequence whole on each rank (DTensor cannot
+    # flatten a sequence sharded over model on every torch the port runs on)
+    x = ashard(x, ("batch", None, None))
     chunk = moe_cfg.dispatch_chunk or n
     # largest seq-dim split with >= chunk tokens per slice
     n_chunks = max(1, n // chunk)
@@ -238,7 +243,7 @@ def moe_apply(p, x: torch.Tensor, moe_cfg, act: str = "silu"
         out = out + mlp_apply(p["shared"], x.reshape(n, d), act)
 
     aux = {"moe_aux_loss": aux_l, "moe_z_loss": z_l, "moe_drop_frac": drop}
-    return out.reshape(b, s, d), aux
+    return pin_grad(out.reshape(b, s, d)), aux
 
 
 def moe_ref_dense(p, x: torch.Tensor, moe_cfg, act: str = "silu") -> torch.Tensor:

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as K
 from repro_torch.runtime import sharding as SH
 
-from .layers import dense_init
+from .layers import dense_init, matmul, merge_heads, split_heads
 
 LORA_RANK = 32
 
@@ -71,17 +71,17 @@ def _streams(p, x, x_shift):
     xv = _mix(x, x_shift, p["mu_v"])
     xw = _mix(x, x_shift, p["mu_w"])
     xg = _mix(x, x_shift, p["mu_g"])
-    r = xr @ p["w_r"]
-    k = xk @ p["w_k"]
-    v = xv @ p["w_v"]
-    g = F.silu(xg @ p["w_g"])
-    logw = -torch.exp(p["w0"] + torch.tanh(xw.float() @ p["w_lora_a"]) @ p["w_lora_b"])
+    r = matmul(xr, p["w_r"])
+    k = matmul(xk, p["w_k"])
+    v = matmul(xv, p["w_v"])
+    g = F.silu(matmul(xg, p["w_g"]))
+    logw = -torch.exp(p["w0"] + matmul(torch.tanh(matmul(xw.float(), p["w_lora_a"])),
+                                         p["w_lora_b"]))
     return r, k, v, g, logw  # logw (B, S, D) f32: log of the decay in (0, 1)
 
 
 def _heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
-    b, s, d = x.shape
-    return x.reshape(b, s, d // head_dim, head_dim)
+    return split_heads(x, x.shape[-1] // head_dim)
 
 
 def _group_norm(y: torch.Tensor, w, b, eps: float = 64e-5) -> torch.Tensor:
@@ -90,8 +90,17 @@ def _group_norm(y: torch.Tensor, w, b, eps: float = 64e-5) -> torch.Tensor:
     mean = y32.mean(-1, keepdim=True)
     var = y32.var(-1, keepdim=True, unbiased=False)
     yn = (y32 - mean) * torch.rsqrt(var + eps)
-    bsz, s, h, n = y.shape
-    return yn.reshape(bsz, s, h * n) * w + b
+    return merge_heads(yn) * w + b
+
+
+def _pad_seq(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x (B, S, D)`` with ``n`` zero positions after S; a DTensor whose
+    sequence is whole on each rank is padded shard by shard (torch 2.11's
+    DTensor has no working rule for the pad)."""
+    if SH.is_dtensor(x):
+        return SH.local_call(lambda t: F.pad(t, (0, 0, 0, n)), (x,), (x.placements,),
+                             (x.placements,))
+    return F.pad(x, (0, 0, 0, n))
 
 
 def time_mix_chunked(p, x: torch.Tensor, head_dim: int, chunk: int = 128,
@@ -107,8 +116,11 @@ def time_mix_chunked(p, x: torch.Tensor, head_dim: int, chunk: int = 128,
     """
     b, s, d = x.shape
     n = head_dim
+    # the sequence whole on each rank: the scan runs over it (its local_map
+    # keeps it so), and DTensor pads a sharded one on no torch 2.11 rule
+    x = SH.ashard(x, ("batch", None, None))
     if s % chunk != 0:
-        x = F.pad(x, (0, 0, 0, -s % chunk))
+        x = _pad_seq(x, -s % chunk)
     sp = x.shape[1]
     x_shift = _token_shift(x, x_prev)
     r, k, v, g, logw = _streams(p, x, x_shift)
@@ -124,7 +136,7 @@ def time_mix_chunked(p, x: torch.Tensor, head_dim: int, chunk: int = 128,
     y, final_state = K.rwkv6_chunk_scan(_heads(r, n), _heads(k, n), _heads(v, n),
                                         _heads(logw, n), p["u"], chunk=chunk, s0=state)
     y = _group_norm(y[:, :s], p["ln_w"], p["ln_b"])
-    out = (y.to(x.dtype) * g[:, :s]) @ p["w_o"]
+    out = matmul(y.to(x.dtype) * g[:, :s], p["w_o"])
     return out, final_state, x[:, s - 1]
 
 
@@ -145,7 +157,7 @@ def time_mix_decode(p, x: torch.Tensor, head_dim: int, state: torch.Tensor,
     y = torch.einsum("bhn,bhnm->bhm", rh, state + p["u"][None, :, :, None] * kv)
     new_state = state * w[..., None] + kv
     y = _group_norm(y.reshape(b, 1, h, n), p["ln_w"], p["ln_b"])
-    out = (y.to(x.dtype) * g) @ p["w_o"]
+    out = matmul(y.to(x.dtype) * g, p["w_o"])
     return out, new_state, x[:, 0]
 
 
@@ -187,5 +199,5 @@ def channel_mix(p, x: torch.Tensor, x_prev: Optional[torch.Tensor] = None
     xs = _token_shift(x, x_prev)
     xk = _mix(x, xs, p["mu_k"])
     xr = _mix(x, xs, p["mu_r"])
-    k = torch.square(F.relu(xk @ p["w_k"]))
-    return torch.sigmoid(xr @ p["w_r"]) * (k @ p["w_v"]), x[:, -1]
+    k = torch.square(F.relu(matmul(xk, p["w_k"])))
+    return torch.sigmoid(matmul(xr, p["w_r"])) * matmul(k, p["w_v"]), x[:, -1]

@@ -315,15 +315,14 @@ def _apply_cross(p, cfg, h, out, cache, encoder, decode):
     hx = L.rms_norm(h + out.to(h.dtype), p["norm_cross"])
     if decode:
         ck, cv = cache["ck"], cache["cv"]
-        qx = L.dense(hx, p["cross"]["wq"]).reshape(*hx.shape[:2], cfg.n_heads,
-                                                   cfg.head_dim_)
+        qx = L.split_heads(L.dense(hx, p["cross"]["wq"]), cfg.n_heads)
     else:
         qx, ck, cv = L.attn_qkv(p["cross"], cfg, hx, kv_src=encoder, rope=False)
         if cache is not None:
             cache["ck"].copy_(ck)
             cache["cv"].copy_(cv)
     xout = L.attention(qx, ck, cv, causal=False)
-    return out + L.dense(xout.reshape(*h.shape[:2], -1), p["cross"]["wo"]).to(out.dtype)
+    return out + L.dense(L.merge_heads(xout), p["cross"]["wo"]).to(out.dtype)
 
 
 def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, encoder, decode):
@@ -362,7 +361,7 @@ def _apply_mixer(spec, p, cfg, h, cache, cache_len, positions, encoder, decode):
         out = L.attention(q, cache["k"], cache["v"], causal=True, q_offset=cache_len,
                           kv_len=cache_len + 1, window=window,
                           softcap=cfg.attn_softcap, kv_positions=kv_positions)
-    out = L.dense(out.reshape(*h.shape[:2], -1), p["attn"]["wo"])
+    out = L.dense(L.merge_heads(out), p["attn"]["wo"])
     if spec.mixer == CROSS_ATTN:
         return _apply_cross(p, cfg, h, out, cache, encoder, decode)
     return out

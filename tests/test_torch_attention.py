@@ -161,13 +161,6 @@ def test_model_attention_decode_matches(window, softcap, hkv):
     _close(out, RL.attention(*(jnp.asarray(a) for a in (q, k, v)), **kw), "float32")
 
 
-def test_model_attention_refuses_a_query_block_over_a_cache():
-    q, k, v = (torch.zeros(1, n, 2, 16) for n in (4, 8, 8))
-    for kw in (dict(q_offset=3), dict(kv_len=5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TL.attention(q, k, v, **kw)
-
-
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     """Shapes, dtypes, blocks and softcaps the kernel does not take raise on
     every device; a head dim without a kernel instance is refused by the

@@ -114,6 +114,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import repro_torch.runtime.sharding, repro_torch.runtime.elastic\n"
             "import repro_torch.launch.mesh, repro_torch.analysis.roofline\n"
             "import repro_torch.analysis, repro_torch.launch.train\n"
+            "import repro_torch.configs, repro_torch.launch.dryrun\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n")
