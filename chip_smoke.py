@@ -169,11 +169,14 @@ line with its seconds:
    the same q, k, v, out, dout and lse, and the forward kernel's lse against
    the plain forward's, in f32 and bf16 at every backward head dim (causal,
    a window, softcap 50, GQA 1/4/8, S and T off any tile, rows that see no
-   key, jamba's (4, 1024, 32/8, 128) and musicgen-large's (4, 1024, 32,
-   64)), each bf16 D = 64/96/128 case on the tensor-core route with the
-   kernel's plan equal to ``bwd_launch_plan``, refuses D = 256, and each
-   route's kernel without its ``- delta`` must fail more than half of that
-   route's multi-tile cases; scan_grads holds both scans' autograd functions (the
+   key, jamba's (4, 1024, 32/8, 128), musicgen-large's (4, 1024, 32, 64)
+   and gemma3-12b's (2, 4096, 16/8, 256) causal and with its window of
+   1024), each bf16 D = 64/96/128/256 case on the tensor-core route with the
+   kernel's plan equal to ``bwd_launch_plan``, refuses a head dim without an
+   instance (12), and each route's kernel without its ``- delta`` (on the
+   tensor cores the D <= 128 dk/dv kernel's line and, a mutant of its own,
+   D = 256's) must fail more than half of that route's multi-tile cases;
+   scan_grads holds both scans' autograd functions (the
    kernel forward, the plain-recompute backward) against plain autograd;
    train_model trains musicgen-large at its published widths (48 layers,
    bf16 with an f32 master copy and f32 moments, remat "block",
@@ -182,7 +185,12 @@ line with its seconds:
    each step launches flash forward 96 times (48 layers and their
    recompute) and the backward 48 times, no other kernel; then one traced
    step, and one step's gradients at the same widths cut to 2 layers with
-   the kernels against the plain flash forward and backward; last,
+   the kernels against the plain flash forward and backward;
+   train_model_gemma3 trains gemma3-12b (head dim 256) the same way at its
+   published widths cut to one period of its 5:1 pattern (6 of 48 layers:
+   five local layers with the window of 1024 and one global) on one repeated
+   2 x 4096 batch: flash forward 12 and backward 6 launches a step, no other
+   kernel, and the gradient check at the cut itself; last,
    train_launcher runs ``repro_torch.launch.train`` as subprocesses:
    olmoe's smoke config through an injected failure and a resume,
    phi3-mini's with int8 gradient compression, rwkv6-7b's and jamba's
@@ -236,7 +244,8 @@ line with its seconds:
    time and a block sweep; then the flash backward at musicgen-large's
    training shape against its plain version, autograd's backward of one
    SDPA call (yardstick only) and its bound, and the forward with and
-   without its lse output; dist_roofline_ceiling holds the six bf16
+   without its lse output, and at jamba's (D = 128) and gemma3-12b's two
+   training shapes (D = 256, causal and windowed); dist_roofline_ceiling holds the six bf16
    contractions' TFLOP/s, the kernel's and cuBLAS's, under
    ``PEAK_FLOPS``.
 
@@ -249,7 +258,8 @@ added to the parent's), set to 0 before the
 model's ``tune_model`` and read right after its serve run, and set to 0
 before rwkv6-7b's and jamba's serve runs and each zoo model's and read
 right after each (path zoo sums its seven), and set to 0 before path
-train's four training steps and read after them, and set to 0 before
+train's four training steps and read after them (musicgen-large's, then
+again gemma3-12b's), and set to 0 before
 dist_train's steps and dist_serve's run under the mesh and read after each
 (path dist sums the two); each path must launch its own kernels and no
 other.
@@ -414,9 +424,12 @@ TIE_GAP = 1e-3             # 100x the f32 score tolerance (1e-5 relative)
 FLASH_BWD_LIMIT = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
 LSE_LIMIT = 1e-5
 FLASH_BWD_MUTANT_LINE = "const float ds = pv * (dp[i][j] - dl_s[r]) * fac;  // ds = p (dP - delta)"
-# the same term on the tensor-core route (its dk/dv kernel)
+# the same term on the tensor-core route (its dk/dv kernel), and in D = 256's
+# dk/dv kernel (the dK warpgroup's)
 TC_FLASH_BWD_MUTANT_LINE = ("const float ds = s[i] * (dp[i] - dl);  "
                             "// dS^T = P^T (dP^T - delta), by fragment")
+SPLIT_FLASH_BWD_MUTANT_LINE = ("const float ds = pf_s[i * kWG + t] * (x[i] - dl);  "
+                               "// dS^T = P^T (dP^T - delta), the dK warpgroup's")
 SCAN_GRAD_RWKV = (2, 256, 4, 64)      # (B, S, H, N)
 SCAN_GRAD_MAMBA = (2, 256, 256, 16)   # (B, S, C, N)
 SCAN_LIMIT_GRAD = 2e-4
@@ -439,6 +452,23 @@ TRAIN_CHECK_LAYERS = 2  # the kernel-vs-plain gradient check's depth
 # f32, and at this init's logit scale (~45, loss ~150) the head's gradient
 # moves with the hidden states' last bits
 TRAIN_CHECK_LIMIT = 0.13
+# gemma3-12b trained at its published widths (d_model 3840, 16 q and 8 kv
+# heads of 256, d_ff 15,360 GeGLU, vocab 262,144 tied, qk-norm, post-norms)
+# cut to one period of its 5:1 pattern, 6 of 48 layers (five local layers,
+# window 1024, and one global): 2,351,530,752 parameters, 14 bytes each of
+# state (32.9 GB); twelve layers would come to ~80 GB with the step's
+# temporaries.  bf16, f32 master and moments, remat "block", registry=None,
+# one repeated 2 x 4096 batch, so that the window masks; the gradient check
+# runs at the cut itself, the windowed and the global backward both held
+GEMMA3_PARAMS = 2_351_530_752
+TRAIN_RUNS = {
+    "musicgen-large": dict(phase="train_model", path="train", layers=None, batch=TRAIN_BATCH,
+                           lr=TRAIN_LR, params=MUSICGEN_PARAMS, check_layers=TRAIN_CHECK_LAYERS),
+    "gemma3-12b": dict(phase="train_model_gemma3", path="train_gemma3", layers=6,
+                       batch=(2, 4096), lr=TRAIN_LR, params=GEMMA3_PARAMS, check_layers=6),
+}
+# gemma3-12b's two attention shapes in that step (B, S, H, HKV, D, window)
+GEMMA3_BWD_SHAPES = [(2, 4096, 16, 8, 256, None), (2, 4096, 16, 8, 256, 1024)]
 
 
 def reset_launches() -> None:
@@ -2837,7 +2867,8 @@ def flash_bwd_cases() -> list:
     """(B, S, T, H, HKV, D, causal, window, softcap, dtype): every head dim
     with a backward instance in f32 and bf16, causal, a window, softcap 50,
     GQA 1/4/8, S and T off any 64-row tile (S != T too), rows that see no
-    key, jamba's (4, 1024, 32/8, 128) and musicgen-large's training shape."""
+    key, jamba's (4, 1024, 32/8, 128), musicgen-large's training shape and
+    gemma3-12b's two (causal, and its local layers' window of 1024)."""
     from repro_torch.kernels.flash_attention import BWD_HEAD_DIMS
 
     cases = []
@@ -2853,6 +2884,8 @@ def flash_bwd_cases() -> list:
         cases.append((1, 40, 24, 2, 2, 16, False, None, None, dt))         # one tile each way
     cases.append((4, 1024, 1024, 32, 8, 128, True, None, None, torch.bfloat16))  # jamba's, GQA 4
     cases.append(MUSICGEN_BWD_CASE)
+    cases += [(b, s, s, h, hkv, d, True, w, None, torch.bfloat16)
+              for b, s, h, hkv, d, w in GEMMA3_BWD_SHAPES]
     return cases
 
 
@@ -2891,16 +2924,17 @@ def flash_bwd_case_check(case, g) -> dict:
             "lse_ratio_to_limit": lse_ratio}
 
 
-def phase_flash_bwd(cases_f, mutant: Path, tc_mutant: Path) -> dict:
+def phase_flash_bwd(cases_f, mutant: Path, tc_mutant: Path, split_mutant: Path) -> dict:
     """The backward kernel against its plain version over
-    :func:`flash_bwd_cases` (and the forward's lse), every bf16 D = 64/96/128
-    case on the "wgmma" route with the kernel's plan equal to
+    :func:`flash_bwd_cases` (and the forward's lse), every bf16 D =
+    64/96/128/256 case on the "wgmma" route with the kernel's plan equal to
     ``bwd_launch_plan``, a head dim without an instance refused, then each
-    route's mutant without ``- delta`` through the same wrapper over that
-    route's multi-tile cases: more than half must fail."""
+    mutant without ``- delta`` through the same wrapper over its kernel's
+    multi-tile cases (the SIMT route; the tensor cores' D <= 128 dk/dv
+    kernel; D = 256's): more than half must fail."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import (BWD_TC_HEAD_DIMS, _declare_bwd,
-                                                     flash_attention_bwd)
+    from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS, BWD_TC_HEAD_DIMS,
+                                                     _declare_bwd, flash_attention_bwd)
 
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2914,7 +2948,7 @@ def phase_flash_bwd(cases_f, mutant: Path, tc_mutant: Path) -> dict:
         if not (c["worst_ratio"] <= 1.0 and c["lse_ratio_to_limit"] <= 1.0
                 and c["plan_equal"] and (c["route"] == "wgmma") == tc):
             failures.append(c)
-    x = torch.zeros(1, 8, 2, 256, device="cuda")
+    x = torch.zeros(1, 8, 2, 12, device="cuda")  # a head dim without an instance
     lse = torch.zeros(1, 2, 8, device="cuda")
     try:
         flash_attention_bwd(x, x, x, x, x, lse)
@@ -2922,10 +2956,12 @@ def phase_flash_bwd(cases_f, mutant: Path, tc_mutant: Path) -> dict:
     except ValueError:
         refused = True
     mutation = {}
-    for route, path, line in (("simt", mutant, FLASH_BWD_MUTANT_LINE),
-                              ("wgmma", tc_mutant, TC_FLASH_BWD_MUTANT_LINE)):
-        multi = [case for case, c in zip(cases, rows)
-                 if max(case[1], case[2]) > 64 and c["route"] == route]
+    for route, path, line, heads in (
+            ("simt", mutant, FLASH_BWD_MUTANT_LINE, BWD_HEAD_DIMS),
+            ("wgmma", tc_mutant, TC_FLASH_BWD_MUTANT_LINE, (64, 96, 128)),
+            ("wgmma D=256", split_mutant, SPLIT_FLASH_BWD_MUTANT_LINE, (256,))):
+        multi = [case for case, c in zip(cases, rows) if max(case[1], case[2]) > 64
+                 and c["route"] == route.split()[0] and case[5] in heads]
         with _build.substitute("flash_attention_bwd", path, _declare_bwd):
             mut = [flash_bwd_case_check(case, g) for case in multi]
         for c in mut:
@@ -2944,14 +2980,15 @@ def phase_flash_bwd(cases_f, mutant: Path, tc_mutant: Path) -> dict:
            "worst_ratio_by_route_and_head_dim": by,
            "worst_lse_ratio": max(c["lse_ratio_to_limit"] for c in rows),
            "plans_equal": all(c["plan_equal"] for c in rows),
-           "musicgen_shape": rows[cases.index(MUSICGEN_BWD_CASE)], "d256_refused": refused,
-           "failures": failures[:5]}
+           "musicgen_shape": rows[cases.index(MUSICGEN_BWD_CASE)],
+           "gemma3_shapes": [c for c in rows if c["bsthd"][1] == 4096],
+           "refused_head_dim_12": refused, "failures": failures[:5]}
     emit("flash_bwd", t0, **row)
     for route, m in mutation.items():
         emit("mutation", t0, kernel="flash_attention_bwd", route=route, **m)
     if failures or not refused:
         raise SystemExit(f"flash_bwd: {len(failures)} cases outside their limits, off their "
-                         f"route or with another plan; D = 256 refused: {refused}")
+                         f"route or with another plan; D = 12 refused: {refused}")
     for route, m in mutation.items():
         if not m["outside_limit"] > m["multi_tile_cases"] / 2:
             raise SystemExit(f"flash_bwd {route} mutant: only {m['outside_limit']} of "
@@ -3038,12 +3075,14 @@ def train_grads(cfg, batch, plain: bool) -> dict:
     import importlib
 
     from repro_torch.models import steps as S
+    from repro_torch.models import transformer as T
 
     # the module (``repro_torch.kernels.flash_attention`` the attribute is
     # the ops function of that name)
     FA = importlib.import_module("repro_torch.kernels.flash_attention")
-    params, _ = S.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(SEED),
-                                   "cuda")
+    # the weights init_train_state draws from the seed, without its AdamW state
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda",
+                           trainable=True)
     kernel_fn = FA.FlashAttention
     if plain:
         FA.FlashAttention = PlainFlash
@@ -3057,13 +3096,16 @@ def train_grads(cfg, batch, plain: bool) -> dict:
             for k, p in params.named_parameters()}
 
 
-def phase_train_model(out_dir: Path) -> dict:
-    """Path train's model phase: musicgen-large at its published widths (48
-    layers, bf16, f32 master and moments, remat "block", registry=None)
-    takes TRAIN_STEPS AdamW steps on one repeated 4 x 1024 batch from the
-    data pipeline, launches counted from 0 just before and read just after;
-    then one traced step, and a step's gradients with the kernels against
-    the plain flash at the same widths cut to 2 layers."""
+def phase_train_model(out_dir: Path, arch: str = "musicgen-large") -> dict:
+    """Path train's model phases, as ``TRAIN_RUNS[arch]`` sets them:
+    musicgen-large at its published widths (48 layers) on one repeated 4 x
+    1024 batch, or gemma3-12b at its published widths cut to one period of
+    its pattern (6 layers) on one repeated 2 x 4096 batch; bf16, f32 master
+    and moments, remat "block", registry=None; TRAIN_STEPS AdamW steps, the
+    batch from the data pipeline, launches counted from 0 just before and
+    read just after; then one traced step, and a step's gradients with the
+    kernels against the plain flash at the same widths cut to the run's
+    check depth."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -3072,15 +3114,18 @@ def phase_train_model(out_dir: Path) -> dict:
     from repro_torch.optim.schedules import constant
 
     t0 = time.perf_counter()
-    cfg = get_config("musicgen-large")
-    b, s = TRAIN_BATCH
+    run = TRAIN_RUNS[arch]
+    cfg = get_config(arch)
+    if run["layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=run["layers"])
+    b, s = run["batch"]
     ds = make_dataset(cfg, None, seed=SEED, global_batch=b, seq_len=s)
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in ds.batch(0).items()}
     torch.cuda.reset_peak_memory_stats()
     params, opt = S.init_train_state(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                                      "cuda")
     state_bytes = torch.cuda.memory_allocated()
-    step = S.make_train_step(cfg, constant(TRAIN_LR), weight_decay=0.1, max_grad_norm=1.0)
+    step = S.make_train_step(cfg, constant(run["lr"]), weight_decay=0.1, max_grad_norm=1.0)
     torch.cuda.synchronize()
     reset_launches()  # the path's main drive starts here
     losses, gnorms, times = [], [], []
@@ -3104,11 +3149,11 @@ def phase_train_model(out_dir: Path) -> dict:
     by_name = sorted(((e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
                       for e in prof.key_averages()), key=lambda kv: -kv[1])
     traced["top_device_ms"] = [[name[:80], ms] for name, ms in by_name[:12]]
-    del params, opt, m, step
+    del params, opt, m, step, prof
     gc.collect()
     torch.cuda.empty_cache()
 
-    cut = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+    cut = dataclasses.replace(cfg, n_layers=run["check_layers"])
     kern = train_grads(cut, batch, plain=False)
     plain = train_grads(cut, batch, plain=True)
     per_leaf = {k: ((kern[k] - plain[k]).abs().max()
@@ -3121,24 +3166,25 @@ def phase_train_model(out_dir: Path) -> dict:
     p50 = sorted(times[1:])[len(times[1:]) // 2]
     per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
     row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "heads": cfg.n_heads, "head_dim": cfg.head_dim_, "d_ff": cfg.d_ff,
-           "vocab": cfg.vocab, "dtype": cfg.dtype, "params": cfg.param_count(),
-           "remat": cfg.remat_policy, "batch": [b, s], "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim_,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "windows": [spec.window for spec in cfg.period],
+           "dtype": cfg.dtype, "params": cfg.param_count(),
+           "remat": cfg.remat_policy, "batch": [b, s], "steps": TRAIN_STEPS, "lr": run["lr"],
            "loss": losses, "grad_norm": gnorms, "step_s": times, "step_ms_p50": p50 * 1e3,
            "tokens_per_s": b * s / p50, "state_bytes": state_bytes,
            "max_memory_allocated": peak, "launches": launches, "launches_per_step": per_step,
            "traced_step": {k: traced.get(k) for k in (
                "wall_ms", "busy_ms", "device_ms", "flash_attention_ms",
                "flash_attention_bwd_ms", "other_ms", "idle_share", "top_device_ms")},
-           "kernel_vs_plain": {"layers": TRAIN_CHECK_LAYERS, "worst_leaf": worst,
+           "kernel_vs_plain": {"layers": run["check_layers"], "worst_leaf": worst,
                                "worst": per_leaf[worst], "limit": TRAIN_CHECK_LIMIT,
                                "median": float(np.median(list(per_leaf.values())))}}
-    emit("train_model", t0, **row)
-    check_path_launches("train", launches, ("flash_attention", "flash_attention_bwd"))
+    emit(run["phase"], t0, **row)
+    check_path_launches(run["path"], launches, ("flash_attention", "flash_attention_bwd"))
     checks = {
-        f"params == {MUSICGEN_PARAMS:,}": row["params"] == MUSICGEN_PARAMS,
+        f"params == {run['params']:,}": row["params"] == run["params"],
         "loss and grad norm finite": all(np.isfinite(losses + gnorms)),
-        "loss falls (loss[3] < loss[0])": losses[3] < losses[0],
+        "loss falls (last < first)": losses[-1] < losses[0],
         "peak memory under 80 GB": peak < CARD_BYTES,
         f"flash forward {2 * cfg.n_layers} a step": launches["flash_attention"]
             == 2 * cfg.n_layers * TRAIN_STEPS,
@@ -3148,7 +3194,7 @@ def phase_train_model(out_dir: Path) -> dict:
     }
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise SystemExit(f"train_model failed: {bad}")
+        raise SystemExit(f"{run['phase']} failed: {bad}")
     return row
 
 
@@ -3660,58 +3706,95 @@ def phase_dist_ceiling(rows_bf16: list) -> None:
         raise SystemExit(f"a bf16 contraction ran at {top} TFLOP/s, over PEAK_FLOPS")
 
 
-def phase_flash_bwd_timing(card: str, g) -> dict:
-    """The backward kernel at musicgen-large's training shape (bf16, causal)
+def visible_pairs(s: int, window) -> int:
+    """(q, key) pairs a causal (B, H) slice of S x S sees, under ``window``."""
+    if window is None:
+        return s * (s + 1) // 2
+    return sum(min(i + 1, window) for i in range(s))
+
+
+def flash_bwd_timing_row(shape, card: str, g, flush, dt=torch.bfloat16) -> dict:
+    """The backward kernel at (B, S, H, HKV, D, window) in ``dt``, causal,
     against its plain version, autograd's backward of one SDPA call
-    (yardstick only) and its bound (the function's five products; the
-    design's seven, S and dP in both launches, beside it), with its route
-    and plan; and the forward with and without its lse output."""
+    (yardstick only; with a window, a boolean mask over k and v repeated to
+    H heads) and its bound: the function's five products over the visible
+    pairs against the bytes of q, k, v, out, dout, dq, dk, dv, lse and delta
+    once, and the design's seven products (S and dP in both launches)."""
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                                      flash_attention_bwd_plain,
                                                      kernel_bwd_plan)
 
+    b, s, h, hkv, d, window = shape
+    kw = dict(causal=True, window=window)
+    q, dout = (torch.randn(b, s, h, d, generator=g, device="cuda").to(dt) for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dt) for _ in range(2))
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    max_abs = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
+    del got, want
+    ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse, **kw), flush, 20)
+    device_ms = events_device_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse, **kw))
+    plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw),
+                       flush, 3)
+    fwd_ms = time_ms(lambda: flash_attention(q, k, v, **kw), flush, 20)
+    fwd_lse_ms = time_ms(lambda: flash_attention(q, k, v, return_lse=True, **kw), flush, 20)
+    qt = q.transpose(1, 2).detach().requires_grad_()  # SDPA takes (B, H, S, D)
+    do = dout.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = {"library": "SDPA backward (autograd of one call)"}
+    try:
+        if window is None:
+            kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (k, v))
+            o = sdpa(qt, kt, vt, is_causal=True, enable_gqa=hkv != h)
+        else:
+            kt, vt = (x.transpose(1, 2).repeat_interleave(h // hkv, dim=1).detach()
+                      .requires_grad_() for x in (k, v))
+            i = torch.arange(s, device="cuda")
+            band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            o = sdpa(qt, kt, vt, attn_mask=band)
+            library["library"] += ", a boolean band mask, k and v repeated to H heads"
+        library["library_ms"] = time_ms(
+            lambda: torch.autograd.grad(o, (qt, kt, vt), do, retain_graph=True), flush, 20)
+        del o
+    except RuntimeError as e:  # the yardstick only: the kernel's row stands without it
+        library.update(library_ms=None, library_error=str(e)[:200])
+    pairs = visible_pairs(s, window)
+    flops = 10 * b * h * d * pairs  # S recomputed, dP, dv, dk, dq over the visible pairs
+    size = q.element_size()
+    nbytes = 4 * b * s * (h + hkv) * d * size + 2 * b * h * s * 4  # 8 tensors once; lse, delta
+    peak = (BF16_PEAK if dt == torch.bfloat16 else F32_PEAK)["pcie" if "PCIe" in card else "sxm"]
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bshkd": [b, s, h, hkv, d], "window": window,
+            "dtype": str(dt).replace("torch.", ""), "causal": True,
+            "plan": kernel_bwd_plan(s, s, d=d, dtype=dt), "ms": ms,
+            "device_ms": device_ms, "device_ms_source": "cuda_events", "plain_ms": plain_ms,
+            **library, "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "visible_pairs": pairs, "design_products": 7,
+            "design_ops_ms": 14 * b * h * d * pairs / peak * 1e3,
+            "tflops": flops / ms / 1e9, "max_abs_err": max_abs,
+            "forward_ms": fwd_ms, "forward_with_lse_ms": fwd_lse_ms}
+
+
+def phase_flash_bwd_timing(card: str, g) -> dict:
+    """The backward kernel at musicgen-large's training shape (4, 1024,
+    32, 64), at jamba's prefill shape (4, 1024, 32/8, 128) and at
+    gemma3-12b's two training shapes (2, 4096, 16/8, 256), causal and with
+    the local layers' window of 1024, and its causal one in f32 (the SIMT
+    route at D = 256) (:func:`flash_bwd_timing_row`), with its route and
+    plan; and the forward with and without its lse output."""
     t0 = time.perf_counter()
     flush = flush_buffer()
     b, s, h, d = TRAIN_FA_SHAPE
-    dt = torch.bfloat16
-    q, k, v, dout = (torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
-                     for _ in range(4))
-    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
-    got = flash_attention_bwd(q, k, v, out, dout, lse, causal=True)
-    want = flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=True)
-    torch.cuda.synchronize()
-    max_abs = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
-    ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse, causal=True), flush, 20)
-    device_ms = events_device_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse,
-                                                             causal=True))
-    plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=True),
-                       flush, 3)
-    fwd_ms = time_ms(lambda: flash_attention(q, k, v, causal=True), flush, 20)
-    fwd_lse_ms = time_ms(lambda: flash_attention(q, k, v, causal=True, return_lse=True),
-                         flush, 20)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    do = dout.transpose(1, 2)
-    library_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do, retain_graph=True),
-                         flush, 20)
-    pairs = s * (s + 1) // 2
-    flops = 10 * b * h * d * pairs  # S recomputed, dP, dv, dk, dq over the visible pairs
-    nbytes = 8 * b * s * h * d * q.element_size() + 2 * b * h * s * 4  # q k v out dout dq dk dv; lse, delta
-    peak = BF16_PEAK["pcie" if "PCIe" in card else "sxm"]
-    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    main = flash_bwd_timing_row((b, s, h, h, d, None), card, g, flush)
+    others = [flash_bwd_timing_row(shape, card, g, flush)
+              for shape in [(*FA_JAMBA_SHAPE, None)] + GEMMA3_BWD_SHAPES]
+    others.append(flash_bwd_timing_row(GEMMA3_BWD_SHAPES[0], card, g, flush, torch.float32))
     del flush
-    design_ops_ms = 14 * b * h * d * pairs / peak * 1e3
-    row = {"bshd": list(TRAIN_FA_SHAPE), "dtype": "bfloat16", "causal": True,
-           "plan": kernel_bwd_plan(s, s, d=d, dtype=dt), "ms": ms,
-           "device_ms": device_ms, "device_ms_source": "cuda_events", "plain_ms": plain_ms,
-           "library_ms": library_ms, "library": "SDPA backward (autograd of one call)",
-           "bound_ms": max(ops_ms, bytes_ms), "ops_ms": ops_ms, "bytes_ms": bytes_ms,
-           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-           "design_products": 7, "design_ops_ms": design_ops_ms,
-           "tflops": flops / ms / 1e9, "max_abs_err": max_abs,
-           "forward_ms": fwd_ms, "forward_with_lse_ms": fwd_lse_ms}
-    emit("timing_flash_bwd", t0, **row)
-    return row
+    emit("timing_flash_bwd", t0, **main, other_shapes=others)
+    return {**main, "other_shapes": others}
 
 
 # ---------------------------------------------------------------------------
@@ -4083,11 +4166,12 @@ def main() -> int:
     emit("device", t0, nvidia_smi=smi, name=card, torch=torch.__version__,
          cuda=torch.version.cuda, count=torch.cuda.device_count())
 
-    # the mutation checks' copies of four kernels: the RWKV-6 scan with its
+    # the mutation checks' copies of five kernels: the RWKV-6 scan with its
     # u-bonus term dropped, the Mamba scan with the decay of each staged
     # tile's first token dropped, the flash kernel with the accumulator's
     # alpha rescale dropped on each route, the matmul with the last k step
-    # of each route dropped
+    # of each route dropped, the flash backward with dS's "- delta" dropped
+    # on each route and in D = 256's dk/dv kernel
     mutants = {}
     for key, name, line, repl in (
             ("rwkv6_scan", "rwkv6_scan", MUTANT_LINE,
@@ -4105,7 +4189,9 @@ def main() -> int:
             ("flash_attention_bwd", "flash_attention_bwd", FLASH_BWD_MUTANT_LINE,
              "const float ds = pv * dp[i][j] * fac;  // mutation: - delta dropped"),
             ("flash_bwd_tc", "flash_attention_bwd", TC_FLASH_BWD_MUTANT_LINE,
-             "const float ds = s[i] * dp[i];  // mutation: - delta dropped")):
+             "const float ds = s[i] * dp[i];  // mutation: - delta dropped"),
+            ("flash_bwd_split", "flash_attention_bwd", SPLIT_FLASH_BWD_MUTANT_LINE,
+             "const float ds = pf_s[i * kWG + t] * x[i];  // mutation: - delta dropped")):
         mutants[key] = ROOT / "build" / "mutant" / f"{key}_mutant.cu"
         mutants[key].parent.mkdir(parents=True, exist_ok=True)
         src = (_build.CSRC / f"{name}.cu").read_text()
@@ -4228,12 +4314,17 @@ def main() -> int:
     # gradients, then musicgen-large trained at full width (counts set to 0
     # and read inside) and the launcher's runs (each in its own process)
     with open(out_dir / "chip_smoke_cases.jsonl", "a") as cases_f:
-        phase_flash_bwd(cases_f, mutants["flash_attention_bwd"], mutants["flash_bwd_tc"])
+        phase_flash_bwd(cases_f, mutants["flash_attention_bwd"], mutants["flash_bwd_tc"],
+                        mutants["flash_bwd_split"])
     phase_scan_grads()
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train_model(out_dir)
     by_path["train"] = train["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # gemma3-12b, head dim 256 (counts set to 0 and read inside)
+    by_path["train_gemma3"] = phase_train_model(out_dir, "gemma3-12b")["launches"]
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_launcher()
@@ -4318,9 +4409,16 @@ def main() -> int:
         "replaces_note": "_flash_bwd, the JAX model attention's hand-written backward (a jnp "
                          "custom_vjp): the JAX package has no Pallas backward kernel",
         **launches("flash_attention_bwd"),
+        # musicgen-large's training shape (D = 64) as in earlier slices;
+        # jamba's (D = 128) and gemma3-12b's two (D = 256) in "by_head_dim"
         **{k: fa_bwd[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
-                                  "bound_by", "library_ms", "library", "bshd", "dtype", "plan",
+                                  "bound_by", "library_ms", "library", "bshkd", "dtype", "plan",
                                   "design_ops_ms", "forward_ms", "forward_with_lse_ms")},
+        "by_head_dim": {f"D={r['bshkd'][4]} {r['dtype']} window={r['window']}": {
+                            k: r.get(k) for k in ("bshkd", "window", "plan", "ms", "device_ms",
+                                                  "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "max_abs_err")}
+                        for r in fa_bwd["other_shapes"]},
     }, {
         "name": "rwkv6_scan",
         "route": "cuda",

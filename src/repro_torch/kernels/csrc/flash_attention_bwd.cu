@@ -34,8 +34,9 @@
 // routes, chosen by (dtype, D) alone (looptune_flash_attention_bwd_plan,
 // kernels/flash_attention.py::bwd_launch_plan):
 //
-// "wgmma" — bf16 at D = 64 (musicgen-large), 96 (phi3-mini) and 128 (jamba
-//   and most of the zoo), the forward's tensor-core head dims but 256:
+// "wgmma" — bf16 at D = 64 (musicgen-large), 96 (phi3-mini), 128 (jamba
+//   and most of the zoo) and 256 (gemma3-12b), the forward's tensor-core
+//   head dims:
 //   * every product on wgmma.mma_async with bf16 operands and f32
 //     accumulators, in one of the two operand forms the forward's
 //     tensor-core route runs (hopper.cuh): form K, both operands K-major in
@@ -92,10 +93,24 @@
 //     700 W).  A 64-wide q tile at D = 128 holds dK and dV (64 + 64 f32) and
 //     S^T and dP^T (32 + 32) and spills.  ptxas's counts are in
 //     chip_smoke.py's build line (no instance may spill).  No TMA, warp
-//     specialisation or setmaxnreg yet.
+//     specialisation or setmaxnreg yet;
+//   * D = 256, where dK and dV of 64 keys alone are 2 x 64 x 256 f32, 256
+//     registers a thread of one warpgroup: flash_bwd_dkdv_split gives each of
+//     the two to a warpgroup of its own, on the same 64 keys, and splits the
+//     products by role, so none is computed twice: warpgroup 0 S^T = K.Q^T,
+//     P^T and dv += P^T.dout, warpgroup 1 dP^T = V.dout^T, dS^T and dk +=
+//     dS^T.Q (each 128 accumulator registers, 16 of S^T or dP^T at the q
+//     tile of 32).  P^T (1 - tanh^2) goes from warpgroup 0 to warpgroup 1
+//     through 8 KB of shared memory, thread t to thread t + 128 (the same
+//     fragment positions), between two CTA barriers; K and V (32 KB each,
+//     four 128-byte swizzle atoms a row) are staged once and Q and dout go
+//     through the same two-stage ring (64 KB): 140,800 bytes, one CTA an
+//     SM.  The dq kernel is the one above with dQ (64 x 256 f32, 128
+//     registers) in one warpgroup and a kv tile of 16, so that its ring
+//     (32 KB) leaves two CTAs an SM (99,584 bytes).
 //
 // "simt" — f32 at every D, and bf16 at D = 8, 16, 32 (the smoke configs'
-//   f32 D = 16 training among them): the first design, unchanged.  SIMT f32
+//   f32 D = 16 training among them): the first design.  SIMT f32
 //   FMAs from shared memory, 256 threads, 16 (ty) x 16 (tx), 64 x 64 tiles
 //   in both kernels: in the score products a thread owns q rows 4 ty + i and
 //   kv columns tx + 16 j (i, j < 4), reading Q (a broadcast over the
@@ -109,13 +124,16 @@
 //   at D <= 64 a thread fits 128 registers without spilling and two CTAs
 //   share an SM: 2.51 ms against 3.44 at one CTA an SM (~168 registers) at
 //   (4, 1024, 32, 64) bf16 causal, 2.16 against 2.66 in f32 (an H100 SXM at
-//   700 W).  Shared memory is 4 (4 x 64 (D + 4) + 2 x 64 x 68 + 128) bytes
-//   in dkdv (170.5 KB at D = 128).
+//   700 W).  Shared memory is 4 (4 TL (D + 4) + 2 TL (TL + 4) + 2 TL) bytes
+//   in dkdv at tile TL: 170.5 KB at D = 128 and TL = 64.  At D = 256 the
+//   64-row tiles would take 301,568 bytes, so both kernels take 32-row
+//   tiles there (TL = 32: a thread owns 2 rows of each product and of its
+//   accumulators, 139.3 KB in dkdv); the products and the masks are the
+//   same code at either tile.
 //
-// Instances: D = 8, 16, 32, 64, 96 and 128 (every smoke config's 16,
-// musicgen-large's 64, the zoo's 96 and 128).  D = 256 has none, on either
-// route: its dk and dv accumulators alone are 128 registers a thread, and
-// no path trains a D = 256 model on one card; the launch is refused.
+// Instances: D = 8, 16, 32, 64, 96, 128 and 256, the forward's head dims
+// (every smoke config's 16, musicgen-large's 64, the zoo's 96 and 128,
+// gemma3-12b's 256); any other D is refused.
 //
 // Bound on this card: max(bytes / 3.35 TB/s, FLOP / 989 TFLOP/s), the FLOP
 // 10 B H D (visible pairs) of the function's five products (S recomputed,
@@ -123,7 +141,11 @@
 // and dq, dk, dv written once.  At musicgen-large's training shape (4, 1024,
 // 32, 64) bf16, causal: 4.3e10 FLOP (43 us) against 134 MB (40 us).  Both
 // routes compute S and dP in each launch: seven products, 14 B H D (visible
-// pairs) FLOP, 61 us on the tensor cores.
+// pairs) FLOP, 61 us on the tensor cores.  At gemma3-12b's (2, 4096, 16/8,
+// 256) bf16: causal 6.87e11 FLOP (695 us) against 404 MB (121 us); its local
+// layers' window of 1024 keys sees 3.67e6 pairs a head, 3.01e11 FLOP (304
+// us).  There the dk/dv kernel computes each of its four products once (the
+// role split) and the dq kernel its three, as at the other head dims.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,10 +160,11 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kThreads = 256;  // 16 (ty) x 16 (tx)
-constexpr int kTile = 64;      // q rows and kv rows of a tile, in both kernels
 constexpr int kPad = 4;        // floats a staged row is padded by
-constexpr int kPP = kTile + kPad;
 constexpr int kSmemMax = 232448;
+// the SIMT tile, q rows and kv rows in both kernels: 64, and 32 at D = 256, where four
+// 64-row f32 tiles of 260 floats alone would take more shared memory than a CTA has
+__host__ __device__ constexpr int simt_tile(int d) { return d > 128 ? 32 : 64; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -167,12 +190,32 @@ __device__ __forceinline__ int vis_hi(const Args& a, int qi) {
 }
 
 __host__ __device__ constexpr size_t dkdv_smem_bytes(int d) {
-  return sizeof(float) * (size_t)(4 * kTile * (d + kPad) + 2 * kTile * kPP + 2 * kTile);
+  return sizeof(float) * (size_t)(4 * simt_tile(d) * (d + kPad) +
+                                  2 * simt_tile(d) * (simt_tile(d) + kPad) + 2 * simt_tile(d));
 }
 __host__ __device__ constexpr size_t dq_smem_bytes(int d) {
-  return sizeof(float) * (size_t)(4 * kTile * (d + kPad) + kTile * kPP + 2 * kTile);
+  return sizeof(float) * (size_t)(4 * simt_tile(d) * (d + kPad) +
+                                  simt_tile(d) * (simt_tile(d) + kPad) + 2 * simt_tile(d));
 }
 
+// R consecutive floats at p (16-byte aligned for R = 4, 8-byte for R = 2), and back
+template <int R>
+__device__ __forceinline__ void load_run(const float* p, float (&x)[R]) {
+  if constexpr (R == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x, x[1] = v.y;
+  }
+}
+template <int R>
+__device__ __forceinline__ void store_run(float* p, const float (&x)[R]) {
+  if constexpr (R == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+}
 __device__ __forceinline__ float lane4(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
@@ -184,27 +227,26 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
   reinterpret_cast<__nv_bfloat162*>(p)[1] = __floats2bfloat162_rn(x[2], x[3]);
 }
 
-// rows [r0, r0 + kTile) of one head into dst [kTile][D + kPad] f32, rows >=
-// r_hi zero: f32 by 16-byte cp.async (vec) or 4-byte cp.async, bf16 through
-// registers, widened
-template <typename T, int D>
+// rows [r0, r0 + TL) of one head into dst [TL][D + kPad] f32, rows >= r_hi zero: f32 by
+// 16-byte cp.async (vec) or 4-byte cp.async, bf16 through registers, widened
+template <typename T, int D, int TL>
 __device__ __forceinline__ void stage_rows(float* dst, const T* src, long long ss, int r0,
                                            int r_hi, int vec, int tid) {
   using namespace hopper;
   constexpr int DP = D + kPad;
   if constexpr (sizeof(T) == 2) {
-    for (int e = tid; e < kTile * D; e += kThreads) {
+    for (int e = tid; e < TL * D; e += kThreads) {
       const int r = e / D, d = e % D, rj = r0 + r;
       dst[r * DP + d] = rj < r_hi ? to_f(src[rj * ss + d]) : 0.f;
     }
   } else if (vec) {
-    for (int e = tid; e < kTile * (D / 4); e += kThreads) {
+    for (int e = tid; e < TL * (D / 4); e += kThreads) {
       const int r = e / (D / 4), d = 4 * (e % (D / 4)), rj = r0 + r;
       const bool in = rj < r_hi;
       cp_async16(smem_u32(dst + r * DP + d), in ? src + rj * ss + d : src, in ? 16 : 0);
     }
   } else {
-    for (int e = tid; e < kTile * D; e += kThreads) {
+    for (int e = tid; e < TL * D; e += kThreads) {
       const int r = e / D, d = e % D, rj = r0 + r;
       const bool in = rj < r_hi;
       cp_async4(smem_u32(dst + r * DP + d), in ? src + rj * ss + d : src, in ? 4 : 0);
@@ -212,38 +254,39 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, long long s
   }
 }
 
-// lse and delta of q rows [q0, q0 + kTile) into shared memory (0 past S)
+// lse and delta of q rows [q0, q0 + TL) into shared memory (0 past S)
+template <int TL>
 __device__ __forceinline__ void stage_stats(float* lse_s, float* dl_s, const float* lse,
                                             const float* delta, int q0, int S, int tid) {
-  if (tid < kTile) {
+  if (tid < TL) {
     const int qi = q0 + tid;
     lse_s[tid] = qi < S ? lse[qi] : 0.f;
     dl_s[tid] = qi < S ? delta[qi] : 0.f;
   }
 }
 
-// s = Q K^T and dp = dO V^T at the thread's q rows 4 ty + i and kv columns
-// tx + 16 j, the head dim in order
-template <int D>
+// s = Q K^T and dp = dO V^T at the thread's q rows R ty + i and kv columns tx + 16 j
+// (R = TL / 16 of each), the head dim in order
+template <int D, int R>
 __device__ __forceinline__ void score_products(const float* Qs, const float* Ks,
                                                const float* dOs, const float* Vs, int tx,
-                                               int ty, float (&s)[4][4], float (&dp)[4][4]) {
+                                               int ty, float (&s)[R][R], float (&dp)[R][R]) {
   constexpr int DP = D + kPad;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 1
   for (int d = 0; d < D; d += 4) {
-    float4 qa[4], kk[4];
+    float4 qa[R], kk[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(Qs + (4 * ty + i) * DP + d);
+    for (int i = 0; i < R; ++i) qa[i] = *reinterpret_cast<const float4*>(Qs + (R * ty + i) * DP + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) kk[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * DP + d);
+    for (int j = 0; j < R; ++j) kk[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * DP + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         s[i][j] = fmaf(qa[i].x, kk[j].x, s[i][j]);
         s[i][j] = fmaf(qa[i].y, kk[j].y, s[i][j]);
         s[i][j] = fmaf(qa[i].z, kk[j].z, s[i][j]);
@@ -252,15 +295,15 @@ __device__ __forceinline__ void score_products(const float* Qs, const float* Ks,
   }
 #pragma unroll 1
   for (int d = 0; d < D; d += 4) {
-    float4 oa[4], vv[4];
+    float4 oa[R], vv[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) oa[i] = *reinterpret_cast<const float4*>(dOs + (4 * ty + i) * DP + d);
+    for (int i = 0; i < R; ++i) oa[i] = *reinterpret_cast<const float4*>(dOs + (R * ty + i) * DP + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) vv[j] = *reinterpret_cast<const float4*>(Vs + (tx + 16 * j) * DP + d);
+    for (int j = 0; j < R; ++j) vv[j] = *reinterpret_cast<const float4*>(Vs + (tx + 16 * j) * DP + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         dp[i][j] = fmaf(oa[i].x, vv[j].x, dp[i][j]);
         dp[i][j] = fmaf(oa[i].y, vv[j].y, dp[i][j]);
         dp[i][j] = fmaf(oa[i].z, vv[j].z, dp[i][j]);
@@ -269,16 +312,17 @@ __device__ __forceinline__ void score_products(const float* Qs, const float* Ks,
   }
 }
 
-// from the products s and dp at q rows q0 + 4 ty + i and keys k0 + tx + 16 j:
+// from the products s and dp at q rows q0 + R ty + i and keys k0 + tx + 16 j:
 // p (into p) and ds (into s)
+template <int R>
 __device__ __forceinline__ void score_grads(const Args& a, int q0, int k0, const float* lse_s,
-                                            const float* dl_s, int tx, int ty, float (&s)[4][4],
-                                            const float (&dp)[4][4], float (&p)[4][4]) {
+                                            const float* dl_s, int tx, int ty, float (&s)[R][R],
+                                            const float (&dp)[R][R], float (&p)[R][R]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i, qi = q0 + r;
+  for (int i = 0; i < R; ++i) {
+    const int r = R * ty + i, qi = q0 + r;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < R; ++j) {
       const int kj = k0 + tx + 16 * j;
       float x = s[i][j] * a.scale, fac = 1.f;
       if (a.softcap > 0.f) {
@@ -303,36 +347,37 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
                const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                const Args a) {
   using namespace hopper;
-  constexpr int DP = D + kPad;
+  constexpr int TL = simt_tile(D), R = TL / 16;  // rows of a tile, rows of a thread
+  constexpr int DP = D + kPad, PP = TL + kPad;
   constexpr int QD = (D + 63) / 64;  // runs of 4 head-dim columns a thread
   extern __shared__ float4 smem4[];
-  float* const Ks = reinterpret_cast<float*>(smem4);  // [kTile][DP]
-  float* const Vs = Ks + kTile * DP;
-  float* const Qs = Vs + kTile * DP;
-  float* const dOs = Qs + kTile * DP;
-  float* const Ps = dOs + kTile * DP;  // [q][key]
-  float* const dSs = Ps + kTile * kPP;  // [q][key]
-  float* const lse_s = dSs + kTile * kPP;
-  float* const dl_s = lse_s + kTile;
+  float* const Ks = reinterpret_cast<float*>(smem4);  // [TL][DP]
+  float* const Vs = Ks + TL * DP;
+  float* const Qs = Vs + TL * DP;
+  float* const dOs = Qs + TL * DP;
+  float* const Ps = dOs + TL * DP;  // [q][key]
+  float* const dSs = Ps + TL * PP;  // [q][key]
+  float* const lse_s = dSs + TL * PP;
+  float* const dl_s = lse_s + TL;
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int hkv = a.H / a.G;
   const int b = blockIdx.x / hkv, hk = blockIdx.x % hkv;
-  const int k0 = blockIdx.y * kTile, k_end = min(k0 + kTile, a.T);
+  const int k0 = blockIdx.y * TL, k_end = min(k0 + TL, a.T);
   auto cols_ok = [&](int c) { return D % 64 == 0 || 64 * c + 4 * tx < D; };
   const bool has_cols = cols_ok(0);
 
-  stage_rows<T, D>(Ks, k + b * a.ksb + hk * a.ksh, a.kss, k0, a.T, a.vec_kv, tid);
-  stage_rows<T, D>(Vs, v + b * a.vsb + hk * a.vsh, a.vss, k0, a.T, a.vec_kv, tid);
+  stage_rows<T, D, TL>(Ks, k + b * a.ksb + hk * a.ksh, a.kss, k0, a.T, a.vec_kv, tid);
+  stage_rows<T, D, TL>(Vs, v + b * a.vsb + hk * a.vsh, a.vss, k0, a.T, a.vec_kv, tid);
   cp_async_commit();
 
-  float dka[4][4 * QD], dva[4][4 * QD];
+  float dka[R][4 * QD], dva[R][4 * QD];
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
+  for (int e = 0; e < R; ++e)
 #pragma unroll
     for (int c = 0; c < 4 * QD; ++c) dka[e][c] = dva[e][c] = 0.f;
 
-  const int n_qt = cdiv(a.S, kTile);
+  const int n_qt = cdiv(a.S, TL);
   for (int hh = 0; hh < a.G; ++hh) {
     const int h = hk * a.G + hh;
     const T* const qb = q + b * a.qsb + h * a.qsh;
@@ -340,36 +385,37 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const float* const lb = lse + ((long long)b * a.H + h) * a.S;
     const float* const db = delta + ((long long)b * a.H + h) * a.S;
     for (int qt = 0; qt < n_qt; ++qt) {
-      const int q0 = qt * kTile, last = min(q0 + kTile, a.S) - 1;
+      const int q0 = qt * TL, last = min(q0 + TL, a.S) - 1;
       // the tile's rows see keys in [lo(q0), hi(last)), unless its last row
       // sees none: then every key gets that row's p = 1 (uniform over the CTA)
       const bool blind = vis_lo(a, last) >= vis_hi(a, last);
       if (!blind && (k0 >= vis_hi(a, last) || k_end <= vis_lo(a, q0))) continue;
       __syncthreads();  // every thread is done with the previous tile's Q, dO, P, dS
-      stage_rows<T, D>(Qs, qb, a.qss, q0, a.S, a.vec_q, tid);
-      stage_rows<T, D>(dOs, ob, a.oss, q0, a.S, a.vec_do, tid);
-      stage_stats(lse_s, dl_s, lb, db, q0, a.S, tid);
+      stage_rows<T, D, TL>(Qs, qb, a.qss, q0, a.S, a.vec_q, tid);
+      stage_rows<T, D, TL>(dOs, ob, a.oss, q0, a.S, a.vec_do, tid);
+      stage_stats<TL>(lse_s, dl_s, lb, db, q0, a.S, tid);
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
 
-      float s[4][4], dp[4][4], p[4][4];
-      score_products<D>(Qs, Ks, dOs, Vs, tx, ty, s, dp);
-      score_grads(a, q0, k0, lse_s, dl_s, tx, ty, s, dp, p);
+      float s[R][R], dp[R][R], p[R][R];
+      score_products<D, R>(Qs, Ks, dOs, Vs, tx, ty, s, dp);
+      score_grads<R>(a, q0, k0, lse_s, dl_s, tx, ty, s, dp, p);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          Ps[(4 * ty + i) * kPP + tx + 16 * j] = p[i][j];
-          dSs[(4 * ty + i) * kPP + tx + 16 * j] = s[i][j];
+        for (int j = 0; j < R; ++j) {
+          Ps[(R * ty + i) * PP + tx + 16 * j] = p[i][j];
+          dSs[(R * ty + i) * PP + tx + 16 * j] = s[i][j];
         }
       __syncthreads();  // P and dS are whole
 
       if (has_cols) {  // dv += P^T dO, dk += dS^T Q, the q rows in order
 #pragma unroll 4
-        for (int qq = 0; qq < kTile; ++qq) {
-          const float4 pa = *reinterpret_cast<const float4*>(Ps + qq * kPP + 4 * ty);
-          const float4 da = *reinterpret_cast<const float4*>(dSs + qq * kPP + 4 * ty);
+        for (int qq = 0; qq < TL; ++qq) {
+          float pa[R], da[R];
+          load_run<R>(Ps + qq * PP + R * ty, pa);
+          load_run<R>(dSs + qq * PP + R * ty, da);
           float4 oo[QD], qv[QD];
 #pragma unroll
           for (int c = 0; c < QD; ++c) {
@@ -380,11 +426,11 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
                        : make_float4(0.f, 0.f, 0.f, 0.f);
           }
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
+          for (int e = 0; e < R; ++e)
 #pragma unroll
             for (int c = 0; c < 4 * QD; ++c) {
-              dva[e][c] = fmaf(lane4(pa, e), lane4(oo[c / 4], c % 4), dva[e][c]);
-              dka[e][c] = fmaf(lane4(da, e), lane4(qv[c / 4], c % 4), dka[e][c]);
+              dva[e][c] = fmaf(pa[e], lane4(oo[c / 4], c % 4), dva[e][c]);
+              dka[e][c] = fmaf(da[e], lane4(qv[c / 4], c % 4), dka[e][c]);
             }
         }
       }
@@ -394,8 +440,8 @@ flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
   if (!has_cols) return;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int kj = k0 + 4 * ty + e;
+  for (int e = 0; e < R; ++e) {
+    const int kj = k0 + R * ty + e;
     if (kj >= a.T) continue;
     const long long at = (((long long)b * a.T + kj) * hkv + hk) * D;
 #pragma unroll
@@ -417,21 +463,22 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
              const T* __restrict__ dout, const float* __restrict__ lse,
              const float* __restrict__ delta, T* __restrict__ dq, const Args a) {
   using namespace hopper;
-  constexpr int DP = D + kPad;
+  constexpr int TL = simt_tile(D), R = TL / 16;
+  constexpr int DP = D + kPad, PP = TL + kPad;
   constexpr int QD = (D + 63) / 64;
   extern __shared__ float4 smem4[];
-  float* const Qs = reinterpret_cast<float*>(smem4);  // [kTile][DP]
-  float* const dOs = Qs + kTile * DP;
-  float* const Ks = dOs + kTile * DP;
-  float* const Vs = Ks + kTile * DP;
-  float* const dSt = Vs + kTile * DP;  // [key][q]: dS transposed
-  float* const lse_s = dSt + kTile * kPP;
-  float* const dl_s = lse_s + kTile;
+  float* const Qs = reinterpret_cast<float*>(smem4);  // [TL][DP]
+  float* const dOs = Qs + TL * DP;
+  float* const Ks = dOs + TL * DP;
+  float* const Vs = Ks + TL * DP;
+  float* const dSt = Vs + TL * DP;  // [key][q]: dS transposed
+  float* const lse_s = dSt + TL * PP;
+  float* const dl_s = lse_s + TL;
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * kTile;  // longest causal tiles first
-  const int last = min(q0 + kTile, a.S) - 1;
+  const int q0 = (int)(gridDim.y - 1 - blockIdx.y) * TL;  // longest causal tiles first
+  const int last = min(q0 + TL, a.S) - 1;
   auto cols_ok = [&](int c) { return D % 64 == 0 || 64 * c + 4 * tx < D; };
   const bool has_cols = cols_ok(0);
   const T* const kb = k + b * a.ksb + (h / a.G) * a.ksh;
@@ -445,50 +492,54 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     kv_lo = vis_lo(a, q0);
     kv_hi = vis_hi(a, last);
   }
-  stage_rows<T, D>(Qs, q + b * a.qsb + h * a.qsh, a.qss, q0, a.S, a.vec_q, tid);
-  stage_rows<T, D>(dOs, dout + b * a.osb + h * a.osh, a.oss, q0, a.S, a.vec_do, tid);
-  stage_stats(lse_s, dl_s, lse + ((long long)b * a.H + h) * a.S,
-              delta + ((long long)b * a.H + h) * a.S, q0, a.S, tid);
+  stage_rows<T, D, TL>(Qs, q + b * a.qsb + h * a.qsh, a.qss, q0, a.S, a.vec_q, tid);
+  stage_rows<T, D, TL>(dOs, dout + b * a.osb + h * a.osh, a.oss, q0, a.S, a.vec_do, tid);
+  stage_stats<TL>(lse_s, dl_s, lse + ((long long)b * a.H + h) * a.S,
+                  delta + ((long long)b * a.H + h) * a.S, q0, a.S, tid);
 
-  float dqa[4][4 * QD];
+  float dqa[R][4 * QD];
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
+  for (int e = 0; e < R; ++e)
 #pragma unroll
     for (int c = 0; c < 4 * QD; ++c) dqa[e][c] = 0.f;
 
-  const int n_tiles = cdiv(kv_hi - kv_lo, kTile);
+  const int n_tiles = cdiv(kv_hi - kv_lo, TL);
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = kv_lo + j * kTile;
+    const int k0 = kv_lo + j * TL;
     __syncthreads();  // every thread is done with the previous tile's K and dS
-    stage_rows<T, D>(Ks, kb, a.kss, k0, kv_hi, a.vec_kv, tid);
-    stage_rows<T, D>(Vs, vb, a.vss, k0, kv_hi, a.vec_kv, tid);
+    stage_rows<T, D, TL>(Ks, kb, a.kss, k0, kv_hi, a.vec_kv, tid);
+    stage_rows<T, D, TL>(Vs, vb, a.vss, k0, kv_hi, a.vec_kv, tid);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
 
-    float s[4][4], dp[4][4], p[4][4];
-    score_products<D>(Qs, Ks, dOs, Vs, tx, ty, s, dp);
-    score_grads(a, q0, k0, lse_s, dl_s, tx, ty, s, dp, p);
+    float s[R][R], dp[R][R], p[R][R];
+    score_products<D, R>(Qs, Ks, dOs, Vs, tx, ty, s, dp);
+    score_grads<R>(a, q0, k0, lse_s, dl_s, tx, ty, s, dp, p);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj)  // dS transposed: a float4 of 4 q rows a key
-      *reinterpret_cast<float4*>(dSt + (tx + 16 * jj) * kPP + 4 * ty) =
-          make_float4(s[0][jj], s[1][jj], s[2][jj], s[3][jj]);
+    for (int jj = 0; jj < R; ++jj) {  // dS transposed: a run of R q rows a key
+      float col[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) col[i] = s[i][jj];
+      store_run<R>(dSt + (tx + 16 * jj) * PP + R * ty, col);
+    }
     __syncthreads();  // dS is whole
 
     if (has_cols) {  // dq += dS K, the keys in order
 #pragma unroll 4
-      for (int kk = 0; kk < kTile; ++kk) {
-        const float4 da = *reinterpret_cast<const float4*>(dSt + kk * kPP + 4 * ty);
+      for (int kk = 0; kk < TL; ++kk) {
+        float da[R];
+        load_run<R>(dSt + kk * PP + R * ty, da);
         float4 kv[QD];
 #pragma unroll
         for (int c = 0; c < QD; ++c)
           kv[c] = cols_ok(c) ? *reinterpret_cast<const float4*>(Ks + kk * DP + 64 * c + 4 * tx)
                              : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
+        for (int e = 0; e < R; ++e)
 #pragma unroll
           for (int c = 0; c < 4 * QD; ++c)
-            dqa[e][c] = fmaf(lane4(da, e), lane4(kv[c / 4], c % 4), dqa[e][c]);
+            dqa[e][c] = fmaf(da[e], lane4(kv[c / 4], c % 4), dqa[e][c]);
       }
     }
   }
@@ -496,8 +547,8 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
   if (!has_cols) return;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int qi = q0 + 4 * ty + e;
+  for (int e = 0; e < R; ++e) {
+    const int qi = q0 + R * ty + e;
     if (qi >= a.S) continue;
     const long long at = (((long long)b * a.S + qi) * a.H + h) * D;
 #pragma unroll
@@ -514,8 +565,10 @@ template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* delta, void* dq, void* dk, void* dv, int B, const Args& a,
            cudaStream_t s) {
+  constexpr int TL = simt_tile(D);
   constexpr size_t sm1 = dkdv_smem_bytes(D), sm2 = dq_smem_bytes(D);
   static_assert(sm1 <= (size_t)kSmemMax && sm2 <= (size_t)kSmemMax, "shared memory");
+  if (cdiv(a.S, TL) > 65535 || cdiv(a.T, TL) > 65535) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm1);
   if (err != cudaSuccess) return (int)err;
@@ -526,11 +579,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* ot = static_cast<const T*>(dout);
-  flash_bwd_dkdv<T, D><<<dim3(B * (a.H / a.G), cdiv(a.T, kTile)), kThreads, sm1, s>>>(
+  flash_bwd_dkdv<T, D><<<dim3(B * (a.H / a.G), cdiv(a.T, TL)), kThreads, sm1, s>>>(
       qt, kt, vt, ot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq<T, D><<<dim3(B * a.H, cdiv(a.S, kTile)), kThreads, sm2, s>>>(
+  flash_bwd_dq<T, D><<<dim3(B * a.H, cdiv(a.S, TL)), kThreads, sm2, s>>>(
       qt, kt, vt, ot, lse, delta, static_cast<T*>(dq), a);
   return (int)cudaGetLastError();
 }
@@ -550,6 +603,7 @@ int launch_d(int D, const void* q, const void* k, const void* v, const void* dou
       case 64: return launch<T, 64>(q, k, v, dout, lse, delta, dq, dk, dv, B, a, s);
       case 96: return launch<T, 96>(q, k, v, dout, lse, delta, dq, dk, dv, B, a, s);
       case 128: return launch<T, 128>(q, k, v, dout, lse, delta, dq, dk, dv, B, a, s);
+      case 256: return launch<T, 256>(q, k, v, dout, lse, delta, dq, dk, dv, B, a, s);
       default: break;
     }
   }
@@ -557,7 +611,7 @@ int launch_d(int D, const void* q, const void* k, const void* v, const void* dou
 }
 
 // ---------------------------------------------------------------------------
-// "wgmma" route: bf16 at D = 64, 96 and 128 on the tensor cores
+// "wgmma" route: bf16 at D = 64, 96, 128 and 256 on the tensor cores
 // ---------------------------------------------------------------------------
 
 using bf16_t = __nv_bfloat16;
@@ -565,12 +619,15 @@ constexpr int kWG = 128;     // threads of a warpgroup
 constexpr int kWgRows = 64;  // rows a warpgroup owns: wgmma's M (keys in dk/dv, q rows in dq)
 // the head dim as staged: whole 64-column swizzle chunks (D = 96 -> 128)
 __host__ __device__ constexpr int tc_width(int d) { return (d + 63) / 64 * 64; }
-// the route's tiles at D = 64, 96, 128: {warpgroups of a dk/dv CTA, its q tile (wgmma's N
-// of S^T and dP^T), warpgroups of a dq CTA, its kv tile (N of S and dP)}
-constexpr int kTcTiles[3][4] = {{1, 32, 1, 32}, {1, 32, 1, 32}, {1, 32, 1, 32}};
+// the route's tiles at D = 64, 96, 128, 256: {64-key groups of a dk/dv CTA (its warpgroups,
+// but at D = 256, where two warpgroups split one group's work by role), its q tile (wgmma's
+// N of S^T and dP^T), warpgroups of a dq CTA, its kv tile (N of S and dP)}
+constexpr int kTcTiles[4][4] = {{1, 32, 1, 32}, {1, 32, 1, 32}, {1, 32, 1, 32}, {1, 32, 1, 16}};
 // CTAs of two warpgroups an SM that ptxas budgets a thread's registers for
 constexpr int kTcMinBlocks = 1;
-constexpr int tc_tile(int d, int i) { return kTcTiles[d == 64 ? 0 : (d == 96 ? 1 : 2)][i]; }
+constexpr int tc_tile(int d, int i) {
+  return kTcTiles[d == 64 ? 0 : (d == 96 ? 1 : (d == 128 ? 2 : 3))][i];
+}
 // alignment slack, K and V [NC][kr rows], two ring stages of Q and dout [NC][NQ rows],
 // and of lse and delta [NQ] f32
 constexpr size_t tc_dkdv_smem(int d, int kr, int nq) {
@@ -580,6 +637,11 @@ constexpr size_t tc_dkdv_smem(int d, int kr, int nq) {
 // delta [qr] f32
 constexpr size_t tc_dq_smem(int d, int qr, int tk) {
   return 1024 + (size_t)tc_width(d) * 2 * (2 * qr + 4 * tk) + 4 * (size_t)qr;
+}
+// D = 256's dk/dv CTA: alignment slack, K and V [4][64 rows], two ring stages of Q and
+// dout [4][NQ rows] and of lse and delta [NQ] f32, and P^T (1 - tanh^2) [NQ / 2][128] f32
+constexpr size_t tc_split_smem(int nq) {
+  return 1024 + 512 * (size_t)(2 * 64 + 4 * nq) + 16 * (size_t)nq + 4 * (size_t)(nq / 2) * 128;
 }
 
 // rows [r0, r0 + rows) of one head, row stride ss, into a 128-byte-swizzled tile whose
@@ -617,6 +679,33 @@ __device__ __forceinline__ void store_pair(bf16_t* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
+// whether a dk/dv CTA over keys [k0, k_end) visits q tile qt of nq rows, the same for
+// every head of the group: the tile's rows see a key of the CTA, or it holds a row that
+// sees no key at all
+__device__ __forceinline__ bool visits_qtile(const Args& a, int qt, int nq, int k0, int k_end) {
+  const int q0 = qt * nq, last = min(q0 + nq, a.S) - 1;
+  return vis_lo(a, last) >= vis_hi(a, last) || (k0 < vis_hi(a, last) && k_end > vis_lo(a, q0));
+}
+
+// a dk/dv ring item, (head h, q tile from q0): Q and dout of NQ rows into the stage at st
+// (Q's chunks, then dout's), their lse and delta into stats[0, 2 NQ)
+template <int D, int NQ>
+__device__ __forceinline__ void tc_load_qitem(uint32_t st, float* stats, const bf16_t* q,
+                                              const bf16_t* dout, const float* lse,
+                                              const float* delta, const Args& a, int b, int h,
+                                              int q0, int tid, int nthr) {
+  using namespace hopper;
+  constexpr uint32_t QCHUNK = NQ * 128, QTILE = tc_width(D) / 64 * QCHUNK;
+  tc_stage<D>(st, QCHUNK, q + b * a.qsb + h * a.qsh, a.qss, q0, NQ, a.S, tid, nthr);
+  tc_stage<D>(st + QTILE, QCHUNK, dout + b * a.osb + h * a.osh, a.oss, q0, NQ, a.S, tid, nthr);
+  const long long row = ((long long)b * a.H + h) * a.S;
+  for (int e = tid; e < 2 * NQ; e += nthr) {
+    const int qi = q0 + e % NQ;
+    const bool in = qi < a.S;
+    cp_async4(smem_u32(stats + e), (e < NQ ? lse : delta) + row + (in ? qi : 0), in ? 4 : 0);
+  }
+}
+
 // dk and dv: one CTA per (b, kv head, kr = 64 x warpgroups keys).  Warpgroup wg owns keys
 // k0 + 64 wg .. + 63; a thread's two key rows are kA and kA + 8, its accumulator columns
 // 8 j + cq + {0, 1} (the wgmma register layout, hopper.cuh).
@@ -650,34 +739,18 @@ flash_bwd_dkdv_tc(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
   const int cq = 2 * (lane % 4);
   const uint32_t sKw = sK + (uint32_t)(wg * kWgRows * 128), sVw = sV + (uint32_t)(wg * kWgRows * 128);
 
-  // the q tiles the CTA visits, the same for every head of the group: those whose rows
-  // see a key of the CTA, and those holding a row that sees no key at all
+  // the q tiles the CTA visits (visits_qtile) and the ring's items, (head, q tile)
   const int n_qt = cdiv(a.S, NQ);
-  auto visits = [&](int qt) {
-    const int q0 = qt * NQ, last = min(q0 + NQ, a.S) - 1;
-    return vis_lo(a, last) >= vis_hi(a, last) ||
-           (k0 < vis_hi(a, last) && k_end > vis_lo(a, q0));
-  };
   auto next_qt = [&](int qt) {
-    while (qt < n_qt && !visits(qt)) ++qt;
+    while (qt < n_qt && !visits_qtile(a, qt, NQ, k0, k_end)) ++qt;
     return qt;
   };
   int n_vis = 0;
-  for (int qt = 0; qt < n_qt; ++qt) n_vis += visits(qt);
+  for (int qt = 0; qt < n_qt; ++qt) n_vis += visits_qtile(a, qt, NQ, k0, k_end);
   const int n_items = a.G * n_vis;
-
   auto load_item = [&](int stage, int hh, int qt) {  // Q, dout, lse, delta of (head, q tile)
-    const int h = hk * a.G + hh, q0 = qt * NQ;
-    const uint32_t st = sQ + (uint32_t)stage * 2 * QTILE;
-    tc_stage<D>(st, QCHUNK, q + b * a.qsb + h * a.qsh, a.qss, q0, NQ, a.S, tid, nthr);
-    tc_stage<D>(st + QTILE, QCHUNK, dout + b * a.osb + h * a.osh, a.oss, q0, NQ, a.S, tid, nthr);
-    const long long row = ((long long)b * a.H + h) * a.S;
-    for (int e = tid; e < 2 * NQ; e += nthr) {
-      const int qi = q0 + e % NQ;
-      const bool in = qi < a.S;
-      cp_async4(smem_u32(stats + stage * 2 * NQ + e), (e < NQ ? lse : delta) + row + (in ? qi : 0),
-                in ? 4 : 0);
-    }
+    tc_load_qitem<D, NQ>(sQ + (uint32_t)stage * 2 * QTILE, stats + stage * 2 * NQ, q, dout, lse,
+                         delta, a, b, hk * a.G + hh, qt * NQ, tid, nthr);
   };
 
   float dka[NC][32], dva[NC][32];
@@ -839,6 +912,191 @@ flash_bwd_dkdv_tc(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
         const int i = 4 * jb + 2 * half, col = c * 64 + 8 * jb + cq;
         store_pair(dk + at + col, dka[c][i] * a.scale, dka[c][i + 1] * a.scale);
         store_pair(dv + at + col, dva[c][i], dva[c][i + 1]);
+      }
+  }
+}
+
+// dk and dv at D = 256: one CTA of two warpgroups per (b, kv head, 64 keys), which split
+// the work by role over the same keys (each one's accumulator, 64 x 256 f32, is 128
+// registers a thread; both in one warpgroup would be 256).  Warpgroup 0 computes S^T =
+// K Q^T, P^T and dv += P^T dout; warpgroup 1 dP^T = V dout^T, dS^T and dk += dS^T Q.
+// P^T (1 - tanh^2) passes from the one to the other through shared memory, thread t to
+// thread t + 128, which holds the same fragment positions.  K and V are staged once; Q,
+// dout, lse and delta go through the two-stage ring over (q head, q tile) of the dk/dv
+// kernel above, and every q tile the CTA visits is visible to its keys or blind.
+template <int NQ>
+__global__ void __launch_bounds__(2 * kWG, 1)
+flash_bwd_dkdv_split(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
+                     const bf16_t* __restrict__ v, const bf16_t* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16_t* __restrict__ dk, bf16_t* __restrict__ dv, const Args a) {
+  using namespace hopper;
+  constexpr int D = 256, NC = D / 64;
+  constexpr int NS = NQ / 2;                  // S^T or dP^T registers a thread
+  constexpr uint32_t KCHUNK = kWgRows * 128;  // bytes of one chunk of K or V
+  constexpr uint32_t QCHUNK = NQ * 128;       // of one chunk of a Q or dout tile
+  constexpr uint32_t QTILE = NC * QCHUNK;
+  extern __shared__ uint8_t smem_raw[];
+
+  const uint32_t sK = (smem_u32(smem_raw) + 1023u) & ~1023u;  // [NC][64 rows]
+  const uint32_t sV = sK + NC * KCHUNK;
+  const uint32_t sQ = sV + NC * KCHUNK;  // [2 stages][Q, dout][NC][NQ rows]
+  float* const stats = reinterpret_cast<float*>(smem_raw + (sQ + 4 * QTILE - smem_u32(smem_raw)));
+  float* const pf_s = stats + 4 * NQ;  // [NS][kWG]: P^T (1 - tanh^2) by fragment
+
+  const int tid = threadIdx.x, nthr = 2 * kWG;
+  const int wg = tid / kWG, t = tid % kWG, warp = t / 32, lane = t % 32;
+  const int hkv = a.H / a.G;
+  const int b = blockIdx.x / hkv, hk = blockIdx.x % hkv;
+  const int k0 = blockIdx.y * kWgRows, k_end = min(k0 + kWgRows, a.T);
+  const int kA = k0 + warp * 16 + lane / 4, kB = kA + 8;
+  const int cq = 2 * (lane % 4);
+
+  const int n_qt = cdiv(a.S, NQ);
+  auto next_qt = [&](int qt) {
+    while (qt < n_qt && !visits_qtile(a, qt, NQ, k0, k_end)) ++qt;
+    return qt;
+  };
+  int n_vis = 0;
+  for (int qt = 0; qt < n_qt; ++qt) n_vis += visits_qtile(a, qt, NQ, k0, k_end);
+  const int n_items = a.G * n_vis;
+  auto load_item = [&](int stage, int hh, int qt) {  // Q, dout, lse, delta of (head, q tile)
+    tc_load_qitem<D, NQ>(sQ + (uint32_t)stage * 2 * QTILE, stats + stage * 2 * NQ, q, dout, lse,
+                         delta, a, b, hk * a.G + hh, qt * NQ, tid, nthr);
+  };
+
+  float acc[NC][32];  // warpgroup 0: dv; warpgroup 1: dk / scale
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  // the first product's A (K or V) and the stage's offsets of its B (Q or dout) and of the
+  // second product's B (dout or Q)
+  const uint32_t sA = wg ? sV : sK, b1 = wg ? QTILE : 0u, b2 = wg ? 0u : QTILE;
+
+  if (n_items > 0) {
+    tc_stage<D>(sK, KCHUNK, k + b * a.ksb + hk * a.ksh, a.kss, k0, kWgRows, a.T, tid, nthr);
+    tc_stage<D>(sV, KCHUNK, v + b * a.vsb + hk * a.vsh, a.vss, k0, kWgRows, a.T, tid, nthr);
+    int hh = 0, qt = next_qt(0);
+    load_item(0, hh, qt);
+    cp_async_commit();  // group 0: K, V and the first item
+    for (int it = 0; it < n_items; ++it) {
+      int nh = hh, nq = next_qt(qt + 1);
+      if (nq == n_qt) {
+        ++nh;
+        nq = next_qt(0);
+      }
+      if (it + 1 < n_items) load_item((it + 1) & 1, nh, nq);
+      cp_async_commit();   // (empty on the last item: the count below stays right)
+      cp_async_wait<1>();  // item it landed, item it + 1 may still be in flight
+      fence_proxy_async_shared();
+      __syncthreads();
+
+      const int q0 = qt * NQ;
+      const uint32_t st = sQ + (uint32_t)(it & 1) * 2 * QTILE;
+      const float* const ls = stats + (it & 1) * 2 * NQ;
+      float x[NS];  // S^T (warpgroup 0) or dP^T (warpgroup 1)
+#pragma unroll
+      for (int i = 0; i < NS; ++i) x[i] = 0.f;
+      fence_regs(x);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss(x, desc_kmajor(sA + (uint32_t)(ks >> 2) * KCHUNK + (uint32_t)(ks & 3) * 32),
+                 desc_kmajor(st + b1 + (uint32_t)(ks >> 2) * QCHUNK + (uint32_t)(ks & 3) * 32), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+
+      uint32_t fa[NQ / 16][4] = {};  // the second product's A: P^T (warpgroup 0) or dS^T, bf16
+      if (wg == 0) {
+        // P^T on the fragments, packed pair by pair; P^T (1 - tanh^2), 0 where masked, to
+        // warpgroup 1.  Every (key, q) pair of the tile visible: no mask
+        const bool full = q0 + NQ <= a.S && k0 + kWgRows <= a.T &&
+                          (!a.causal || k0 + kWgRows - 1 <= q0) &&
+                          (!a.has_window || k0 > q0 + NQ - 1 - a.window);
+#pragma unroll
+        for (int j = 0; j < NQ / 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * j + cq);
+          float pv[2];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            float sc = x[i] * a.scale, fac = 1.f;
+            if (a.softcap > 0.f) {
+              const float th = tanhf(sc / a.softcap);
+              sc = a.softcap * th;
+              fac = 1.f - th * th;
+            }
+            bool in = true, vis = true;
+            if (!full) {
+              const int kj = (e & 2) ? kB : kA, qi = q0 + 8 * j + cq + (e & 1);
+              in = qi < a.S && kj < a.T;
+              vis = in && (!a.causal || kj <= qi) && (!a.has_window || kj > qi - a.window);
+            }
+            const float p = in ? ex2_approx(((vis ? sc : kNegInf) - ((e & 1) ? l2.y : l2.x)) *
+                                            kLog2e)
+                               : 0.f;
+            pv[e & 1] = p;
+            if (e & 1) fa[i / 8][(i / 2) % 4] = pack_bf16(pv[0], pv[1]);
+            pf_s[i * kWG + t] = vis ? p * fac : 0.f;
+          }
+        }
+      }
+      __syncthreads();  // P^T (1 - tanh^2) is whole (uniform: both warpgroups visit the item)
+      if (wg == 1) {
+#pragma unroll
+        for (int j = 0; j < NQ / 8; ++j) {
+          const float2 d2 = *reinterpret_cast<const float2*>(ls + NQ + 8 * j + cq);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const float dl = (e & 1) ? d2.y : d2.x;
+            const float ds = pf_s[i * kWG + t] * (x[i] - dl);  // dS^T = P^T (dP^T - delta), the dK warpgroup's
+            x[i] = ds;
+          }
+        }
+#pragma unroll
+        for (int ks = 0; ks < NQ / 16; ++ks)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            fa[ks][r] = pack_bf16(x[8 * ks + 2 * r], x[8 * ks + 2 * r + 1]);
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < NQ / 16; ++ks)  // dv += P^T dout, or dk += dS^T Q
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          wgmma_rs_n64_mn(acc[c], fa[ks],
+                          desc_mnmajor(st + b2 + (uint32_t)c * QCHUNK + (uint32_t)ks * 2048), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NC; ++c) fence_regs(acc[c]);
+#pragma unroll
+      for (int ks = 0; ks < NQ / 16; ++ks) fence_regs(fa[ks]);
+      __syncthreads();  // both warpgroups are done with this stage and with pf_s
+      hh = nh;
+      qt = nq;
+    }
+    cp_async_wait<0>();
+  }
+
+  bf16_t* const dst = wg ? dk : dv;
+  const float sc = wg ? a.scale : 1.f;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kj = half ? kB : kA;
+    if (kj >= a.T) continue;
+    const long long at = (((long long)b * a.T + kj) * hkv + hk) * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+        const int i = 4 * jb + 2 * half;
+        store_pair(dst + at + c * 64 + 8 * jb + cq, acc[c][i] * sc, acc[c][i + 1] * sc);
       }
   }
 }
@@ -1061,15 +1319,21 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout, con
               const float* lse, float* delta, void* dq, void* dk, void* dv, int B, const Args& a,
               cudaStream_t s) {
   constexpr int NQ = tc_tile(D, 1), TK = tc_tile(D, 3);
+  static_assert(D != 256 || tc_split_smem(NQ) <= (size_t)kSmemMax, "shared memory");
   // the attributes are set once a device, at the largest size (two warpgroups)
   static bool attr_set[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 64 || !attr_set[dev]) {
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<D, NQ>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)tc_dkdv_smem(D, 2 * kWgRows, NQ));
+    if constexpr (D == 256)
+      err = cudaFuncSetAttribute(flash_bwd_dkdv_split<NQ>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)tc_split_smem(NQ));
+    else
+      err = cudaFuncSetAttribute(flash_bwd_dkdv_tc<D, NQ>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)tc_dkdv_smem(D, 2 * kWgRows, NQ));
     if (err != cudaSuccess) return (int)err;
     err = cudaFuncSetAttribute(flash_bwd_dq_tc<D, TK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)tc_dq_smem(D, 2 * kWgRows, TK));
@@ -1087,9 +1351,14 @@ int launch_tc(const void* q, const void* k, const void* v, const void* dout, con
       qt, kt, vt, ot, static_cast<const bf16_t*>(out), lse, delta, static_cast<bf16_t*>(dq), a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_tc<D, NQ><<<dim3(B * (a.H / a.G), cdiv(a.T, kr)), kr / kWgRows * kWG,
-                             tc_dkdv_smem(D, kr, NQ), s>>>(
-      qt, kt, vt, ot, lse, delta, static_cast<bf16_t*>(dk), static_cast<bf16_t*>(dv), a);
+  if constexpr (D == 256)  // kr = 64: the two warpgroups share the keys
+    flash_bwd_dkdv_split<NQ><<<dim3(B * (a.H / a.G), cdiv(a.T, kr)), 2 * kWG,
+                               tc_split_smem(NQ), s>>>(
+        qt, kt, vt, ot, lse, delta, static_cast<bf16_t*>(dk), static_cast<bf16_t*>(dv), a);
+  else
+    flash_bwd_dkdv_tc<D, NQ><<<dim3(B * (a.H / a.G), cdiv(a.T, kr)), kr / kWgRows * kWG,
+                               tc_dkdv_smem(D, kr, NQ), s>>>(
+        qt, kt, vt, ot, lse, delta, static_cast<bf16_t*>(dk), static_cast<bf16_t*>(dv), a);
   return (int)cudaGetLastError();
 }
 
@@ -1100,10 +1369,10 @@ extern "C" {
 // The launch plan, as kernels/flash_attention.py::bwd_launch_plan computes it:
 // out[0..4] = route (1 = "wgmma", 0 = "simt"), keys of a dk/dv CTA, its q tile,
 // q rows of a dq CTA, its kv tile.  A head dim with no instance is refused
-// (cudaErrorInvalidValue), D = 256 among them.
+// (cudaErrorInvalidValue).
 int looptune_flash_attention_bwd_plan(int S, int T, int D, int bf16, int* out) {
   if (S < 1 || T < 1) return (int)cudaErrorInvalidValue;
-  if (D != 8 && D != 16 && D != 32 && D != 64 && D != 96 && D != 128)
+  if (D != 8 && D != 16 && D != 32 && D != 64 && D != 96 && D != 128 && D != 256)
     return (int)cudaErrorInvalidValue;
   out[0] = bf16 && D >= 64;
   if (out[0]) {
@@ -1112,7 +1381,7 @@ int looptune_flash_attention_bwd_plan(int S, int T, int D, int bf16, int* out) {
     out[3] = tc_rows(S, tc_tile(D, 2));
     out[4] = tc_tile(D, 3);
   } else {
-    out[1] = out[2] = out[3] = out[4] = kTile;
+    out[1] = out[2] = out[3] = out[4] = simt_tile(D);
   }
   return 0;
 }
@@ -1127,7 +1396,7 @@ int looptune_flash_attention_bwd_plan(int S, int T, int D, int bf16, int* out) {
 // the dk/dv kernel reads it.  dq (B, S, H, D), dk and dv (B, T, HKV, D)
 // contiguous, written whole.  All of
 // q, k, v, dout, dq, dk, dv f32, or all bf16 (bf16 = 1).  D in {8, 16, 32,
-// 64, 96, 128}; H a multiple of HKV; softcap <= 0 means none.  The route and
+// 64, 96, 128, 256}; H a multiple of HKV; softcap <= 0 means none.  The route and
 // tiles are looptune_flash_attention_bwd_plan's; on the "wgmma" route every
 // base is 16-byte aligned and every stride a multiple of 8 elements (the
 // wrapper checks).
@@ -1141,7 +1410,6 @@ int looptune_flash_attention_bwd(const void* q, const void* k, const void* v, co
                                  int window, int bf16, void* stream) {
   if (B < 1 || S < 1 || T < 1 || H < 1 || HKV < 1 || H % HKV != 0)
     return (int)cudaErrorInvalidValue;
-  if (cdiv(S, kTile) > 65535 || cdiv(T, kTile) > 65535) return (int)cudaErrorInvalidValue;
   const int wmax = S + T;
   const int w = window < -wmax ? -wmax : (window > wmax ? wmax : window);
   auto al16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
@@ -1157,6 +1425,7 @@ int looptune_flash_attention_bwd(const void* q, const void* k, const void* v, co
   if (bf16 && D == 64) return launch_tc<64>(q, k, v, dout, out, l, dl, dq, dk, dv, B, a, s);
   if (bf16 && D == 96) return launch_tc<96>(q, k, v, dout, out, l, dl, dq, dk, dv, B, a, s);
   if (bf16 && D == 128) return launch_tc<128>(q, k, v, dout, out, l, dl, dq, dk, dv, B, a, s);
+  if (bf16 && D == 256) return launch_tc<256>(q, k, v, dout, out, l, dl, dq, dk, dv, B, a, s);
   if (bf16) return launch_d<__nv_bfloat16>(D, q, k, v, dout, l, dl, dq, dk, dv, B, a, s);
   return launch_d<float>(D, q, k, v, dout, l, dl, dq, dk, dv, B, a, s);
 }

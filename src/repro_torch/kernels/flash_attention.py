@@ -40,12 +40,14 @@ q is ``(B, S, H, D)``, k and v ``(B, T, HKV, D)`` with ``H % HKV == 0``
 
 The gradient: :func:`flash_attention_bwd` launches the backward kernel in
 ``csrc/flash_attention_bwd.cu`` (two launches: dk/dv a kv tile, dq a q tile;
-see the note there) at the head dims in :data:`BWD_HEAD_DIMS`, on two routes
-by (dtype, D) alone (:func:`bwd_launch_plan`): bf16 at D = 64, 96 and 128
-runs on the tensor cores ("wgmma": every product on wgmma, P and dS rounded
-to bf16, the q-side or kv-side tiles in a two-stage cp.async ring, D = 96
-staged as 128 zero-padded columns); f32 at every D and bf16 at D = 8, 16, 32
-run the SIMT kernels ("simt"). It takes
+see the note there) at the head dims in :data:`BWD_HEAD_DIMS`, every forward
+instance's, on two routes by (dtype, D) alone (:func:`bwd_launch_plan`): bf16
+at D = 64, 96, 128 and 256 runs on the tensor cores ("wgmma": every product
+on wgmma, P and dS rounded to bf16, the q-side or kv-side tiles in a
+two-stage cp.async ring, D = 96 staged as 128 zero-padded columns, and at D
+= 256 the dk/dv CTA's two warpgroups split by role, dV on one and dK on the
+other); f32 at every D and bf16 at D = 8, 16, 32 run the SIMT kernels
+("simt"; 32-row tiles at D = 256). It takes
 :func:`flash_attention_bwd_plain`, the JAX model attention's hand-written
 backward (``repro/models/layers.py::_flash_bwd``) in torch ops, for CPU
 tensors.  :class:`FlashAttention` ties the two into autograd: its forward is
@@ -67,10 +69,13 @@ from . import _build
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (8, 16, 32, 64, 96, 128, 256)  # the kernel's instances: the JAX tests', the zoo's
-BWD_HEAD_DIMS = (8, 16, 32, 64, 96, 128)  # the backward kernel's (D = 256: too many registers)
+BWD_HEAD_DIMS = HEAD_DIMS  # the backward kernel's: every forward instance has one
 #: the backward's "wgmma" tiles by head dim, as ``kTcTiles`` in the source:
-#: (warpgroups of a dk/dv CTA, its q tile, warpgroups of a dq CTA, its kv tile)
-BWD_TC_TILES = {64: (1, 32, 1, 32), 96: (1, 32, 1, 32), 128: (1, 32, 1, 32)}
+#: (64-key groups of a dk/dv CTA, its q tile, warpgroups of a dq CTA, its kv
+#: tile).  At D = 256 the dk/dv CTA's one group of 64 keys has two warpgroups,
+#: one for dV and one for dK.
+BWD_TC_TILES = {64: (1, 32, 1, 32), 96: (1, 32, 1, 32), 128: (1, 32, 1, 32),
+                256: (1, 32, 1, 16)}
 BWD_TC_HEAD_DIMS = tuple(BWD_TC_TILES)  # bf16 backward at these runs on the tensor cores
 TC_HEAD_DIMS = (64, 96, 128, 256)  # bf16 at these runs on the tensor cores
 TC_KV_CAP = 4096  # the tensor-core kv tile is at most TC_KV_CAP // tc_width(D) keys
@@ -372,8 +377,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     without synchronising (delta = rowsum(dout . out) in torch ops first on
     the "simt" route; on "wgmma" the dq kernel computes it); a CPU tensor
     runs :func:`flash_attention_bwd_plain`.  A head dim
-    without a backward instance (not in :data:`BWD_HEAD_DIMS`) raises on
-    CUDA tensors only.  ``bk`` is the plain version's kv block."""
+    without a backward instance (not in :data:`BWD_HEAD_DIMS`, the forward's
+    :data:`HEAD_DIMS`) raises on CUDA tensors only.  ``bk`` is the plain
+    version's kv block."""
     b, s, t, hq, hkv, d = _check_bwd(q, k, v, out, dout, lse, softcap)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, lse, causal=causal,
@@ -421,9 +427,10 @@ flash_attention_bwd.launches = 0
 def bwd_launch_plan(s: int, t: int, *, d: int, dtype: torch.dtype) -> dict:
     """The backward's route and tiles at (S, T), head dim ``d`` and ``dtype``:
     keys of a dk/dv CTA and its q tile, q rows of a dq CTA and its kv tile.
-    On "wgmma" a CTA has the table's warpgroups of 64 rows, or one where T
-    (dk/dv) or S (dq) fits 64 rows; "simt" runs 64 x 64 tiles.  A head dim
-    without a backward instance (D = 256 among them) raises.  Pure Python;
+    On "wgmma" a CTA has the table's groups of 64 rows, or one where T
+    (dk/dv) or S (dq) fits 64 rows; "simt" runs 64 x 64 tiles, 32 x 32 at
+    D = 256 (four 64-row f32 tiles would not fit the card's shared memory).
+    A head dim without a backward instance raises.  Pure Python;
     the kernel computes the same (``looptune_flash_attention_bwd_plan``,
     held equal on the card)."""
     if min(s, t) < 1:
@@ -435,8 +442,9 @@ def bwd_launch_plan(s: int, t: int, *, d: int, dtype: torch.dtype) -> dict:
         wk, nq, wq, tk = BWD_TC_TILES[d]
         return {"route": "wgmma", "dkdv_kv_rows": 64 if t <= 64 else 64 * wk,
                 "dkdv_q_tile": nq, "dq_q_rows": 64 if s <= 64 else 64 * wq, "dq_kv_tile": tk}
-    return {"route": "simt", "dkdv_kv_rows": 64, "dkdv_q_tile": 64, "dq_q_rows": 64,
-            "dq_kv_tile": 64}
+    tile = 32 if d > 128 else 64  # the source's simt_tile
+    return {"route": "simt", "dkdv_kv_rows": tile, "dkdv_q_tile": tile, "dq_q_rows": tile,
+            "dq_kv_tile": tile}
 
 
 def kernel_bwd_plan(s: int, t: int, *, d: int, dtype: torch.dtype) -> dict:

@@ -311,28 +311,33 @@ def test_tensor_core_route_refuses_misaligned_views():
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 96, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"),
     (torch.bfloat16, 8, "simt"), (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
     (torch.float32, 8, "simt"), (torch.float32, 16, "simt"), (torch.float32, 32, "simt"),
-    (torch.float32, 64, "simt"), (torch.float32, 96, "simt"), (torch.float32, 128, "simt")])
+    (torch.float32, 64, "simt"), (torch.float32, 96, "simt"), (torch.float32, 128, "simt"),
+    (torch.float32, 256, "simt")])
 def test_bwd_launch_plan_route_by_dtype_and_head_dim(dtype, d, route):
-    """bf16 at D = 64, 96 and 128 runs on the tensor cores; f32 at every D
-    and bf16 at D <= 32 on the SIMT kernels, at 64 x 64 tiles."""
+    """bf16 at D = 64, 96, 128 and 256 runs on the tensor cores; f32 at
+    every D and bf16 at D <= 32 on the SIMT kernels, at 64 x 64 tiles, and
+    32 x 32 at D = 256."""
     plan = bwd_launch_plan(1024, 1024, d=d, dtype=dtype)
     assert plan["route"] == route
     if route == "simt":
         assert [plan[k] for k in ("dkdv_kv_rows", "dkdv_q_tile", "dq_q_rows",
-                                  "dq_kv_tile")] == [64] * 4
+                                  "dq_kv_tile")] == [32 if d == 256 else 64] * 4
 
 
 @pytest.mark.parametrize("s,t,d,want", [
     (1024, 1024, 64, (64, 32, 64, 32)),    # musicgen-large's training shape
     (1024, 1024, 128, (64, 32, 64, 32)),   # jamba's (4, 1024, 32/8, 128)
     (1024, 1024, 96, (64, 32, 64, 32)),    # phi3-mini's
-    (100, 150, 64, (64, 32, 64, 32))])
+    (100, 150, 64, (64, 32, 64, 32)),
+    (4096, 4096, 256, (64, 32, 64, 16))])  # gemma3-12b's training shape
 def test_bwd_launch_plan_tiles_at_the_models_shapes(s, t, d, want):
-    """One warpgroup of 64 rows a CTA in both kernels (the loop is
+    """One group of 64 rows a CTA in both kernels (the loop is
     latency-bound: more CTAs an SM beat larger ones on the card), the dk/dv
-    q tile (wgmma's N of S^T and dP^T) and the dq kv tile 32."""
+    q tile (wgmma's N of S^T and dP^T) 32 and the dq kv tile 32, 16 at D =
+    256 (two dq CTAs an SM)."""
     plan = bwd_launch_plan(s, t, d=d, dtype=torch.bfloat16)
     assert (plan["dkdv_kv_rows"], plan["dkdv_q_tile"], plan["dq_q_rows"],
             plan["dq_kv_tile"]) == want
@@ -344,7 +349,7 @@ def test_bwd_launch_plan_tiles_at_the_models_shapes(s, t, d, want):
 def test_bwd_launch_plan_clamps_to_small_s_and_t(s, t, want):
     """One warpgroup where T (dk/dv: keys) or S (dq: q rows) fits 64 rows;
     the tiles along the other dim do not change."""
-    for d in (64, 96, 128):
+    for d in (64, 96, 128, 256):
         plan = bwd_launch_plan(s, t, d=d, dtype=torch.bfloat16)
         wk, nq, wq, tk = BWD_TC_TILES[d]
         assert (plan["dq_q_rows"], plan["dkdv_kv_rows"]) == (
@@ -352,15 +357,42 @@ def test_bwd_launch_plan_clamps_to_small_s_and_t(s, t, want):
         assert (plan["dkdv_q_tile"], plan["dq_kv_tile"]) == (nq, tk)
 
 
-@pytest.mark.parametrize("d", [256, 12, 48, 200, 1])
+@pytest.mark.parametrize("d", [12, 48, 200, 1])
 def test_bwd_launch_plan_refuses_a_head_dim_without_an_instance(d):
-    """D = 256 has no backward instance on either route (its dk and dv
-    accumulators alone would be 128 registers a thread); nor has any D
-    outside the instances."""
+    """A D outside the instances has no backward kernel on either route."""
     assert d not in BWD_HEAD_DIMS
     for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(ValueError, match="instances"):
             bwd_launch_plan(1024, 1024, d=d, dtype=dtype)
+
+
+def test_every_forward_head_dim_has_a_backward_instance():
+    """The backward has an instance at each of the forward's head dims, so a
+    model the forward serves can also be trained on the card."""
+    assert BWD_HEAD_DIMS == HEAD_DIMS
+    assert set(BWD_TC_TILES) == {d for d in HEAD_DIMS if d >= 64}
+
+
+def _simt_bwd_smem(d, t):
+    """Shared memory of the backward's SIMT dk/dv CTA at tile ``t``, as the
+    source's ``dkdv_smem_bytes``: K, V, Q and dout rows padded by 4 floats,
+    P and dS padded alike, lse and delta, all f32 (the dq CTA holds one
+    score tile fewer)."""
+    return 4 * (4 * t * (d + 4) + 2 * t * (t + 4) + 2 * t)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_bwd_simt_tiles_fit_the_cards_shared_memory(d):
+    """The backward's SIMT tile at every head dim fits the 232,448 bytes a
+    CTA can have: 64 rows up to D = 128, and 32 at D = 256, where 64-row
+    tiles would take 301,568 bytes."""
+    plan = bwd_launch_plan(1024, 1024, d=d, dtype=torch.float32)
+    tile = plan["dkdv_kv_rows"]
+    assert plan["dkdv_q_tile"] == plan["dq_q_rows"] == plan["dq_kv_tile"] == tile
+    assert _simt_bwd_smem(d, tile) <= SIMT_SMEM_MAX
+    assert tile == 64 or _simt_bwd_smem(d, 2 * tile) > SIMT_SMEM_MAX
+    if d == 256:
+        assert (_simt_bwd_smem(d, 32), _simt_bwd_smem(d, 64)) == (142_592, 301_568)
 
 
 def test_bwd_launch_plan_rejects_empty_arguments():
@@ -376,9 +408,9 @@ def test_bwd_tiles_are_the_kernel_sources():
     import re
 
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
-    line = re.search(r"constexpr int kTcTiles\[3\]\[4\] = \{(.*)\};", src).group(1)
+    line = re.search(r"constexpr int kTcTiles\[4\]\[4\] = \{(.*)\};", src).group(1)
     rows = [tuple(int(x) for x in r.split(",")) for r in re.findall(r"\{([^{}]*)\}", line)]
-    assert rows == [BWD_TC_TILES[d] for d in (64, 96, 128)]
+    assert rows == [BWD_TC_TILES[d] for d in (64, 96, 128, 256)]
     for wk, nq, wq, tk in rows:
         assert wk in (1, 2) and wq in (1, 2) and nq in (16, 32, 64) and tk in (16, 32, 64)
 

@@ -811,7 +811,7 @@ def test_pool_measures_in_a_spawned_worker_on_the_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [16, 64, 96, 128])
+@pytest.mark.parametrize("d", [16, 64, 96, 128, 256])
 def test_flash_backward_kernel_matches_plain_version_on_the_card(d, dtype):
     """The backward kernel against ``flash_attention_bwd_plain`` on the same
     inputs (allclose: f32 5e-4, the JAX package's flash-gradient tolerance;

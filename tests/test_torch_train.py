@@ -62,7 +62,31 @@ def _port_grads(params, t_cfg):
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_loss_and_grads_match_jax(arch):
-    r_cfg, t_cfg, params, batch_np = _setup(arch)
+    _check_loss_and_grads(*_setup(arch))
+
+
+def _cut_gemma3(cfg):
+    """gemma3-12b's smoke config at its published head dim 256, its period
+    of five local layers (window cut to 8) and one global layer."""
+    period = tuple(dataclasses.replace(spec, window=8) if spec.window else spec
+                   for spec in cfg.period)
+    return dataclasses.replace(cfg.smoke(), head_dim=256, period=period)
+
+
+def test_gemma3_period_at_head_dim_256_matches_jax():
+    """One period of gemma3-12b's 5:1 pattern at D = 256, on 2 x 32 tokens so
+    that the local layers' window of 8 masks: the loss and every gradient
+    leaf against the reference's (the flash backward's D = 256 path on both
+    sides: the plain version here, the reference's ``_flash_bwd``)."""
+    r_cfg, t_cfg = _cut_gemma3(r_get_config("gemma3-12b")), _cut_gemma3(get_config("gemma3-12b"))
+    assert [spec.window for spec in t_cfg.period] == [8] * 5 + [None]
+    assert (t_cfg.head_dim_, t_cfg.n_heads, t_cfg.n_kv_heads) == (256, 4, 2)
+    params = RT.init_params(r_cfg, jax.random.PRNGKey(0))
+    batch_np = make_dataset(r_cfg, None, seed=0, global_batch=BATCH, seq_len=32).batch(1)
+    _check_loss_and_grads(r_cfg, t_cfg, params, batch_np)
+
+
+def _check_loss_and_grads(r_cfg, t_cfg, params, batch_np):
     (loss, m), grads = jax.value_and_grad(RS.make_loss_fn(r_cfg), has_aux=True)(
         params, {k: jnp.asarray(v) for k, v in batch_np.items()})
     tp, batch = _port(t_cfg, params, batch_np)

@@ -139,6 +139,11 @@ FLASH_CASES = [
     (1, 20, 45, 2, 2, 32, False, None, None),     # ragged, S < T
     (1, 45, 20, 4, 1, 16, True, None, 30.0),      # ragged, S > T
     (1, 40, 24, 2, 2, 16, True, 8, None),         # rows 31-39 see no key
+    # gemma3-12b's head dim
+    (1, 24, 24, 4, 2, 256, True, None, None),     # D = 256, causal, GQA 2
+    (1, 40, 40, 4, 2, 256, True, 8, None),        # D = 256, window, GQA 2
+    (2, 33, 33, 2, 2, 256, True, None, 50.0),     # D = 256, softcap 50
+    (1, 40, 24, 2, 2, 256, True, 8, None),        # D = 256, rows 31-39 see no key
 ]
 
 
