@@ -394,6 +394,9 @@ FA_ZOO_PREFILL = [((4, 1024, 16, 16, 128), None, None),  # olmoe-1b-7b
                   ((4, 1024, 16, 8, 256), 1024, None)]   # gemma3-12b, local layers
 FLASH_SWEEP = [(64, 64), (128, 64), (64, 32), (128, 32), (64, 16), (128, 16)]  # other "fa" blocks, timed
 FLASH_MUTANT_LINE = "acc[c][i] *= (i & 2) ? alpha1 : alpha0;  // the accumulator's alpha rescale"
+# the same rescale in flash_fwd_ws, the D = 96 / 256 kernel
+WS_FLASH_MUTANT_LINE = ("acc[i] *= (i & 2) ? alpha1 : alpha0;  "
+                        "// the warp-specialised kernel's alpha rescale")
 SIMT_FLASH_MUTANT_LINE = "acc[i][c] *= alpha;  // the SIMT accumulator's alpha rescale"
 MATMUL_MUTANT_LINE = "const int kchunks = (a.K + kChunk - 1) / kChunk;  // 64-value chunks of K"
 SIMT_MUTANT_LINE = "return (K + kd - 1) / kd;  // k stages of the SIMT ring"
@@ -550,6 +553,21 @@ def ptxas_by_function(log: str, keep: str) -> dict:
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def hgmma_by_function(sass: str, keep: str) -> dict:
+    """HGMMA instructions in ``cuobjdump --dump-sass`` output, per function
+    whose (mangled) name holds ``keep``."""
+    out, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :", 1)[1].strip()
+            name = name if keep in name else None
+            if name:
+                out[name] = 0
+        elif name and "HGMMA" in ln:
+            out[name] += 1
     return out
 
 
@@ -719,6 +737,7 @@ def attention_cases() -> list:
     for (b, s, h, hkv, d), window, softcap in FA_ZOO_PREFILL:
         cases.append((b, s, s, h, hkv, d, True, window, softcap, 128, 128, torch.bfloat16,
                       False))
+    cases += LSE_CASES  # gemma3-12b's training shapes, the lse held too
     # llama-3.2-vision's cross-attention: 1024 queries over 1600 encoder
     # tokens, non-causal, T off any kv tile
     cases.append((4, 1024, 1600, 32, 8, 128, False, None, None, 128, 128, torch.bfloat16,
@@ -763,8 +782,15 @@ ZOO_CASES = [(b, s, t, h, hkv, d, causal, window, softcap, bq, bk, torch.bfloat1
                  (2, 77, 77, 8, 1, True, None, None, 128, 128, True))]
 
 
+# gemma3-12b's training shapes (GEMMA3_BWD_SHAPES), causal and windowed: the
+# forward whose lse the backward reads, held against the plain lse (LSE_LIMIT)
+LSE_CASES = [(b, s, s, h, hkv, d, True, w, None, 128, 128, torch.bfloat16, False)
+             for b, s, h, hkv, d, w in GEMMA3_BWD_SHAPES]
+
+
 def attention_case_check(case, g) -> dict:
-    """One case: the kernel against its plain version on the same inputs."""
+    """One case: the kernel against its plain version on the same inputs
+    (for LSE_CASES, the lse too)."""
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
                                                      kernel_plan, launch_plan)
 
@@ -776,8 +802,14 @@ def attention_case_check(case, g) -> dict:
     k = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
     v = torch.randn(b, t, hkv, d, generator=g, device="cuda").to(dt)
     kw = dict(causal=causal, window=window, softcap=softcap, bq=bq, bk=bk)
-    out = flash_attention(q, k, v, **kw)
-    plain = flash_attention_plain(q, k, v, **kw)
+    with_lse = case in LSE_CASES
+    out = flash_attention(q, k, v, return_lse=with_lse, **kw)
+    plain = flash_attention_plain(q, k, v, return_lse=with_lse, **kw)
+    lse_ratio = None
+    if with_lse:
+        (out, lse), (plain, plain_lse) = out, plain
+        lse_ratio = ((lse - plain_lse).abs()
+                     / (LSE_LIMIT + LSE_LIMIT * plain_lse.abs())).max().item()
     torch.cuda.synchronize()
     lim = ATTN_LIMIT[dt]
     diff = (out.float() - plain.float()).abs()
@@ -786,42 +818,55 @@ def attention_case_check(case, g) -> dict:
         raise SystemExit(f"attention {case}: launch_plan {plan} is not the kernel's "
                          f"{kernel_plan(s, t, bq, bk, d=d, dtype=dt)}")
     # allclose(rtol=lim, atol=lim), as the JAX kernel tests hold it
+    ratio = (diff / (lim + lim * plain.float().abs())).max().item()
     return {"bsthd": [b, s, t, h, hkv, d], "causal": causal, "window": window,
             "softcap": softcap, "block": [bq, bk], "dtype": str(dt), "q_view": q_view,
             "plan": plan, "max_abs_err": diff.max().item(), "limit": lim,
-            "ratio_to_limit": (diff / (lim + lim * plain.float().abs())).max().item()}
+            "ratio_to_limit": ratio if lse_ratio is None else max(ratio, lse_ratio),
+            "lse_ratio_to_limit": lse_ratio}
 
 
 def phase_attention(cases_f) -> None:
-    from repro_torch.kernels.flash_attention import TC_HEAD_DIMS
+    """Every case of :func:`attention_cases` within its limit, on its route
+    and kernel: bf16 at D = 96 and 256 on ``flash_fwd_ws``, at D = 64 and 128
+    on ``flash_fwd_tc``, the rest on the SIMT kernel."""
+    from repro_torch.kernels.flash_attention import TC_HEAD_DIMS, WS_HEAD_DIMS
 
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    worst, failures, routes, by_d = {}, [], {}, {}  # by_d: worst ratio to the limit
+    worst, failures, routes, kernels, by_d = {}, [], {}, {}, {}  # by_d: worst ratio
+    lse = {}  # LSE_CASES: window -> the lse's ratio to LSE_LIMIT
     cases = attention_cases()
     for case in cases:
         c = attention_case_check(case, g)
         cases_f.write(json.dumps({"attention": c}) + "\n")
+        if c["lse_ratio_to_limit"] is not None:
+            lse[f"window={case[7]}"] = c["lse_ratio_to_limit"]
         key = c["dtype"].replace("torch.", "")
         worst[key] = max(worst.get(key, 0.0), c["max_abs_err"])
-        route = c["plan"]["route"]
-        dkey = f"{key} D={case[5]} {route}"
+        route, kernel = c["plan"]["route"], c["plan"]["kernel"]
+        dkey = f"{key} D={case[5]} {kernel}"
         by_d[dkey] = max(by_d.get(dkey, 0.0), c["ratio_to_limit"])
         routes[route] = routes.get(route, 0) + 1
-        want = "wgmma" if case[11] == torch.bfloat16 and case[5] in TC_HEAD_DIMS else "simt"
-        if not c["ratio_to_limit"] <= 1.0 or route != want:
+        kernels[kernel] = kernels.get(kernel, 0) + 1
+        bf16, d = case[11] == torch.bfloat16, case[5]
+        want = ("flash_fwd_ws" if bf16 and d in WS_HEAD_DIMS else
+                "flash_fwd_tc" if bf16 and d in TC_HEAD_DIMS else "flash_fwd_simt")
+        if not c["ratio_to_limit"] <= 1.0 or kernel != want:
             failures.append(c)
-    emit("attention", t0, cases=len(cases), routes=routes, worst_max_abs_err=worst,
-         worst_by_head_dim=by_d, limits={"float32": 3e-5, "bfloat16": 3e-2},
+    emit("attention", t0, cases=len(cases), routes=routes, kernels=kernels,
+         worst_max_abs_err=worst, worst_by_head_dim=by_d, lse_ratio_to_limit=lse,
+         limits={"float32": 3e-5, "bfloat16": 3e-2, "lse": LSE_LIMIT},
          failures=failures[:5])
     if failures:
-        raise SystemExit(f"{len(failures)} attention cases outside their limit or route")
+        raise SystemExit(f"{len(failures)} attention cases outside their limit or kernel")
 
 
-def phase_attention_mutant(cases_f, mutant: Path, route: str, dropped: str) -> None:
-    """The flash kernel with the accumulator's alpha rescale of ``route``
-    dropped, through the same wrapper, over every multi-tile case of that
-    route: more than half must fall outside their limit."""
+def phase_attention_mutant(cases_f, mutant: Path, kernel: str, dropped: str) -> None:
+    """The flash library with the accumulator's alpha rescale of ``kernel``
+    (flash_fwd_tc, flash_fwd_ws or flash_fwd_simt) dropped, through the same
+    wrapper, over every multi-tile case that kernel runs: more than half
+    must fall outside their limit."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import _declare, launch_plan
 
@@ -831,18 +876,20 @@ def phase_attention_mutant(cases_f, mutant: Path, route: str, dropped: str) -> N
     for case in attention_cases():
         (b, s, t, h, hkv, d, causal, window, softcap, bq, bk, dt, q_view) = case
         plan = launch_plan(s, t, bq, bk, d=d, dtype=dt)
-        if plan["route"] == route and t > plan["kv_tile"]:
+        if plan["kernel"] == kernel and t > plan["kv_tile"]:
             picked.append(case)
     with _build.substitute("flash_attention", mutant, _declare):
         mut = [attention_case_check(case, g) for case in picked]
     for c in mut:
-        cases_f.write(json.dumps({f"attention_{route}_mutant": c}) + "\n")
+        cases_f.write(json.dumps({f"attention_{kernel}_mutant": c}) + "\n")
     outside = sum(not c["ratio_to_limit"] <= 1.0 for c in mut)
-    emit("mutation", t0, kernel="flash_attention", route=route, dropped=dropped,
-         multi_tile_cases=len(mut), outside_limit=outside,
+    route = "simt" if kernel == "flash_fwd_simt" else "wgmma"
+    emit("mutation", t0, kernel="flash_attention", route=route, flash_kernel=kernel,
+         dropped=dropped, multi_tile_cases=len(mut), outside_limit=outside,
+         multi_tile_head_dims=sorted({c["bsthd"][5] for c in mut}),
          min_ratio_to_limit=min(c["ratio_to_limit"] for c in mut))
     if not outside > len(mut) / 2:
-        raise SystemExit(f"flash {route} mutant: only {outside} of {len(mut)} multi-tile "
+        raise SystemExit(f"flash {kernel} mutant: only {outside} of {len(mut)} multi-tile "
                          f"cases outside their limit")
 
 
@@ -3980,43 +4027,56 @@ def phase_timing_bf16(registry, card: str, g) -> list:
     return rows
 
 
-def flash_timing_row(shape, card: str, g, flush, dt=torch.bfloat16) -> dict:
-    """Flash attention at a model's prefill shape (B, S, H, HKV, D), causal:
-    the kernel, its plain version, SDPA (yardstick only) and the bound."""
+def flash_timing_row(shape, card: str, g, flush, dt=torch.bfloat16, window=None) -> dict:
+    """Flash attention at a model's prefill or training shape (B, S, H, HKV,
+    D), causal, under ``window``: the kernel, its plain version, SDPA
+    (yardstick only; with a window, a boolean band mask over k and v
+    repeated to H heads: SDPA has no window, and its GQA path takes no
+    mask) and the bound over the visible pairs."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain, launch_plan)
 
     b, s, h, hkv, d = shape
+    kw = dict(causal=True, window=window)
     q = torch.randn(b, s, h, d, generator=g, device="cuda").to(dt)
     k, v = (torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dt) for _ in range(2))
-    out = flash_attention(q, k, v, causal=True)
-    plain = flash_attention_plain(q, k, v, causal=True)
+    out = flash_attention(q, k, v, **kw)
+    plain = flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     max_abs = (out.float() - plain.float()).abs().max().item()
     lim = ATTN_LIMIT[dt]
     if not max_abs <= lim + lim * plain.float().abs().max().item():
-        raise SystemExit(f"flash attention at {shape} {dt}: max abs err {max_abs}")
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), flush, 20)
-    device_ms, device_src = kernel_device_ms(lambda: flash_attention(q, k, v, causal=True),
+        raise SystemExit(f"flash attention at {shape} {dt} window {window}: max abs err "
+                         f"{max_abs}")
+    del out, plain
+    ms = time_ms(lambda: flash_attention(q, k, v, **kw), flush, 20)
+    device_ms, device_src = kernel_device_ms(lambda: flash_attention(q, k, v, **kw),
                                              "flash_fwd")
-    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, causal=True), flush, 5)
+    plain_ms = time_ms(lambda: flash_attention_plain(q, k, v, **kw), flush, 5)
     # the same call at other "fa" blocks: what the block mapping moves
     sweep = [{"block": list(blk), "plan": launch_plan(s, s, *blk, d=d, dtype=dt),
-              "ms": time_ms(lambda: flash_attention(q, k, v, causal=True, bq=blk[0], bk=blk[1]),
+              "ms": time_ms(lambda: flash_attention(q, k, v, bq=blk[0], bk=blk[1], **kw),
                             flush, 20)}
-             for blk in FLASH_SWEEP]
+             for blk in (FLASH_SWEEP if window is None else [])]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # SDPA takes (B, H, S, D)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=hkv != h),
-                         flush, 20)
+    if window is None:
+        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=hkv != h),
+                             flush, 20)
+    else:
+        kt, vt = (x.repeat_interleave(h // hkv, dim=1) for x in (kt, vt))
+        i = torch.arange(s, device="cuda")
+        band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        library_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=band), flush, 20)
     size = q.element_size()
     bytes_ms = 2 * b * s * (h + hkv) * d * size / HBM_BYTES_PER_S * 1e3  # q, k, v, o once
-    flops = 4 * b * h * d * s * (s + 1) // 2                              # visible pairs only
+    flops = 4 * b * h * d * visible_pairs(s, window)                      # visible pairs only
     peak = (BF16_PEAK if dt == torch.bfloat16 else F32_PEAK)["pcie" if "PCIe" in card else "sxm"]
     ops_ms = flops / peak * 1e3
     plan = launch_plan(s, s, d=d, dtype=dt)
     return {"bshkd": list(shape), "dtype": str(dt).replace("torch.", ""), "causal": True,
-            "route": plan["route"], "plan": plan, "ms": ms, "device_ms": device_ms,
+            "window": window, "route": plan["route"], "kernel": plan["kernel"], "plan": plan,
+            "ms": ms, "device_ms": device_ms,
             "device_ms_source": device_src, "plain_ms": plain_ms, "block_sweep": sweep,
             "library_ms": library_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "peak_flops": peak,
@@ -4026,8 +4086,10 @@ def flash_timing_row(shape, card: str, g, flush, dt=torch.bfloat16) -> dict:
 
 def phase_flash_timing(card: str, g) -> list:
     """Flash attention at musicgen-large's and jamba's prefill shapes in
-    bf16 (the tensor-core route, what the models run) and in f32 (the SIMT
-    route), then at phi3-mini's (D = 96) and gemma3-12b's (D = 256) in bf16."""
+    bf16 (flash_fwd_tc, what the models run) and in f32 (the SIMT route),
+    then in bf16 on flash_fwd_ws at phi3-mini's (D = 96) and gemma3-12b's
+    (D = 256) prefill shapes and at gemma3-12b's training shapes, causal and
+    windowed."""
     t0 = time.perf_counter()
     flush = flush_buffer()
     b, s, h, d = FA_SHAPE
@@ -4036,6 +4098,8 @@ def phase_flash_timing(card: str, g) -> list:
                                                                     FA_JAMBA_SHAPE)]
     rows += [flash_timing_row(shape, card, g, flush) for shape in (FA_PHI3_SHAPE,
                                                                    FA_GEMMA3_SHAPE)]
+    rows += [flash_timing_row(shape[:5], card, g, flush, window=shape[5])
+             for shape in GEMMA3_BWD_SHAPES]
     del flush
     emit("timing_flash", t0, shapes=rows)
     return rows
@@ -4169,7 +4233,8 @@ def main() -> int:
     # the mutation checks' copies of five kernels: the RWKV-6 scan with its
     # u-bonus term dropped, the Mamba scan with the decay of each staged
     # tile's first token dropped, the flash kernel with the accumulator's
-    # alpha rescale dropped on each route, the matmul with the last k step
+    # alpha rescale dropped in each of its three kernels (flash_fwd_tc,
+    # flash_fwd_ws, flash_fwd_simt), the matmul with the last k step
     # of each route dropped, the flash backward with dS's "- delta" dropped
     # on each route and in D = 256's dk/dv kernel
     mutants = {}
@@ -4180,6 +4245,8 @@ def main() -> int:
              "const float decay = i == 0 ? 1.f : ex2_approx(dtv * a2[n]);  // mutation"),
             ("flash_attention", "flash_attention", FLASH_MUTANT_LINE,
              "(void)0;  // mutation: no alpha rescale"),
+            ("flash_ws", "flash_attention", WS_FLASH_MUTANT_LINE,
+             "(void)alpha0, (void)alpha1;  // mutation: no alpha rescale"),
             ("flash_simt", "flash_attention", SIMT_FLASH_MUTANT_LINE,
              "(void)alpha;  // mutation: no alpha rescale"),
             ("matmul", "matmul", MATMUL_MUTANT_LINE,
@@ -4202,12 +4269,14 @@ def main() -> int:
     t0 = time.perf_counter()
     names = ["matmul", "flash_attention", "flash_attention_bwd", "rwkv6_scan", "mamba_scan"]
     _build.build_all(names + list(mutants.values()))  # one nvcc per source, all at once
-    hgmma = {}
+    hgmma, ws_hgmma = {}, {}
     for name in ("flash_attention", "matmul", "flash_attention_bwd"):
         sass = subprocess.run(
             [str(Path(_build.nvcc()).parent / "cuobjdump"), "--dump-sass",
              str(_build.build(name))], capture_output=True, text=True, check=True).stdout
         hgmma[name] = sum("HGMMA" in ln for ln in sass.splitlines())
+        if name == "flash_attention":
+            ws_hgmma = hgmma_by_function(sass, "flash_fwd_ws")
 
     def warnings(name: str) -> list:  # wgmma serialisation (C7520) and the like
         return [ln.strip() for ln in str(_build.BUILD_INFO[name]["log"]).splitlines()
@@ -4234,10 +4303,16 @@ def main() -> int:
          flash_simt_kernels={k: v for k, v in flash_kernels.items() if "simt" in k},
          flash_bwd_kernels=ptxas_by_function(
              str(_build.BUILD_INFO["flash_attention_bwd"]["log"]), "flash_bwd"),
-         flash_tc_kernels={k: v for k, v in flash_kernels.items() if "_tc<" in k})
+         flash_tc_kernels={k: v for k, v in flash_kernels.items() if "_tc<" in k},
+         flash_ws_kernels={k: v for k, v in flash_kernels.items() if "_ws<" in k},
+         flash_ws_hgmma_in_sass=ws_hgmma)
     for name, count in hgmma.items():
         if count == 0:
             raise SystemExit(f"the {name} library's SASS holds no HGMMA instruction")
+    n_ws = sum("_ws<" in k for k in flash_kernels)
+    if len(ws_hgmma) != n_ws or not n_ws or not all(ws_hgmma.values()):
+        raise SystemExit(f"flash_fwd_ws instances without HGMMA in their SASS: {ws_hgmma} "
+                         f"({n_ws} instances)")
     flash_kernels.update(ptxas_by_function(
         str(_build.BUILD_INFO["flash_attention_bwd"]["log"]), "flash_bwd"))
     spilled = {k: v for k, v in flash_kernels.items() if any(v.get("spill_bytes", [0]))}
@@ -4250,8 +4325,11 @@ def main() -> int:
         phase_matmul_mutant(cases_f, mutants["matmul"], "wgmma", MATMUL_MUTANT_LINE)
         phase_matmul_mutant(cases_f, mutants["matmul_simt"], "simt", SIMT_MUTANT_LINE)
         phase_attention(cases_f)
-        phase_attention_mutant(cases_f, mutants["flash_attention"], "wgmma", FLASH_MUTANT_LINE)
-        phase_attention_mutant(cases_f, mutants["flash_simt"], "simt", SIMT_FLASH_MUTANT_LINE)
+        phase_attention_mutant(cases_f, mutants["flash_attention"], "flash_fwd_tc",
+                               FLASH_MUTANT_LINE)
+        phase_attention_mutant(cases_f, mutants["flash_ws"], "flash_fwd_ws", WS_FLASH_MUTANT_LINE)
+        phase_attention_mutant(cases_f, mutants["flash_simt"], "flash_fwd_simt",
+                               SIMT_FLASH_MUTANT_LINE)
         phase_rwkv_scan(cases_f)
         phase_mamba_scan(cases_f)
 
@@ -4390,9 +4468,12 @@ def main() -> int:
         # zoo's head dims included, is in "shapes"
         "max_abs_err": max(r["max_abs_err"] for r in fa_main),
         **{k: sum(r[k] for r in fa_main) for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
-        "by_head_dim": {f"D={r['bshkd'][4]}": {k: r[k] for k in (
-                            "bshkd", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
-                            "bound_by", "max_abs_err")}
+        # flash_fwd_ws's rows: the zoo's prefill shapes by head dim, and
+        # gemma3-12b's training shapes
+        "by_head_dim": {(f"D={r['bshkd'][4]}" if r["bshkd"][1] == 1024 else
+                         f"D={r['bshkd'][4]} train window={r['window']}"): {k: r[k] for k in (
+                            "bshkd", "window", "kernel", "plan", "ms", "device_ms", "plain_ms",
+                            "bound_ms", "library_ms", "bound_by", "max_abs_err")}
                         for r in fa if r["dtype"] == "bfloat16" and r["bshkd"] not in headline},
         "bound_by": ("operations" if sum(r["ops_ms"] for r in fa_main)
                      >= sum(r["bytes_ms"] for r in fa_main) else "bytes"),

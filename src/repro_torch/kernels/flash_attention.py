@@ -12,18 +12,24 @@ kernel tests' 8-32 and the model zoo's 64, 96, 128 and 256); the plain
 version takes any D, as the TPU kernel does, and only a launch refuses a D
 the kernel lacks.  Two routes, by (dtype, D) alone (:func:`launch_plan`):
 bf16 at D = 64, 96, 128 and 256 (the models' head dims) runs on the tensor
-cores ("wgmma": wgmma for q·kᵀ and p·v, p rounded to bf16, K/V in a
-two-stage cp.async ring, D = 96 staged as 128 zero-padded columns); f32 at
-every D and bf16 at D = 8, 16, 32 run the SIMT kernel ("simt"), since TF32
-products would miss the f32 limit of 3e-5.  The ``(bq, bk)`` block, clamped
-to (S, T), maps onto the CTA tile:
+cores ("wgmma": wgmma for q·kᵀ and p·v, p rounded to bf16); f32 at every D
+and bf16 at D = 8, 16, 32 run the SIMT kernel ("simt"), since TF32 products
+would miss the f32 limit of 3e-5.  The "wgmma" route has two kernels, which
+the plan names (``"kernel"``): ``flash_fwd_tc`` at D = 64 and 128 (K/V in a
+two-stage cp.async ring) and ``flash_fwd_ws`` at D = 96 and 256
+(:data:`WS_HEAD_DIMS`: warp-specialised, a producer warpgroup loading by TMA
+into an mbarrier ring, two consumer warpgroups, D = 96 at its own width).
+The ``(bq, bk)`` block, clamped to (S, T), maps onto the CTA tile:
 
-* "wgmma": q tile 64 if bq <= 64 else 128 (one or two warpgroups of 64
-  rows), kv tile the power of two >= bk in [16, 4096 / W], W the staged
-  width (D rounded up to 64): at most 64 keys at D = 64, 32 at D = 96 and
-  128 and 16 at D = 256, the largest tiles that keep a thread within ~128
-  registers at D <= 128, so that two CTAs fit an SM (the note in the source
-  has the measurements);
+* "wgmma", ``flash_fwd_tc``: q tile 64 if bq <= 64 else 128 (one or two
+  warpgroups of 64 rows), kv tile the power of two >= bk in
+  [16, 4096 / D]: at most 64 keys at D = 64 and 32 at D = 128, the largest
+  tiles that keep a thread within ~128 registers, so that two CTAs fit an
+  SM (the note in the source has the measurements);
+* "wgmma", ``flash_fwd_ws``: q tile 128 whatever bq (two consumer
+  warpgroups), kv tile 64 at D = 256, and at D = 96 64 for bk <= 64, else
+  128 (:func:`ws_kv_tile`); the K/V ring has as many stages as fit the
+  card's shared memory beside Q, at most 4 (:func:`ws_smem_bytes`);
 * "simt": q tile 64 if bq <= 64 else 128, and 64 at D = 256, where a
   128-row tile spills (256 threads, each with 4 or 8 q rows of both
   products), kv tile the power of two >= bk in [16, 64], halved while Q,
@@ -78,14 +84,40 @@ BWD_TC_TILES = {64: (1, 32, 1, 32), 96: (1, 32, 1, 32), 128: (1, 32, 1, 32),
                 256: (1, 32, 1, 16)}
 BWD_TC_HEAD_DIMS = tuple(BWD_TC_TILES)  # bf16 backward at these runs on the tensor cores
 TC_HEAD_DIMS = (64, 96, 128, 256)  # bf16 at these runs on the tensor cores
-TC_KV_CAP = 4096  # the tensor-core kv tile is at most TC_KV_CAP // tc_width(D) keys
+WS_HEAD_DIMS = (96, 256)  # ... by flash_fwd_ws; the others by flash_fwd_tc
+TC_KV_CAP = 4096  # flash_fwd_tc's kv tile is at most TC_KV_CAP // tc_width(D) keys
 SIMT_SMEM_MAX = 232448  # shared memory a CTA can have on the card
+WS_Q_TILE = 128  # flash_fwd_ws: two consumer warpgroups of 64 q rows
+WS_STAGES_MAX = 4
+WS_BARRIERS = 1 + 6 * WS_STAGES_MAX  # the most mbarriers (8 bytes each) it reserves room for
 
 
 def tc_width(d: int) -> int:
-    """The head dim as the tensor-core route stages it: whole 64-column
-    swizzle chunks (D = 96 is 128 columns, the last 32 zero)."""
+    """The head dim as ``flash_fwd_tc`` stages it (D = 64 and 128): whole
+    64-column swizzle chunks."""
     return -(-d // 64) * 64
+
+
+def ws_kv_tile(d: int, bk: int) -> int:
+    """``flash_fwd_ws``'s kv tile for the block's (clamped) ``bk``: 64 keys
+    at D = 256; at D = 96, 64 for bk <= 64, else 128."""
+    return 64 if d == 256 or bk <= 64 else 128
+
+
+def ws_stages(d: int, kv_tile: int) -> int:
+    """``flash_fwd_ws``'s K/V ring stages: as many as fit the card's shared
+    memory beside the alignment slack, Q and the barriers, at most 4."""
+    room = SIMT_SMEM_MAX - 1024 - 8 * WS_BARRIERS - WS_Q_TILE * d * 2
+    return min(WS_STAGES_MAX, room // (4 * kv_tile * d))
+
+
+def ws_smem_bytes(d: int, kv_tile: int) -> int:
+    """Shared memory of a ``flash_fwd_ws`` CTA: 1024 bytes of alignment
+    slack, Q (128 rows), the stages of K and V, and the mbarriers (Q's, and
+    full K, full V and each consumer's empty K and V a stage), as
+    ``ws_smem_bytes`` in the source."""
+    st = ws_stages(d, kv_tile)
+    return 1024 + WS_Q_TILE * d * 2 + st * 4 * kv_tile * d + 8 * (1 + 6 * st)
 
 
 def simt_smem_bytes(d: int, q_tile: int, kv_tile: int) -> int:
@@ -253,9 +285,9 @@ flash_attention.launches = 0
 def launch_plan(s: int, t: int, bq: int = 128, bk: int = 128, *, d: int,
                 dtype: torch.dtype) -> dict:
     """The CTA tile a launch uses for block ``(bq, bk)`` at head dim ``d``
-    and ``dtype``, its route, and the padded kv length that a row with no
-    visible key is divided by.  A head dim the kernel has no instance for
-    raises.  Pure Python; the kernel computes the same
+    and ``dtype``, its route and kernel, and the padded kv length that a row
+    with no visible key is divided by.  A head dim the kernel has no
+    instance for raises.  Pure Python; the kernel computes the same
     (``looptune_flash_attention_plan``, held equal on the card)."""
     if min(s, t, bq, bk) < 1:
         raise ValueError(f"bad plan arguments {(s, t, bq, bk)}")
@@ -264,35 +296,43 @@ def launch_plan(s: int, t: int, bq: int = 128, bk: int = 128, *, d: int,
                          f"only")
     bq, bk = min(bq, s), min(bk, t)
     t_pad = -(-t // bk) * bk
+    if dtype == torch.bfloat16 and d in WS_HEAD_DIMS:
+        return {"route": "wgmma", "kernel": "flash_fwd_ws", "q_tile": WS_Q_TILE,
+                "kv_tile": ws_kv_tile(d, bk), "t_pad": t_pad}
     if dtype == torch.bfloat16 and d in TC_HEAD_DIMS:
         kv_tile = 16
         while kv_tile < min(bk, TC_KV_CAP // tc_width(d)):
             kv_tile *= 2
-        return {"route": "wgmma", "q_tile": 64 if bq <= 64 else 128, "kv_tile": kv_tile,
-                "t_pad": t_pad}
+        return {"route": "wgmma", "kernel": "flash_fwd_tc", "q_tile": 64 if bq <= 64 else 128,
+                "kv_tile": kv_tile, "t_pad": t_pad}
     q_tile, kv_tile = (64 if bq <= 64 or d > 128 else 128), 16
     while kv_tile < min(bk, 64):
         kv_tile *= 2
     while kv_tile > 16 and simt_smem_bytes(d, q_tile, kv_tile) > SIMT_SMEM_MAX:
         kv_tile //= 2
-    return {"route": "simt", "q_tile": q_tile, "kv_tile": kv_tile, "t_pad": t_pad}
+    return {"route": "simt", "kernel": "flash_fwd_simt", "q_tile": q_tile, "kv_tile": kv_tile,
+            "t_pad": t_pad}
 
 
 def kernel_plan(s: int, t: int, bq: int = 128, bk: int = 128, *, d: int,
                 dtype: torch.dtype) -> dict:
-    """The plan as the built kernel computes it (needs the library)."""
-    out = (ctypes.c_int * 4)()
+    """The plan as the built kernel computes it (needs the library).  A
+    library that writes four entries (one built before ``flash_fwd_ws``)
+    leaves the kernel entry 0: its route's first kernel."""
+    out = (ctypes.c_int * 5)()
     if _lib().looptune_flash_attention_plan(s, t, bq, bk, d,
                                             int(dtype == torch.bfloat16), out) != 0:
         raise ValueError(f"bad plan arguments {(s, t, bq, bk)} at head_dim {d}")
-    return {"route": "wgmma" if out[3] else "simt", "q_tile": out[0], "kv_tile": out[1],
-            "t_pad": out[2]}
+    kernel = "flash_fwd_ws" if out[4] else "flash_fwd_tc" if out[3] else "flash_fwd_simt"
+    return {"route": "wgmma" if out[3] else "simt", "kernel": kernel, "q_tile": out[0],
+            "kv_tile": out[1], "t_pad": out[2]}
 
 
 def check_aligned(*tensors: torch.Tensor) -> None:
-    """The tensor-core route loads rows in 16-byte pieces: every base must be
-    16-byte aligned and every (b, s, h) stride a multiple of 8 elements.  A
-    view that is not raises; the wrapper makes no copy."""
+    """The tensor-core route loads rows in 16-byte pieces (cp.async, or TMA,
+    whose tensor maps take 16-byte aligned bases and strides): every base
+    must be 16-byte aligned and every (b, s, h) stride a multiple of 8
+    elements.  A view that is not raises; the wrapper makes no copy."""
     for x in tensors:
         if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]):
             raise ValueError(f"the tensor-core flash kernel needs 16-byte aligned rows: "

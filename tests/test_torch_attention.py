@@ -24,10 +24,11 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (BWD_HEAD_DIMS, BWD_TC_TILES, HEAD_DIMS,
-                                                 SIMT_SMEM_MAX, bwd_launch_plan,
-                                                 check_aligned, flash_attention,
-                                                 flash_attention_plain, launch_plan,
-                                                 simt_smem_bytes, tc_width)
+                                                 SIMT_SMEM_MAX, WS_HEAD_DIMS,
+                                                 bwd_launch_plan, check_aligned,
+                                                 flash_attention, flash_attention_plain,
+                                                 launch_plan, simt_smem_bytes, ws_kv_tile,
+                                                 ws_smem_bytes, ws_stages)
 from repro_torch.models import layers as TL
 
 TOL = {"float32": 3e-5, "bfloat16": 3e-2}
@@ -261,28 +262,85 @@ def test_launch_plan_t_pad_follows_the_registry_bk(t, bk, t_pad):
 
 
 # (block, tensor-core (q, kv) tile at D = 96 and 256, SIMT f32 at 96 and 256)
-ZOO_TILES = [((16, 16), (64, 16), (64, 16), (64, 16), (64, 16)),
-             ((64, 128), (64, 32), (64, 16), (64, 64), (64, 32)),
-             ((128, 128), (128, 32), (128, 16), (128, 64), (64, 32)),
-             ((128, 32), (128, 32), (128, 16), (128, 32), (64, 32)),
-             ((100, 48), (128, 32), (128, 16), (128, 64), (64, 32)),
-             ((512, 512), (128, 32), (128, 16), (128, 64), (64, 32))]
+ZOO_TILES = [((16, 16), (128, 64), (128, 64), (64, 16), (64, 16)),
+             ((64, 128), (128, 128), (128, 64), (64, 64), (64, 32)),
+             ((128, 128), (128, 128), (128, 64), (128, 64), (64, 32)),
+             ((128, 32), (128, 64), (128, 64), (128, 32), (64, 32)),
+             ((100, 48), (128, 64), (128, 64), (128, 64), (64, 32)),
+             ((512, 512), (128, 128), (128, 64), (128, 64), (64, 32))]
 
 
 @pytest.mark.parametrize("block,tc96,tc256,simt96,simt256", ZOO_TILES,
                          ids=lambda x: "x".join(map(str, x)) if isinstance(x, tuple) else x)
 def test_launch_plan_at_the_zoo_head_dims(block, tc96, tc256, simt96, simt256):
-    """D = 96 is staged as 128 columns on the tensor cores, so its kv tile is
-    capped as D = 128's (32 keys), and D = 256's at 16; the SIMT route keeps
-    64 q rows at D = 256 (a 128-row tile spills) and halves the kv tile to
-    fit: each tile within the card's shared memory."""
+    """bf16 at D = 96 and 256 runs flash_fwd_ws: 128 q rows whatever bq (two
+    consumer warpgroups), 64 keys at D = 256, and at D = 96 (staged at its
+    own width) 64 keys for bk <= 64, else 128; the SIMT route keeps 64 q rows
+    at D = 256 (a 128-row tile spills) and halves the kv tile to fit: each
+    tile within the card's shared memory, the mbarriers included."""
     for d, tc, simt in ((96, tc96, simt96), (256, tc256, simt256)):
         plan = launch_plan(1024, 1024, *block, d=d, dtype=torch.bfloat16)
-        assert plan["route"] == "wgmma" and (plan["q_tile"], plan["kv_tile"]) == tc
-        assert 2 * tc_width(d) * (plan["q_tile"] + 4 * plan["kv_tile"]) + 1024 <= SIMT_SMEM_MAX
+        assert plan["route"] == "wgmma" and plan["kernel"] == "flash_fwd_ws"
+        assert (plan["q_tile"], plan["kv_tile"]) == tc
+        assert ws_smem_bytes(d, plan["kv_tile"]) <= SIMT_SMEM_MAX
         plan = launch_plan(1024, 1024, *block, d=d, dtype=torch.float32)
         assert plan["route"] == "simt" and (plan["q_tile"], plan["kv_tile"]) == simt
         assert simt_smem_bytes(d, *simt) <= SIMT_SMEM_MAX
+
+
+# flash_fwd_tc's plans at D = 64 and 128, whole, as PR 15 set them:
+# (block, plan at D = 64, plan at D = 128) at S = T = 1024
+TC_PINNED = [((16, 16), (64, 16), (64, 16)), ((64, 128), (64, 64), (64, 32)),
+             ((128, 128), (128, 64), (128, 32)), ((128, 16), (128, 16), (128, 16)),
+             ((100, 48), (128, 64), (128, 32)), ((512, 512), (128, 64), (128, 32))]
+
+
+@pytest.mark.parametrize("block,tc64,tc128", TC_PINNED, ids=lambda x: "x".join(map(str, x))
+                         if isinstance(x, tuple) else x)
+def test_launch_plan_keeps_flash_fwd_tc_at_64_and_128(block, tc64, tc128):
+    """D = 64 and 128 stay on flash_fwd_tc with the tiles they had."""
+    for d, (q_tile, kv_tile) in ((64, tc64), (128, tc128)):
+        assert launch_plan(1024, 1024, *block, d=d, dtype=torch.bfloat16) == {
+            "route": "wgmma", "kernel": "flash_fwd_tc", "q_tile": q_tile, "kv_tile": kv_tile,
+            "t_pad": -(-1024 // block[1]) * block[1]}
+
+
+@pytest.mark.parametrize("d,kv_tile,stages,smem", [(256, 64, 2, 197_736),
+                                                   (96, 64, 4, 124_104),
+                                                   (96, 128, 4, 222_408)])
+def test_ws_tiles_fit_the_cards_shared_memory(d, kv_tile, stages, smem):
+    """Each flash_fwd_ws tile: 1024 bytes of alignment slack, Q (128 rows),
+    its stages of K and V and the mbarriers (Q's, full K and V and each
+    consumer's empty K and V a stage) within 232,448 bytes, at least two
+    stages, and no room for one more (or the cap of 4)."""
+    assert ws_stages(d, kv_tile) == stages and ws_smem_bytes(d, kv_tile) == smem
+    assert smem <= SIMT_SMEM_MAX and stages >= 2
+    assert stages == 4 or smem + 4 * kv_tile * d + 8 * 6 > SIMT_SMEM_MAX
+    assert smem == 1024 + 128 * d * 2 + stages * 4 * kv_tile * d + 8 * (1 + 6 * stages)
+
+
+@pytest.mark.parametrize("t,bk,t_pad", [(24, 16, 32), (24, 128, 24), (100, 48, 144),
+                                        (1024, 128, 1024), (45, 7, 49), (200, 64, 256)])
+@pytest.mark.parametrize("d", WS_HEAD_DIMS)
+def test_ws_plan_t_pad_follows_the_registry_bk(d, t, bk, t_pad):
+    """On flash_fwd_ws T_pad is still cdiv(T, bk) * bk for the clamped bk,
+    whatever kv tile the kernel runs; the kv tile follows bk at D = 96."""
+    plan = launch_plan(40, t, 64, bk, d=d, dtype=torch.bfloat16)
+    assert plan["kernel"] == "flash_fwd_ws" and plan["t_pad"] == t_pad
+    assert plan["kv_tile"] == ws_kv_tile(d, min(bk, t))
+
+
+def test_ws_mode_and_tiles_are_the_kernel_sources():
+    """The source runs one of the four overlap modes, and its kv tile rule
+    and stage cap are the plan's."""
+    import re
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert int(re.search(r"constexpr int kWsMode = (\d);", src).group(1)) in (0, 1, 2, 3)
+    assert "return d == 256 || bk <= 64 ? 64 : 128;" in src
+    assert "constexpr int kWsBarsMax = 1 + 6 * 4;" in src
+    assert src.count("acc[i] *= (i & 2) ? alpha1 : alpha0;  "
+                     "// the warp-specialised kernel's alpha rescale") == 1
 
 
 def test_launch_plan_rejects_empty_arguments():

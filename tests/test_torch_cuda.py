@@ -580,8 +580,10 @@ ZOO_FLASH_CASES = [(1, 100, 100, 5, 1, True, None, None, 128, 128, False),
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [96, 256])
 def test_flash_kernel_at_the_zoo_head_dims_on_the_card(d, dtype):
-    """bf16 on the tensor cores (D = 96 staged as 128 zero-padded columns),
-    f32 on the SIMT route, each case with the kernel's own plan."""
+    """bf16 on the tensor cores' warp-specialised kernel (flash_fwd_ws: TMA
+    loads into an mbarrier ring, D = 96 at its own width), f32 on the SIMT
+    route, each case with the kernel's own plan; the lse against the plain
+    version's at 1e-5."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
@@ -600,13 +602,15 @@ def test_flash_kernel_at_the_zoo_head_dims_on_the_card(d, dtype):
         plan = launch_plan(s, t, bq, bk, d=d, dtype=dt)
         assert plan == kernel_plan(s, t, bq, bk, d=d, dtype=dt)
         assert plan["route"] == ("wgmma" if dtype == "bfloat16" else "simt")
+        assert plan["kernel"] == ("flash_fwd_ws" if dtype == "bfloat16" else "flash_fwd_simt")
         before = flash_attention.launches
-        out = flash_attention(q, k, v, **kw)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
         torch.cuda.synchronize()
         assert flash_attention.launches == before + 1
-        ref = flash_attention_plain(q, k, v, **kw)
+        ref, ref_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
         assert out.dtype == dt and out.shape == ref.shape
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
