@@ -56,6 +56,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..tracing import span
 from .backend import Backend
 from .loop_ir import LoopNest
 from .schedule_cache import DEFAULT_CAPACITY, LRUCache
@@ -484,10 +485,13 @@ class MeasuredBackend(PoolHostBackend):
         the idle workers and merges best-of across processes."""
         if self.measure_mode == "pool" and not self.isolated:
             return self.measure_batch([nest])[0]
-        warm = self.policy.warm_elide and self.is_warm(nest)
-        m = self.policy.measure(
-            lambda: self.run_once(nest), nest.contraction.flops(),
-            warm=warm, worker=worker)
+        with span("measure.reward") as sp:
+            warm = self.policy.warm_elide and self.is_warm(nest)
+            m = self.policy.measure(
+                lambda: self.run_once(nest), nest.contraction.flops(),
+                warm=warm, worker=worker)
+            sp.set(launches=m.repeats + (0 if warm else self.policy.warmup),
+                   escalations=m.escalations)
         self._warm_contractions.add(nest.contraction.name)
         return self._record(nest, m)
 

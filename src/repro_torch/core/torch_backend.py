@@ -48,6 +48,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..tracing import span
 from .cpu_backend import (INPUTS_CACHE_CAPACITY, VEC_CAP_DEFAULT,
                           _einsum_expr, _run_section, make_inputs)
 from .loop_ir import Contraction, LoopNest
@@ -317,8 +318,9 @@ class TorchBackend(MeasuredBackend):
         self.kernels.misses += 1
         t0 = time.perf_counter()
         route = key[2]
-        fn = (_KERNEL_ROUTES[route][1](nest) if route is not None
-              else _build_slab_fn(nest, self.vec_cap))
+        with span("backend.lower", route=route or "slab"):
+            fn = (_KERNEL_ROUTES[route][1](nest) if route is not None
+                  else _build_slab_fn(nest, self.vec_cap))
         self.compiles += 1
         self.compile_s += time.perf_counter() - t0
         self.kernels.put(key, fn)

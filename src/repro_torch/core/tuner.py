@@ -29,6 +29,7 @@ import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..tracing import span
 from .actions import CPU_SPLITS, TPU_SPLITS, actions_from_names, build_action_space
 from .backend import backend_name, make_backend
 from .encoders import EncoderConfig, build_network, get_encoder, make_score_fn
@@ -293,26 +294,34 @@ class LoopTuner:
         t0 = time.perf_counter()
         budget_s = budget_s if budget_s is not None else self.search_budget_s
         bench = self._typed(bench, dtype)
-        env = self._env_for(bench)
-        if self.policy == "policy":
-            best_g, actions, nest = greedy_rollout(env, self.act, 0)
-        elif self.policy == "search":
-            scorer = self._scorer_for(env)
-            res = greedy_search(env, 0, lookahead=1, budget_s=budget_s,
-                                max_evals=max_evals, surrogate=scorer)
-            res2 = beam_search(env, 0, width=4, order="dfs",
-                               budget_s=budget_s, max_evals=max_evals,
-                               surrogate=scorer)
-            res = res2 if res2.best_gflops > res.best_gflops else res
-            best_g, actions, nest = res.best_gflops, res.actions, res.best_nest
-        else:  # default / untuned
-            env.reset(0)
-            best_g, actions, nest = env.current_gflops, [], env.nest.clone()
-        # bank speculative measure-ahead work: anything the searches put in
-        # flight on an async farm but never collected still lands in the
-        # shared cache (a later tune() call may hit it for free)
-        self.cache.drain_ahead()
-        entry = self._record(kernel, bench, best_g, list(actions), nest, dtype)
+        with span("tuner.tune", policy=self.policy) as sp:
+            if sp:
+                sp.set(key=ScheduleRegistry.key(
+                    kernel, tuple(bench.iter_sizes.values()), dtype))
+            env = self._env_for(bench)
+            if self.policy == "policy":
+                best_g, actions, nest = greedy_rollout(env, self.act, 0)
+            elif self.policy == "search":
+                scorer = self._scorer_for(env)
+                with span("search.greedy") as ss:
+                    res = greedy_search(env, 0, lookahead=1, budget_s=budget_s,
+                                        max_evals=max_evals, surrogate=scorer)
+                    ss.set(evals=res.n_evals)
+                with span("search.beam") as ss:
+                    res2 = beam_search(env, 0, width=4, order="dfs",
+                                       budget_s=budget_s, max_evals=max_evals,
+                                       surrogate=scorer)
+                    ss.set(evals=res2.n_evals)
+                res = res2 if res2.best_gflops > res.best_gflops else res
+                best_g, actions, nest = res.best_gflops, res.actions, res.best_nest
+            else:  # default / untuned
+                env.reset(0)
+                best_g, actions, nest = env.current_gflops, [], env.nest.clone()
+            # bank speculative measure-ahead work: anything the searches put
+            # in flight on an async farm but never collected still lands in
+            # the shared cache (a later tune() call may hit it for free)
+            self.cache.drain_ahead()
+            entry = self._record(kernel, bench, best_g, list(actions), nest, dtype)
         entry["tune_time_s"] = time.perf_counter() - t0
         entry["base_gflops"] = env.initial_gflops
         return entry
@@ -411,11 +420,9 @@ class LoopTuner:
             "surrogate": {"mode": self.surrogate,
                           **(self._scorer.stats()
                              if self._scorer is not None else {})},
-            # "measurement" is the historical name; "measure" aliases the
-            # same dict so farm counters (requests/retries/reconnects/
-            # degraded/farm_rtt under ["farm"]) read under either spelling
+            # farm counters (requests/retries/reconnects/degraded/farm_rtt)
+            # ride under ["farm"]
             "measurement": measurement,
-            "measure": measurement,
             "calibration": dict(self.calibration),
         }
 

@@ -45,6 +45,7 @@ from repro_torch.kernels import ops as K
 from repro_torch.optim import AdamWState, adamw_init, adamw_update
 from repro_torch.runtime import sharding as SH
 from repro_torch.runtime.sharding import ashard
+from repro_torch.tracing import span
 
 from . import layers as L
 from . import transformer as T
@@ -181,8 +182,10 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, weight_decay: float = 
     def grads_of(named: Dict[str, torch.Tensor], params, batch):
         for p in named.values():
             p.grad = None
-        loss, metrics = loss_fn(params, batch)
-        loss.backward()
+        with span("train.forward", device=True):
+            loss, metrics = loss_fn(params, batch)
+        with span("train.backward", device=True):
+            loss.backward()
         # a parameter the loss does not read (the embedding table of an
         # embeds frontend with its own head) gets zeros, as under jax.grad
         return {k: _as_param(p.grad, p) if p.grad is not None else torch.zeros_like(p)
@@ -209,9 +212,12 @@ def make_train_step(cfg: ModelConfig, lr_fn: Callable, *, weight_decay: float = 
         if grad_transform is not None:
             grads = grad_transform(grads)
         lr = lr_fn(opt_state.step)
-        _, new_opt, gnorm = adamw_update(grads, opt_state, named, lr,
-                                         weight_decay=weight_decay,
-                                         max_grad_norm=max_grad_norm)
+        with span("optim.adamw", device=True) as sp:
+            if sp:
+                sp.set(params=sum(p.numel() for p in named.values()))
+            _, new_opt, gnorm = adamw_update(grads, opt_state, named, lr,
+                                             weight_decay=weight_decay,
+                                             max_grad_norm=max_grad_norm)
         metrics = {k: SH.to_plain(v.detach()) for k, v in metrics.items()}
         return params, new_opt, dict(metrics, grad_norm=gnorm, lr=lr)
 
