@@ -13,9 +13,10 @@ line with its seconds:
    and two of the matmul with one term dropped (the mutation checks
    below), in parallel, and reports ptxas'
    register lines (for each instance of the Mamba scan, of flash's SIMT
-   kernel and of the flash backward: registers and spills) and the number
-   of HGMMA (wgmma) instructions in the flash, flash backward and matmul
-   libraries' SASS;
+   kernel, of the flash backward and of the matmul's two tensor-core
+   kernels: registers and spills) and the number of HGMMA (wgmma)
+   instructions in the flash, flash backward and matmul libraries' SASS
+   (for the matmul, instance by instance);
 3. kernel — the matmul kernel against its plain torch version on the card
    over a sweep of shapes, blocks, grid orders, dtypes and transposed B,
    then its tensor-core route's bf16 cases (musicgen-large's six shapes at
@@ -24,9 +25,10 @@ line with its seconds:
    N and K off multiples of 64, both B layouts, f32 and bf16 out), each case
    with its route and the kernel's own launch plan held equal to
    ``launch_plan``; then two mutation checks: the matmul with its last
-   64-value k chunk dropped must put every tensor-core case with K > 64
-   outside its limit, and with the SIMT ring's last k stage dropped every
-   SIMT case with K over one stage;
+   64-value k chunk dropped (in the k walk both tensor-core kernels share:
+   ``tc_matmul_ws`` at M > 64, ``tc_matmul`` at M <= 64) must put every
+   tensor-core case with K > 64 outside its limit, and with the SIMT ring's
+   last k stage dropped every SIMT case with K over one stage;
    attention — the flash-attention kernel against its plain version over
    the JAX kernel tests' shapes, windows, softcaps, bf16, head dim 128 with
    GQA groups of 4, the tensor-core route's bf16 cases at head dims 64 and
@@ -480,6 +482,7 @@ def reset_launches() -> None:
     from repro_torch.kernels.matmul import matmul
 
     matmul.route_launches = {"wgmma": 0, "simt": 0}
+    matmul.tc_design_launches = {"persistent": 0, "split_k": 0}
 
 
 def kernel_wrappers() -> dict:
@@ -640,7 +643,7 @@ def matmul_case_check(case, g) -> dict:
     want = "wgmma" if dt == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 else "simt"
     return {"mkn": [m, k, n], "block": [bm, bk, bn], "order": order, "in": str(dt),
             "out": str(odt), "trans_b": trans_b, "route": plan["route"], "want_route": want,
-            "plan": plan,
+            "design": plan.get("design"), "plan": plan,
             "plan_is_kernels": plan == kernel_plan(m, k, n, bm, bk, bn, order, dtype=dt),
             "rel_err": rel_err(out, plain), "limit": limit_for(odt, plan["route"])}
 
@@ -648,7 +651,7 @@ def matmul_case_check(case, g) -> dict:
 def phase_kernel(cases_f) -> None:
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    rows, worst, failures, routes = [], {}, [], {}
+    rows, worst, failures, routes, designs = [], {}, [], {}, {}
     for case in matmul_cases():
         row = matmul_case_check(case, g)
         cases_f.write(json.dumps(row) + "\n")
@@ -656,12 +659,15 @@ def phase_kernel(cases_f) -> None:
         key = f"{row['in']}->{row['out']} {row['route']}".replace("torch.", "")
         worst[key] = max(worst.get(key, 0.0), row["rel_err"])
         routes[row["route"]] = routes.get(row["route"], 0) + 1
+        if row["design"]:
+            designs[row["design"]] = designs.get(row["design"], 0) + 1
         if not (row["rel_err"] <= row["limit"] and row["route"] == row["want_route"]
                 and row["plan_is_kernels"]):
             failures.append(row)
     tc_f32 = [r["rel_err"] for r in rows
               if r["route"] == "wgmma" and r["out"] == "torch.float32"]
-    emit("kernel", t0, cases=len(rows), routes=routes, worst_rel_err=worst,
+    emit("kernel", t0, cases=len(rows), routes=routes, wgmma_designs=designs,
+         worst_rel_err=worst,
          limits={"float32_out_simt": 1e-5, "float32_out_wgmma": TC_F32_LIMIT,
                  "bfloat16_out": 1e-2},
          wgmma_f32_out_worst_at_k8192=max(
@@ -693,8 +699,14 @@ def phase_matmul_mutant(cases_f, mutant: Path, route: str, dropped: str) -> None
     for row in mut:
         cases_f.write(json.dumps({f"matmul_{route}_mutant": row}) + "\n")
     outside = sum(not r["rel_err"] <= r["limit"] for r in mut)
+    by_design = {}
+    for r in mut:
+        d = by_design.setdefault(r["design"] or route, [0, 0])
+        d[0] += not r["rel_err"] <= r["limit"]
+        d[1] += 1
     emit("mutation", t0, kernel="tiled_matmul", route=route, dropped=dropped,
          cases_k_over_one_step=len(mut), outside_limit=outside,
+         outside_by_design={d: f"{o}/{n}" for d, (o, n) in by_design.items()},
          min_ratio_to_limit=min(r["rel_err"] / r["limit"] for r in mut))
     if outside != len(mut):
         raise SystemExit(f"matmul {route} mutant: only {outside} of {len(mut)} cases with K "
@@ -4269,7 +4281,7 @@ def main() -> int:
     t0 = time.perf_counter()
     names = ["matmul", "flash_attention", "flash_attention_bwd", "rwkv6_scan", "mamba_scan"]
     _build.build_all(names + list(mutants.values()))  # one nvcc per source, all at once
-    hgmma, ws_hgmma = {}, {}
+    hgmma, ws_hgmma, tc_hgmma = {}, {}, {}
     for name in ("flash_attention", "matmul", "flash_attention_bwd"):
         sass = subprocess.run(
             [str(Path(_build.nvcc()).parent / "cuobjdump"), "--dump-sass",
@@ -4277,6 +4289,8 @@ def main() -> int:
         hgmma[name] = sum("HGMMA" in ln for ln in sass.splitlines())
         if name == "flash_attention":
             ws_hgmma = hgmma_by_function(sass, "flash_fwd_ws")
+        if name == "matmul":  # both tensor-core kernels, instance by instance
+            tc_hgmma = hgmma_by_function(sass, "tc_matmul")
 
     def warnings(name: str) -> list:  # wgmma serialisation (C7520) and the like
         return [ln.strip() for ln in str(_build.BUILD_INFO[name]["log"]).splitlines()
@@ -4284,6 +4298,7 @@ def main() -> int:
 
     flash_kernels = ptxas_by_function(str(_build.BUILD_INFO["flash_attention"]["log"]),
                                       "flash_fwd")
+    tc_kernels = ptxas_by_function(str(_build.BUILD_INFO["matmul"]["log"]), "tc_matmul")
     emit("build", t0, kernels=names,
          nvcc_s={n: round(float(_build.BUILD_INFO[n]["seconds"]), 3) for n in names},
          ptxas={n: sorted({ln.split(":")[-1].strip()
@@ -4305,10 +4320,17 @@ def main() -> int:
              str(_build.BUILD_INFO["flash_attention_bwd"]["log"]), "flash_bwd"),
          flash_tc_kernels={k: v for k, v in flash_kernels.items() if "_tc<" in k},
          flash_ws_kernels={k: v for k, v in flash_kernels.items() if "_ws<" in k},
-         flash_ws_hgmma_in_sass=ws_hgmma)
+         flash_ws_hgmma_in_sass=ws_hgmma,
+         matmul_tc_kernels=tc_kernels, matmul_tc_hgmma_in_sass=tc_hgmma)
     for name, count in hgmma.items():
         if count == 0:
             raise SystemExit(f"the {name} library's SASS holds no HGMMA instruction")
+    if len(tc_hgmma) != len(tc_kernels) or not tc_kernels or not all(tc_hgmma.values()):
+        raise SystemExit(f"tc_matmul instances without HGMMA in their SASS: {tc_hgmma} "
+                         f"({len(tc_kernels)} instances)")
+    tc_spilled = {k: v for k, v in tc_kernels.items() if any(v.get("spill_bytes", [0]))}
+    if tc_spilled:
+        raise SystemExit(f"tc_matmul instances that spill: {tc_spilled}")
     n_ws = sum("_ws<" in k for k in flash_kernels)
     if len(ws_hgmma) != n_ws or not n_ws or not all(ws_hgmma.values()):
         raise SystemExit(f"flash_fwd_ws instances without HGMMA in their SASS: {ws_hgmma} "

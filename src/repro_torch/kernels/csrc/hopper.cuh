@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks, written by hand: 16- and 4-byte cp.async
 // with zero fill, a one-instruction ex2, the 128- and 64-byte shared-memory
 // swizzles, wgmma matrix descriptors, the warpgroup fences, wgmma.mma_async
-// at bf16 x bf16 -> f32, mbarriers, 4-D TMA loads, setmaxnreg and named
-// barriers.  Header
+// at bf16 x bf16 -> f32, mbarriers, 2-D and 4-D TMA loads, the host's
+// tensor-map encoder, setmaxnreg and named barriers.  Header
 // only; a source that includes it is built for sm_90a (wgmma exists only
 // there).  `kernels/_build.py` hashes this header with every source that
 // includes it.
@@ -36,7 +36,9 @@
 #include <cstdint>
 #include <cstring>
 
+#include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace hopper {
 
@@ -477,8 +479,44 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint3
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+// a 2-D tile of the tensor map `map` at coordinates (c0 innermost, c1) into
+// shared memory at `dst`, completing its bytes on the mbarrier `bar`; past
+// the tensor's extent the tile is zero
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
 __device__ __forceinline__ void prefetch_tensormap(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so that
+// nothing links libcuda (host code; nullptr where the driver lacks it)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
 }
 
 // the warpgroup's registers a thread, lowered or raised (a multiple of 8 in

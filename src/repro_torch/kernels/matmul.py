@@ -10,16 +10,20 @@ takes it only for tensors that lie on the CPU.
 
 Two routes, by the launch's arguments alone (:func:`launch_plan`): bf16
 operands with K and N multiples of 8 run on the tensor cores ("wgmma":
-wgmma from a cp.async ring in shared memory, f32 accumulation), everything
-else, every f32 launch included, runs the SIMT kernel ("simt": f32 FMAs
-from a cp.async ring; TF32 would miss the f32 limit of 1e-5).  On both the
-block, clamped to (M, K, N), maps to a CTA tile from a small family.
-"wgmma": an m tile of 64 if bm <= 64 else 128, an n tile of the power of
-two >= bn in [64, 256], and ``clamp(ceil(bk / 64), 1, 4)`` 64-value k chunks
-a ring stage (fewer if three stages would not fit); the ring has 4 stages.
-When M <= 64 (decode, bound by reading B) K is split over two warpgroups of
-the CTA (n tile <= 128), a stage holds one chunk for each, and the ring has
-as many stages as fit (up to 16).  "simt": an m tile of 64 if bm <= 64 else
+wgmma from a ring in shared memory, f32 accumulation), everything else,
+every f32 launch included, runs the SIMT kernel ("simt": f32 FMAs from a
+cp.async ring; TF32 would miss the f32 limit of 1e-5).  On both the block,
+clamped to (M, K, N), maps to a CTA tile from a small family.  "wgmma": an
+m tile of 64 if bm <= 64 else 128, an n tile of the power of two >= bn in
+[64, 256], and ``clamp(ceil(bk / 64), 1, 4)`` 64-value k chunks a ring stage
+(fewer if three stages would not fit).  M alone picks the kernel: when
+M > 64 the persistent one (``design`` "persistent": min(tiles, SMs) CTAs,
+a TMA producer warp, two consumer warpgroups in turns at a 64-row tile or
+together at a 128-row one, as many ring stages as fit, up to 16); when
+M <= 64 (decode, bound by reading B) the split-K one (``design``
+"split_k": K split over two warpgroups of the CTA at an n tile <= 128, a
+stage holds one chunk for each, and the ring has as many stages as fit, up
+to 16).  "simt": an m tile of 64 if bm <= 64 else
 128, an n tile of 64 if bn <= 64 else 128, and a stage k depth of the power
 of two >= bk in [8, 64]; up to 4 ring stages in the shared memory (in a
 third of it at 64 x 64, three CTAs an SM).  When M <= 16 (decode) the m tile
@@ -40,10 +44,17 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 #: dynamic shared memory a block may use
 SMEM = 232448
-#: the tensor-core route's ring: shared memory (less the 1024-byte alignment
-#: slack), stages, the deep ring's cap, chunks a stage
+#: the tensor-core route: the split-K kernel's ring (shared memory less the
+#: 1024-byte alignment slack) and its stages at most, chunks a stage, and the
+#: largest M it takes
 TC_SMEM = SMEM - 1024
-TC_STAGES, TC_DEEP_STAGES, TC_MAX_KC = 4, 16, 4
+TC_DEEP_STAGES, TC_MAX_KC, TC_SPLIT_K_M = 16, 4, 64
+#: the persistent kernel's stages at most, and its ring (less a full and an
+#: empty mbarrier of 8 bytes for each of those stages)
+TC_WS_STAGES = 16
+TC_WS_SMEM = TC_SMEM - 16 * TC_WS_STAGES
+#: SMs of an H100 SXM, the persistent grid's bound where no card is visible
+H100_SMS = 132
 #: the SIMT route: threads a CTA, ring stages, the decode plan's largest M
 #: and its shared memory (two CTAs an SM), floats after each staged row
 SIMT_THREADS, SIMT_STAGES, SIMT_DECODE_M = 256, 4, 16
@@ -58,6 +69,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.looptune_matmul.restype = i
     lib.looptune_matmul_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)]
     lib.looptune_matmul_plan.restype = i
+
+
+_SMS: dict = {}
+
+
+def sm_count() -> int:
+    """SMs of the current CUDA device, read once a device (the persistent
+    kernel's grid is at most this); ``H100_SMS`` where no card is visible."""
+    if not torch.cuda.is_available():
+        return H100_SMS
+    dev = torch.cuda.current_device()
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
 
 
 def _lib() -> ctypes.CDLL:
@@ -162,13 +187,17 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128, bk: int = 128,
                            f"(m={m} k={k} n={n} block={(bm, bk, bn)})")
     matmul.launches += 1
     matmul.route_launches[route] += 1
+    if route == "wgmma":
+        matmul.tc_design_launches[tc_design(m)] += 1
     return out
 
 
 #: kernel launches since the count was last set to 0 (the CPU path and the
-#: plain version do not count), in all and by route
+#: plain version do not count), in all, by route, and on the "wgmma" route
+#: by kernel (:func:`tc_design`)
 matmul.launches = 0
 matmul.route_launches = {"wgmma": 0, "simt": 0}
+matmul.tc_design_launches = {"persistent": 0, "split_k": 0}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -182,19 +211,27 @@ def route_for(k: int, n: int, dtype: torch.dtype) -> str:
     return "wgmma" if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 else "simt"
 
 
+def tc_design(m: int) -> str:
+    """The tensor-core kernel a launch of M rows runs: "split_k" at M <= 64
+    (decode), else "persistent"."""
+    return "split_k" if m <= TC_SPLIT_K_M else "persistent"
+
+
 def launch_plan(m: int, k: int, n: int, bm: int = 128, bk: int = 128, bn: int = 128,
                 grid_order: str = "mn", *, dtype: torch.dtype = torch.float32) -> dict:
     """How the kernel lays out one launch, and on which route.  Pure Python;
     the kernel computes the same (``looptune_matmul_plan``, held equal on
     the card).
 
-    "wgmma": the CTA ``tile`` (m, n), ``k_chunks`` 64-value chunks a ring
-    stage, ``stages``, ``ctas`` and ``k_split``, the warpgroups that split K
-    (each multiplies its own chunk of a stage; the partial tiles are summed
-    in shared memory).  "simt": the CTA ``tile``, ``k_depth`` k values a ring
-    stage, ``stages``, ``ctas`` and ``k_split``, the thread groups that split
-    K (1 unless M <= 16).  The grid order changes no plan, only the CTAs'
-    order."""
+    "wgmma": the kernel (``design``, :func:`tc_design`), the CTA ``tile``
+    (m, n), ``k_chunks`` 64-value chunks a ring stage, ``stages``, the output
+    ``tiles``, ``ctas`` (min(tiles, :func:`sm_count`) for "persistent", one
+    a tile for "split_k") and ``k_split``, the
+    warpgroups that split K (each multiplies its own chunk of a stage; the
+    partial tiles are summed in shared memory).  "simt": the CTA ``tile``,
+    ``k_depth`` k values a ring stage, ``stages``, ``ctas`` and ``k_split``,
+    the thread groups that split K (1 unless M <= 16).  The grid order
+    changes no plan, only the order tiles are taken in."""
     if min(m, k, n, bm, bk, bn) < 1:
         raise ValueError(f"bad plan arguments {(m, k, n, bm, bk, bn)}")
     bm, bk, bn = min(bm, m), min(bk, k), min(bn, n)
@@ -204,16 +241,22 @@ def launch_plan(m: int, k: int, n: int, bm: int = 128, bk: int = 128, bn: int = 
         while tn < bn and tn < 256:
             tn *= 2
         chunks = _cdiv(k, 64)
-        # M <= 64: K split over two warpgroups (n tile <= 128), one chunk
-        # each a stage
-        ks = 2 if m <= 64 and tn <= 128 else 1
-        kc = ks if m <= 64 else min(_cdiv(bk, 64), TC_MAX_KC, chunks)
-        while kc > 1 and 3 * kc * (tm + tn) * 128 > TC_SMEM:
+        design = tc_design(m)
+        # split-K: two warpgroups (n tile <= 128), one chunk each a stage
+        ks = 2 if design == "split_k" and tn <= 128 else 1
+        kc = ks if design == "split_k" else min(_cdiv(bk, 64), TC_MAX_KC, chunks)
+        ring = TC_WS_SMEM if design == "persistent" else TC_SMEM
+        while kc > 1 and 3 * kc * (tm + tn) * 128 > ring:
             kc -= 1
-        fit = TC_SMEM // (kc * (tm + tn) * 128)
-        stages = min(TC_DEEP_STAGES if m <= 64 else TC_STAGES, fit, _cdiv(chunks, kc) + 2)
-        return {"route": "wgmma", "tile": (tm, tn), "k_chunks": kc,
-                "stages": max(stages, 3), "ctas": _cdiv(m, tm) * _cdiv(n, tn), "k_split": ks}
+        fit = ring // (kc * (tm + tn) * 128)
+        tiles = _cdiv(m, tm) * _cdiv(n, tn)
+        if design == "persistent":
+            stages, ctas = min(fit, TC_WS_STAGES), min(tiles, sm_count())
+        else:
+            stages = max(min(TC_DEEP_STAGES, fit, _cdiv(chunks, kc) + 2), 3)
+            ctas = tiles
+        return {"route": "wgmma", "design": design, "tile": (tm, tn), "k_chunks": kc,
+                "stages": stages, "tiles": tiles, "ctas": ctas, "k_split": ks}
     if m <= SIMT_DECODE_M:  # one m tile; K split over groups of tn / 4 threads
         tm, tn = (4 if m <= 4 else 16), 16
         while tn < bn and tn < 128 and _cdiv(n, 2 * tn) >= SIMT_DECODE_CTAS:
@@ -241,12 +284,13 @@ def simt_stage_bytes(tm: int, tn: int, kd: int) -> int:
 def kernel_plan(m: int, k: int, n: int, bm: int = 128, bk: int = 128, bn: int = 128,
                 grid_order: str = "mn", *, dtype: torch.dtype = torch.float32) -> dict:
     """The plan as the built kernel computes it (needs the library)."""
-    out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * 9)()
     if _lib().looptune_matmul_plan(m, k, n, bm, bk, bn, int(grid_order == "nm"),
                                    int(dtype == torch.bfloat16), out) != 0:
         raise ValueError(f"bad plan arguments {(m, k, n, bm, bk, bn)}")
     if out[0]:
-        return {"route": "wgmma", "tile": (out[1], out[2]), "k_chunks": out[3],
-                "stages": out[4], "ctas": out[5], "k_split": out[6]}
+        return {"route": "wgmma", "design": "persistent" if out[7] else "split_k",
+                "tile": (out[1], out[2]), "k_chunks": out[3], "stages": out[4],
+                "tiles": out[8], "ctas": out[5], "k_split": out[6]}
     return {"route": "simt", "tile": (out[1], out[2]), "k_depth": out[3], "stages": out[4],
             "ctas": out[5], "k_split": out[6]}

@@ -18,6 +18,7 @@ from repro_torch.core import LoopTuner as TTuner
 from repro_torch.core import matmul_benchmark
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.matmul import launch_plan, matmul, matmul_plain
+from test_torch_matmul_persistent import committed_schedules
 
 SWEEP = [(m, k, n, blk, order)
          for (m, k, n) in [(1, 1, 1), (7, 13, 5), (33, 64, 17), (64, 48, 96),
@@ -83,31 +84,84 @@ def test_launch_plan_route_rules(mkn, dtype, route):
 
 # the thin blocks an f32-timed search picked for musicgen-large and the
 # default 128^3, at the model's shapes:
-# (m, k, n), block -> tile, k chunks a stage, stages, CTAs, k-split warpgroups
+# (m, k, n), block -> kernel, tile, k chunks a stage, stages, tiles, CTAs
+# (at 132 SMs, the count where no card is visible), k-split warpgroups
 TILE_CASES = [
-    ((1024, 2048, 2048), (1, 2048, 1), (64, 64), 4, 3, 512, 1),
-    ((1024, 2048, 8192), (4, 2048, 1), (64, 64), 4, 3, 2048, 1),
-    ((1024, 8192, 2048), (1, 8192, 1), (64, 64), 4, 3, 512, 1),
-    ((1024, 2048, 2048), (128, 128, 128), (128, 128), 2, 3, 128, 1),
-    ((1024, 8192, 2048), (128, 64, 256), (128, 256), 1, 4, 64, 1),
-    ((1024, 2048, 8192), (65, 65, 65), (128, 128), 2, 3, 512, 1),
-    ((4, 2048, 2048), (1, 2048, 1), (64, 64), 2, 7, 32, 2),   # decode: K split in two
-    ((4, 8192, 2048), (128, 128, 128), (64, 128), 2, 4, 16, 2),
-    ((4, 2048, 8192), (4, 64, 256), (64, 256), 1, 5, 32, 1),
-    ((200, 1000, 200), (64, 1000, 1000), (64, 256), 1, 4, 4, 1),  # clamped; 3 stages fit
-    ((33, 8, 72), (128, 128, 128), (64, 128), 2, 3, 1, 2),   # one chunk, zero filled
+    ((1024, 2048, 2048), (1, 2048, 1), "persistent", (64, 64), 4, 3, 512, 132, 1),
+    ((1024, 2048, 8192), (4, 2048, 1), "persistent", (64, 64), 4, 3, 2048, 132, 1),
+    ((1024, 8192, 2048), (1, 8192, 1), "persistent", (64, 64), 4, 3, 512, 132, 1),
+    ((1024, 2048, 2048), (128, 128, 128), "persistent", (128, 128), 2, 3, 128, 128, 1),
+    ((1024, 8192, 2048), (128, 64, 256), "persistent", (128, 256), 1, 4, 64, 64, 1),
+    ((1024, 2048, 8192), (65, 65, 65), "persistent", (128, 128), 2, 3, 512, 132, 1),
+    ((4, 2048, 2048), (1, 2048, 1), "split_k", (64, 64), 2, 7, 32, 32, 2),  # decode: K split in two
+    ((4, 8192, 2048), (128, 128, 128), "split_k", (64, 128), 2, 4, 16, 16, 2),
+    ((4, 2048, 8192), (4, 64, 256), "split_k", (64, 256), 1, 5, 32, 32, 1),
+    ((200, 1000, 200), (64, 1000, 1000), "persistent", (64, 256), 1, 5, 4, 4, 1),  # clamped
+    ((33, 8, 72), (128, 128, 128), "split_k", (64, 128), 2, 3, 1, 1, 2),  # one chunk, zero filled
 ]
 
 
-@pytest.mark.parametrize("mkn,blk,tile,kc,stages,ctas,ks", TILE_CASES)
-def test_launch_plan_maps_blocks_onto_warpgroup_tiles(mkn, blk, tile, kc, stages, ctas, ks):
+@pytest.mark.parametrize("mkn,blk,design,tile,kc,stages,tiles,ctas,ks", TILE_CASES)
+def test_launch_plan_maps_blocks_onto_warpgroup_tiles(mkn, blk, design, tile, kc, stages,
+                                                      tiles, ctas, ks):
     plan = launch_plan(*mkn, *blk, dtype=torch.bfloat16)
-    assert plan == {"route": "wgmma", "tile": tile, "k_chunks": kc, "stages": stages,
-                    "ctas": ctas, "k_split": ks}
+    assert plan == {"route": "wgmma", "design": design, "tile": tile, "k_chunks": kc,
+                    "stages": stages, "tiles": tiles, "ctas": ctas, "k_split": ks}
     # the ring fits in the 227 KB a block may use, with the alignment slack
-    assert 1024 + stages * kc * (tile[0] + tile[1]) * 128 <= 232448
+    # (and the persistent kernel's two mbarriers a stage)
+    assert 1024 + stages * kc * (tile[0] + tile[1]) * 128 + 16 * stages <= 232448
     # the grid order changes no tile
     assert launch_plan(*mkn, *blk, "nm", dtype=torch.bfloat16) == plan
+
+
+# the committed schedules (M = 8,192) -> tile, stages: one k chunk a stage
+# and as many stages as fit; every one on the persistent kernel
+COMMITTED_PLANS = [((64, 128), 9)] * 4 + [((64, 64), 14), ((64, 128), 9), ((64, 256), 5)]
+
+
+@pytest.mark.parametrize("i", range(len(COMMITTED_PLANS)))
+def test_committed_schedules_take_the_persistent_kernel(i):
+    """Each committed prefill schedule keeps its tile (the block-to-tile map
+    is the split-K era's) and runs the persistent kernel, its grid one CTA
+    an SM, every SM with several tiles."""
+    (m, k, n), (bm, bk, bn), order = committed_schedules()[i]
+    tile, stages = COMMITTED_PLANS[i]
+    plan = launch_plan(m, k, n, bm, bk, bn, order, dtype=torch.bfloat16)
+    tiles = -(-m // tile[0]) * -(-n // tile[1])
+    assert plan == {"route": "wgmma", "design": "persistent", "tile": tile, "k_chunks": 1,
+                    "stages": stages, "tiles": tiles, "ctas": 132, "k_split": 1}
+    assert tiles > 132 * 10
+
+
+@pytest.mark.parametrize("m,design", [(1, "split_k"), (64, "split_k"), (65, "persistent"),
+                                      (8192, "persistent")])
+def test_launch_plan_picks_the_tensor_core_kernel_by_m_alone(m, design, monkeypatch):
+    """M alone picks the kernel: the block, the grid order and the B layout
+    do not; the persistent grid is min(tiles, SMs), the split-K one a CTA a
+    tile; the SIMT route has no kernel field."""
+    import importlib
+
+    MM = importlib.import_module("repro_torch.kernels.matmul")
+    monkeypatch.setattr(MM, "sm_count", lambda: 17)  # a card of 17 SMs
+    assert MM.tc_design(m) == design
+    for blk in [(1, 1, 1), (64, 64, 64), (128, 512, 256)]:
+        for order in ("mn", "nm"):
+            plan = launch_plan(m, 1024, 2048, *blk, order, dtype=torch.bfloat16)
+            assert plan["design"] == design
+            assert plan["ctas"] == (min(plan["tiles"], 17) if design == "persistent"
+                                    else plan["tiles"])
+    assert "design" not in launch_plan(m, 1024, 2048, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("mkn,blk,tiles,ctas", [
+    ((65, 64, 64), (128, 64, 64), 1, 1),       # one tile, one CTA
+    ((192, 64, 64), (64, 64, 64), 3, 3),       # a CTA a tile
+    ((64 * 133, 64, 64), (64, 64, 64), 133, 132),  # CTA 0 takes two
+    ((8192, 64, 8192), (64, 64, 128), 8192, 132),
+])
+def test_persistent_grid_is_one_cta_an_sm_at_most(mkn, blk, tiles, ctas):
+    plan = launch_plan(*mkn, *blk, dtype=torch.bfloat16)
+    assert (plan["tiles"], plan["ctas"]) == (tiles, ctas)
 
 
 # the SIMT route (every f32 launch, bf16 off a multiple of 8): (m, k, n),
