@@ -33,11 +33,17 @@ from repro_torch.kernels import _build  # noqa: E402
 RW = importlib.import_module("repro_torch.kernels.rwkv6_scan")
 SHAPE, CHUNK, LIMIT = (4, 1024, 64, 64), 128, 2e-4
 
-STORE = """  // r_dec for pass 2
-  float* const rdb = rd + ((long long)b * a.S + t0) * y_row + h * N;
-  for (int e = tid; e < rows_in * (N / 4); e += kThreads) {
-    const int i = e / (N / 4), n = 4 * (e % (N / 4));
-    *reinterpret_cast<float4*>(rdb + i * y_row + n) = load4(R + i * P + n);
+STORE = """  // r_dec = r~ e^{GX} against the chunk's start, to scratch for pass 2: a
+  // row's float4s from consecutive threads, so that the stores coalesce
+  // (stores of each thread's own row segment took 0.53 ms more of pass 1 at
+  // (4, 4096, 64, 64) on an H100)
+  {
+    float* const rdb = rd + ((long long)b * a.S + t0) * y_row + h * N;
+    for (int e = tid; e < rows_in * NQ; e += kThreads) {
+      const int i = e / NQ, n = 4 * (e % NQ);
+      *reinterpret_cast<float4*>(rdb + i * y_row + n) =
+          mul4(load4(R + i * P + n), exp4(load4(GX + (i / kSub) * N + n), 1.f));
+    }
   }
 """
 PASS2_FLOATS = """  return tile_rows(L) * (N + 4) + 2 * N * (cmin(N, kSliceCols) + 4) + N +
@@ -45,9 +51,29 @@ PASS2_FLOATS = """  return tile_rows(L) * (N + 4) + 2 * N * (cmin(N, kSliceCols)
 LAUNCH = """  rwkv6_state_walk<N><<<B * a.H * (N / cmin(N, kSliceCols)), kThreads,
                         pass2_floats(a.L, N) * 4, s>>>(q.rd, q.s0, q.y, q.s_out, q.dS, q.decay,
                                                        a);"""
-# pass 2 deriving r_dec from r and logw (cp.async, widened in place, the same
-# cumsum and decay code as pass 1's), the rest as the shipped pass 2
-RECOMPUTE_PASS2 = r"""template <typename T, int N>
+# pass 2 deriving r_dec from r and logw (cp.async, widened in place, a
+# chunk-wide cumsum and pass 1's decay code), the rest as the shipped pass 2
+RECOMPUTE_PASS2 = r"""// cum: inclusive cumsum of logw down each column of rows [0, LT), in place
+template <int N>
+__device__ __forceinline__ void column_cumsum(float* C, float* seg, int LT, int tid) {
+  constexpr int P = N + 4, SEGS = kThreads / N, MAXLEN = cdiv(kMaxL, SEGS);
+  const int n = tid % N, sg = tid / N, len = cdiv(LT, SEGS), i0 = sg * len;
+  float x[MAXLEN];
+#pragma unroll
+  for (int q = 0; q < MAXLEN; ++q) x[q] = q < len && i0 + q < LT ? C[(i0 + q) * P + n] : 0.f;
+#pragma unroll
+  for (int q = 1; q < MAXLEN; ++q) x[q] += x[q - 1];
+  seg[sg * N + n] = x[MAXLEN - 1];
+  __syncthreads();
+  float off = 0.f;
+  for (int s = 0; s < sg; ++s) off += seg[s * N + n];
+#pragma unroll
+  for (int q = 0; q < MAXLEN; ++q)
+    if (q < len && i0 + q < LT) C[(i0 + q) * P + n] = x[q] + off;
+  __syncthreads();
+}
+
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads, 2)
 rwkv6_state_walk(const T* __restrict__ r, const float* __restrict__ w,
                  const float* __restrict__ s0, float* __restrict__ y,

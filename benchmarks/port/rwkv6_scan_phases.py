@@ -7,7 +7,8 @@ Builds a copy of ``csrc/rwkv6_scan.cu`` in which thread 0 of every CTA reads
 since the previous one to a device counter, runs it at rwkv6-7b's prefill
 shape ((B, S, H, N) = (4, 1024, 64, 64), bf16 r/k/v, chunk 128, a carried
 state) and prints the mean SM cycles a pass-1 CTA spends in each phase
-(staging, cumsum, decay, the products' two phases) and a pass-2 CTA in each
+(staging, the sub-chunk cumsum, the pairs' products, the decays, r_dec's
+store and v's widening, the walk over the sub-chunks) and a pass-2 CTA in each
 chunk's phases, with the card's SM clock and its name and power limit.  A
 phase's cycles include waiting at its closing barrier for the slowest warp.
 The copy's output is held against the plain version (2e-4); the stamps add
@@ -36,11 +37,12 @@ SHAPE, CHUNK, LIMIT = (4, 1024, 64, 64), 128, 2e-4
 # (phase, the line that closes it, where its stamp goes)
 PASS1 = [("staging", "  cp_async_wait<1>();  // logw, r and k landed (this thread's copies)\n"
                      "  __syncthreads();\n", "after"),
-         ("cumsum", "  column_cumsum<N>(C, SEG, LT, tid);\n\n  // the u-bonus", "cumsum"),
-         ("decay", "  __syncthreads();  // cum is dead: its rows now hold A\n", "after"),
-         ("v_widen", "  if constexpr (BF16) widen_rows<N>(V, LT, tid);\n\n  // The products", "widen"),
-         ("products_1", "  __syncthreads();  // A is whole\n", "after"),
-         ("products_2", "  if (tid < N) decay[((long long)bh * a.n_chunks + c) * N + tid]", "before")]
+         ("cumsum", "  sub_cumsum<N>(C, GX, n_sub, tid);\n\n  // A[t][j]", "cumsum"),
+         ("pairs", "  __syncthreads();  // raw r and k are read: their f32 rows may now be "
+                   "overwritten\n", "after"),
+         ("decay", "  cp_async_wait<0>();  // v landed\n  __syncthreads();\n", "after"),
+         ("r_dec_v_widen", "  if constexpr (BF16) widen_rows<N>(V, LT, tid);\n\n  // The walk", "widen"),
+         ("walk", "  // the chunk's increment, against its last row", "before")]
 PASS2 = [("wait_r_dec", "    // every thread's copies landed, and the previous state update is done\n"
                         "    __syncthreads();\n", "after"),
          ("product", "    // ... every thread's, and every read of r_dec and of S_{c-1} is done\n"

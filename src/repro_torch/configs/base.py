@@ -5,7 +5,9 @@ repeating **period** of :class:`LayerSpec` entries.  Every published config
 in ``configs/<arch>.py`` is an instance of :class:`ModelConfig`; reduced
 smoke-test variants are derived via :meth:`ModelConfig.smoke`.  The fields
 are the JAX package's, so a config and its converted weights mean the same
-thing in both packages; the port runs only the kinds its models support
+thing in both packages, and two of the port's own: the RWKV-6 LoRA ranks of
+Finch's published block, whose defaults are the JAX package's block.  The
+port runs only the kinds its models support
 (``models/transformer.py`` raises for the others).
 """
 from __future__ import annotations
@@ -81,6 +83,11 @@ class ModelConfig:
     ssm_expand: int = 2
     # rwkv details
     rwkv_head_dim: int = 64
+    # the port's own (the JAX package has neither): Finch's ddlerp LoRA rank
+    # (0: a static mu a stream, the JAX package's token shift) and the decay
+    # LoRA's rank (RWKV-LM's RWKV_Tmix_x060 sets 64 and 128 at d_model 4096)
+    rwkv_mix_lora: int = 0
+    rwkv_decay_lora: int = 32
     # numerics
     dtype: str = "bfloat16"
     # activation-checkpoint granularity (read by training, a later slice)

@@ -12,28 +12,31 @@
 // crosses chunks, so one wrapper call makes two launches:
 //
 //   Pass 1, rwkv6_chunk_intra: one CTA per (b, h, chunk), B * H * C CTAs
-//   (2048 at rwkv6-7b's prefill).  It stages the chunk's r, k, v and logw by
-//   cp.async through the (b, s, h) strides with the head dim contiguous (no
-//   transposes, no padding copies; bf16 r and k raw beside the f32 rows, v
-//   raw in the upper half of its f32 rows and widened in place), v in a
-//   second group that lands while the first steps run.  Positions >= S, and
-//   rows past the chunk up to the next 64, are zero: r = k = v = 0 and
-//   logw = 0, the TPU kernel's state-neutral padding.  Then, as the TPU
-//   kernel per chunk of L tokens: cum = inclusive cumsum of logw down each
-//   column (one thread a column segment, in registers), and in one step the
-//   u-bonus diagonal sum_n r u k, r_dec = r e^{cum_ex} (cum_ex read as the
-//   previous row's cum, the TPU kernel's cum - logw in exact arithmetic) and
-//   k_dec = k e^{-cum}.  The products run in two phases of four groups of
-//   64 threads, each thread with an 8 x 8 register tile (8 x 4 in two
-//   groups of phase 2), balanced at 4096 FMAs a thread a phase at L = 128:
-//     phase 1: A = strict_lower(r_dec k_dec^T) on its 64 x 64 blocks on or
-//       below the diagonal, one a group (3 of 4 at L = 128), and dS_c =
-//       k_dec^T v over the first 64 tokens (group 4);
-//     phase 2: y_c = A v + (sum_n r u k) v, written to y (rows 0-63, and
-//       rows 64-127 in two column halves), and dS_c over the rest of the
-//       tokens (the same registers), written as e^{w_last} dS_c with the
-//       decay e^{w_last} (N values) to scratch that the wrapper allocates.
-//   Last it writes r_dec to scratch too, for pass 2.
+//   (8192 at the rwkv6-7b.prefill-4x4096 cell).  It stages the chunk's r,
+//   k, v and logw by cp.async through the (b, s, h) strides with the head
+//   dim contiguous (no transposes, no padding copies; bf16 r and k raw beside
+//   the f32 rows, v raw in the upper half of its f32 rows and widened in
+//   place), v in a second group that lands while the first steps run.
+//   Positions >= S, and rows past the chunk up to the next 16, are zero:
+//   r = k = v = 0 and logw = 0, the TPU kernel's state-neutral padding.
+//   The chunk is taken in sub-chunks of 16 rows, so that no exponential is
+//   of a positive number: the TPU kernel's k e^{-cum} leaves f32 once a
+//   chunk's decay sum passes about -88, which trained decays do within a
+//   few dozen tokens.  Per column, cum = the inclusive cumsum of logw within
+//   each sub-chunk and GX_I = the chunk's sum before sub-chunk I.  Then:
+//     A_ts = sum_n r_tn k_sn e^{cum_ex_tn - cum_sn} for s < t in one
+//       sub-chunk, pair by pair (120 pairs a sub-chunk; the exponent is a
+//       sum of logw over the positions between, <= 0);
+//     the u-bonus diagonal sum_n r u k; r~ = r e^{cum_ex} and
+//       k^ = k e^{cum_last - cum} within the sub-chunk; r_dec = r~ e^{GX}
+//       within the chunk, written to scratch for pass 2;
+//     a walk over the sub-chunks from a zero state D, one barrier each:
+//       y_t = r~_t D_I + sum_s A_ts v_s + (sum_n r u k)_t v_t, written to y,
+//       and D_{I+1} = diag(e^{cum_last}) D_I + k^_I^T v_I in registers (a
+//       4 x 4 block a thread), read out through two shared buffers.
+//   D after the last sub-chunk is the chunk's state increment against its
+//   last row, sum_s diag(e^{cum_T - cum_s}) k_s^T v_s; it goes to scratch
+//   with the chunk's decay e^{GX_end} (N values).
 //   Pass 2, rwkv6_state_walk: one CTA per (b, h, slice of 32 state columns),
 //   B * H * N / 32 CTAs (512 at the model), three an SM.  Column j of the
 //   state needs only v[:, j], so the slices are independent.  From s0 (or
@@ -44,32 +47,28 @@
 //   Pass 1 storing r_dec (67 MB at the model, read back once) was measured
 //   against pass 2 restaging r and logw and deriving r_dec again
 //   (benchmarks/port/rwkv6_scan_passes.py, PERF.md).
-// Everything is f32 from the loads on and products are f32 FMAs; each
-// product reads its shared-memory operands as float4.  e^{-cum} overflows f32
-// once a chunk's decay sum passes about -88, here as in the TPU kernel and
-// the model's chunk loop: a limit of the formulation that ROADMAP.md
-// records, not changed here.
+// Everything is f32 from the loads on and products are f32 FMAs.  Every
+// exponential is of a sum of logw <= 0, so nothing overflows: a factor
+// that underflows to 0 stands for a decay below e^-87, which no f32 sum
+// of the other terms would keep.
 //
 // Chunk tile: the requested chunk, clamped to S (as the TPU wrapper clamps
 // it) and to kMaxL = 128.  Shared memory at L = 128, N = 64: pass 1 holds
-// r_dec, k_dec, v and cum as f32 rows padded to N + 4, the A tile in the cum
-// rows' place once the decay is done, short vectors, and bf16 r and k as
-// staged: 208,896 bytes (172,032 for f32 inputs; one CTA an SM); pass 2 holds
-// r_dec, its 64 x 32 state and increment slices, the decay and y's slice:
-// 71,936 bytes.  Scratch: B * H * C * (N^2 + N) + B * S * H * N f32, 101 MB
-// at the model.
+// r~, k^, v and cum as f32 rows padded to N + 4, the sub-chunks' A (L x 16),
+// the two state buffers, the sums at sub-chunk starts, short vectors, and
+// bf16 r and k as staged: 222,208 bytes (185,344 for f32 inputs; one CTA an
+// SM); pass 2 holds r_dec, its 64 x 32 state and increment slices, the
+// decay and y's slice: 71,936 bytes.  Scratch: B * H * C * (N^2 + N) +
+// B * S * H * N f32.
 //
-// Bound on this card: max(bytes / 3.35 TB/s, operations / FP32 peak).  At the
-// model's prefill (B 4, S 1024, H 64, N 64, L 128, bf16 r/k/v, with s0) the
-// bytes in and out are 243 MB, ~73 us.  The operations counted are the least
-// any form of the recurrence does: per token one read-out r_t S (2N^2) and
-// one rank-1 update k_t^T v_t (2N^2), 4.3 GFLOP, ~64 us at 67 TFLOP/s: the
-// bound is the bytes.  The chunked form at L = 128 needs 4LN^2 + 2L(L-1)N a
-// chunk and stream (the strictly lower triangles of r_dec k_dec^T and A v),
-// 8.6 GFLOP, ~128 us in FP32; this kernel computes the diagonal 64 x 64
-// blocks whole (10.7 GFLOP).  The two passes also move what pass 1 leaves
-// for pass 2 (y, dS, r_dec: ~570 MB in all, ~170 us).  No tensor cores: the
-// 2e-4 limit keeps f32 products.
+// Bound on this card: max(bytes / 3.35 TB/s, operations / FP32 peak).  The
+// bytes are r, k, v, logw read and y and the final state written, once;
+// the operations the least any form of the recurrence does: per token one
+// read-out r_t S (2N^2) and one rank-1 update k_t^T v_t (2N^2).  The bound
+// is the bytes.  This form does per token and head N^2 (r~ D) + N^2 (the D
+// update) + 7.5 N (the pairs, with as many exponentials) + 16 N (A v) FMAs
+// in pass 1 and N^2 in pass 2, and moves what pass 1 leaves for pass 2 (y,
+// dS, r_dec).  No tensor cores: the 2e-4 limit keeps f32 products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,8 +82,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxL = 128;                   // chunk tile
-constexpr int kBlk = 64;                     // row blocks of the intra-chunk products
-constexpr int kGroup = 64;                   // threads of a pass-1 product group
+constexpr int kSub = 16;                     // sub-chunk: rows whose decays are taken pair by pair
+constexpr int kPairs = kSub * (kSub - 1) / 2;  // (t, s), s < t, of a sub-chunk
 constexpr int kSliceCols = 32;               // state columns a pass-2 CTA carries
 constexpr int kSmem = 232448;                // dynamic shared memory a block may use
 
@@ -92,16 +91,17 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
-// rows of a chunk tile of L tokens, rounded up to whole 64-row blocks
-__host__ __device__ constexpr int tile_rows(int L) { return kBlk * cdiv(L, kBlk); }
+// rows of a chunk tile of L tokens, rounded up to whole 16-row sub-chunks
+__host__ __device__ constexpr int tile_rows(int L) { return kSub * cdiv(L, kSub); }
 
-// Pass 1's shared memory, in floats: r_dec, k_dec, v [LT][N + 4]; logw/cum
-// [LT][N + 4], then the A tile [LT][LT] in its place; the u-bonus diagonal
-// [LT], w_last [N], u [N] and the scan's segment sums [kThreads]; then, for
-// bf16 inputs, r and k as staged [LT][N + 8] bf16 each
+// Pass 1's shared memory, in floats: r~, k^, v and logw/cum [LT][N + 4];
+// the sub-chunks' products A [LT][16]; the chunk's state, two buffers
+// [2][N][N + 4]; the sums at sub-chunk starts [9][N]; the u-bonus diagonal
+// [LT] and u [N]; then, for bf16 inputs, r and k as staged [LT][N + 8] bf16
+// each
 __host__ __device__ constexpr int pass1_floats(int L, int N, int bf16) {
-  return 3 * tile_rows(L) * (N + 4) + cmax(tile_rows(L) * (N + 4), tile_rows(L) * tile_rows(L)) +
-         tile_rows(L) + 2 * N + kThreads + (bf16 ? tile_rows(L) * (N + 8) : 0);
+  return 4 * tile_rows(L) * (N + 4) + tile_rows(L) * kSub + 2 * N * (N + 4) +
+         (kMaxL / kSub + 1) * N + tile_rows(L) + N + (bf16 ? tile_rows(L) * (N + 8) : 0);
 }
 // Pass 2's: r_dec [LT][N + 4]; the state slice and the chunk's increment
 // slice [N][cols + 4] each, its decay [N]; y's slice [LT][cols + 4]
@@ -186,26 +186,29 @@ __device__ __forceinline__ void widen_rows(float* buf, int LT, int tid) {
   __syncthreads();
 }
 
-// cum: inclusive cumsum of logw down each column of rows [0, LT), in place.
-// Thread (segment sg, column n) sums its segment of rows in order in
-// registers; the segment totals meet in `seg`, and each segment adds those
-// before it.
+// cum: the inclusive cumsum of logw down each column of each 16-row
+// sub-chunk, in place (one thread a (sub-chunk, column) in turn), then
+// GX[I] = the chunk's exclusive sum at sub-chunk I's first row, and
+// GX[n_sub] the chunk's whole sum, from the sub-chunks' totals
 template <int N>
-__device__ __forceinline__ void column_cumsum(float* C, float* seg, int LT, int tid) {
-  constexpr int P = N + 4, SEGS = kThreads / N, MAXLEN = cdiv(kMaxL, SEGS);
-  const int n = tid % N, sg = tid / N, len = cdiv(LT, SEGS), i0 = sg * len;
-  float x[MAXLEN];
+__device__ __forceinline__ void sub_cumsum(float* C, float* GX, int n_sub, int tid) {
+  constexpr int P = N + 4;
+  for (int e = tid; e < n_sub * N; e += kThreads) {
+    const int I = e / N, n = e % N;
+    float x = 0.f;
 #pragma unroll
-  for (int q = 0; q < MAXLEN; ++q) x[q] = q < len && i0 + q < LT ? C[(i0 + q) * P + n] : 0.f;
-#pragma unroll
-  for (int q = 1; q < MAXLEN; ++q) x[q] += x[q - 1];
-  seg[sg * N + n] = x[MAXLEN - 1];
+    for (int i = 0; i < kSub; ++i) {
+      x += C[(kSub * I + i) * P + n];
+      C[(kSub * I + i) * P + n] = x;
+    }
+    GX[(I + 1) * N + n] = x;
+  }
   __syncthreads();
-  float off = 0.f;
-  for (int s = 0; s < sg; ++s) off += seg[s * N + n];
-#pragma unroll
-  for (int q = 0; q < MAXLEN; ++q)
-    if (q < len && i0 + q < LT) C[(i0 + q) * P + n] = x[q] + off;
+  if (tid < N) {
+    float g = 0.f;
+    GX[tid] = 0.f;
+    for (int I = 1; I <= n_sub; ++I) GX[I * N + tid] = g += GX[I * N + tid];
+  }
   __syncthreads();
 }
 
@@ -217,49 +220,6 @@ struct RowSplit {
                        BATCH = cmin(STEPS, 4);
 };
 
-// y rows row0 + ty + 8 x (x < 8) at CPT columns of thread tx (col0 + 4 tx
-// + (N / 2) (c / 4) + c % 4): the sum over s < s_end of A v, then the u-bonus
-// term; rows from rows_in on are not stored
-template <int N, int CPT>
-__device__ __forceinline__ void y_rows(const float* A, const float* V, const float* DG,
-                                       float* yb, long long y_row, int LT, int row0, int col0,
-                                       int ty, int tx, int s_end, int rows_in) {
-  constexpr int P = N + 4, H = CPT / 4;
-  float acc[8][CPT] = {};
-  const float* const ar = A + (row0 + ty) * LT;
-  const float* const vc = V + col0 + 4 * tx;
-#pragma unroll 2
-  for (int s = 0; s < s_end; s += 4) {
-    float4 av[8];
-#pragma unroll
-    for (int x = 0; x < 8; ++x) av[x] = load4(ar + 8 * x * LT + s);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float4 vv[H];
-#pragma unroll
-      for (int c = 0; c < H; ++c) vv[c] = load4(vc + (s + q) * P + (N / 2) * c);
-#pragma unroll
-      for (int x = 0; x < 8; ++x)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c)
-          acc[x][c] = fmaf(lane4(av[x], q), lane4(vv[c / 4], c % 4), acc[x][c]);
-    }
-  }
-#pragma unroll
-  for (int x = 0; x < 8; ++x) {
-    const int row = row0 + ty + 8 * x;
-    if (row >= rows_in) continue;
-    const float dg = DG[row];  // the u-bonus term
-#pragma unroll
-    for (int c = 0; c < H; ++c) {
-      const float4 vr = load4(vc + row * P + (N / 2) * c);
-      *reinterpret_cast<float4*>(yb + row * y_row + col0 + 4 * tx + (N / 2) * c) =
-          make_float4(fmaf(dg, vr.x, acc[x][4 * c]), fmaf(dg, vr.y, acc[x][4 * c + 1]),
-                      fmaf(dg, vr.z, acc[x][4 * c + 2]), fmaf(dg, vr.w, acc[x][4 * c + 3]));
-    }
-  }
-}
-
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads, 1)
 rwkv6_chunk_intra(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
@@ -268,20 +228,21 @@ rwkv6_chunk_intra(const T* __restrict__ r, const T* __restrict__ k, const T* __r
                   float* __restrict__ rd, const Args a) {
   using namespace hopper;
   constexpr int P = N + 4, NB = N + 8;  // f32 and staged-bf16 row pitches
+  constexpr int NQ = N / 4;             // float4 columns of a row
   constexpr bool BF16 = sizeof(T) == 2;
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
-  const int L = a.L, LT = tile_rows(L);
-  float* const R = smem;           // [LT][P]  r_dec (f32 r staged in place)
-  float* const K = R + LT * P;     // [LT][P]  k_dec (f32 k staged in place)
-  float* const V = K + LT * P;     // [LT][P]  v (bf16 staged in the upper halves)
-  float* const C = V + LT * P;     // [LT][P]  logw, then cum; then A [LT][LT]
-  float* const A = C;
-  float* const DG = C + cmax(LT * P, LT * LT);  // [LT] u-bonus diagonal
-  float* const WL = DG + LT;                     // [N]  cum of the chunk's last row
-  float* const U = WL + N;                       // [N]
-  float* const SEG = U + N;                      // [kThreads]
-  T* const RS = BF16 ? reinterpret_cast<T*>(SEG + kThreads) : reinterpret_cast<T*>(R);
+  const int L = a.L, LT = tile_rows(L), n_sub = LT / kSub;
+  float* const R = smem;              // [LT][P]  r~ (f32 r staged in place)
+  float* const K = R + LT * P;        // [LT][P]  k^ (f32 k staged in place)
+  float* const V = K + LT * P;        // [LT][P]  v (bf16 staged in the upper halves)
+  float* const C = V + LT * P;        // [LT][P]  logw, then each sub-chunk's cum
+  float* const A = C + LT * P;        // [LT][kSub] the sub-chunks' own products
+  float* const D = A + LT * kSub;     // [2][N][P] the chunk's state, two buffers
+  float* const GX = D + 2 * N * P;    // [kMaxL / kSub + 1][N] sums at sub-chunk starts
+  float* const DG = GX + (kMaxL / kSub + 1) * N;  // [LT] u-bonus diagonal
+  float* const U = DG + LT;                       // [N]
+  T* const RS = BF16 ? reinterpret_cast<T*>(U + N) : reinterpret_cast<T*>(R);
   T* const KS = BF16 ? RS + LT * NB : reinterpret_cast<T*>(K);
   constexpr int SP = BF16 ? NB : P;  // pitch of the staged r and k, in elements
 
@@ -304,25 +265,55 @@ rwkv6_chunk_intra(const T* __restrict__ r, const T* __restrict__ k, const T* __r
   for (int e = tid; e < N; e += kThreads) U[e] = u[h * N + e];
   cp_async_wait<1>();  // logw, r and k landed (this thread's copies)
   __syncthreads();
-  column_cumsum<N>(C, SEG, LT, tid);
+  sub_cumsum<N>(C, GX, n_sub, tid);
 
-  // the u-bonus diagonal sum_n r u k (before the decay), r_dec = r e^{cum_ex}
-  // and k_dec = k e^{-cum}: thread (row i, values n0..n0 + NPT)
+  // A[t][j] = sum_n r_t k_s e^{cum_ex_t - cum_s} for s = t - t % 16 + j < t,
+  // pair by pair: both cums are the sub-chunk's and the exponent is a sum of
+  // logw over (s, t), <= 0.  Entries j >= t % 16 are zero.
+  for (int e = tid; e < LT * kSub; e += kThreads)
+    if (e % kSub >= (e / kSub) % kSub) A[e] = 0.f;
+  for (int e = tid; e < n_sub * kPairs; e += kThreads) {
+    const int I = e / kPairs, q = e % kPairs;
+    int ti = 1;
+    while ((ti + 1) * ti / 2 <= q) ++ti;
+    const int sj = q - ti * (ti - 1) / 2, t = kSub * I + ti, s = kSub * I + sj;
+    const T* const rt = RS + t * SP;
+    const T* const ks = KS + s * SP;
+    const float* const ct = C + (t - 1) * P;  // cum_ex of t: cum of the row before
+    const float* const cs = C + s * P;
+    float acc = 0.f;
+#pragma unroll 4
+    for (int n = 0; n < N; n += 4) {
+      const float4 rv = load4(rt + n), kv = load4(ks + n), ex = load4(ct + n), cv = load4(cs + n);
+      acc = fmaf(rv.x * kv.x, expf(ex.x - cv.x), acc);
+      acc = fmaf(rv.y * kv.y, expf(ex.y - cv.y), acc);
+      acc = fmaf(rv.z * kv.z, expf(ex.z - cv.z), acc);
+      acc = fmaf(rv.w * kv.w, expf(ex.w - cv.w), acc);
+    }
+    A[t * kSub + sj] = acc;
+  }
+  __syncthreads();  // raw r and k are read: their f32 rows may now be overwritten
+
+  // thread (row i, values n0..n0 + NPT): the u-bonus diagonal sum_n r u k,
+  // r~ = r e^{cum_ex} and k^ = k e^{cum_last - cum} against the sub-chunk's
+  // own sums.  Every exponent is <= 0.
   {
     using RS_ = RowSplit<N>;
     const int i = tid / RS_::TPR, n0 = (tid % RS_::TPR) * RS_::NPT;
+    const int I = i / kSub, last = kSub * I + kSub - 1;
     float dg = 0.f;
     if (i < LT) {
 #pragma unroll
       for (int b0 = 0; b0 < RS_::STEPS; b0 += RS_::BATCH) {
-        float4 rv[RS_::BATCH], kv[RS_::BATCH], cv[RS_::BATCH], cx[RS_::BATCH];
+        float4 rv[RS_::BATCH], kv[RS_::BATCH], cv[RS_::BATCH], cx[RS_::BATCH], cl[RS_::BATCH];
 #pragma unroll
         for (int q = 0; q < RS_::BATCH; ++q) {
           const int n = n0 + 4 * (b0 + q);
           rv[q] = load4(RS + i * SP + n);
           kv[q] = load4(KS + i * SP + n);
           cv[q] = load4(C + i * P + n);
-          cx[q] = i > 0 ? load4(C + (i - 1) * P + n) : make_float4(0.f, 0.f, 0.f, 0.f);
+          cx[q] = i % kSub ? load4(C + (i - 1) * P + n) : make_float4(0.f, 0.f, 0.f, 0.f);
+          cl[q] = load4(C + last * P + n);
         }
 #pragma unroll
         for (int q = 0; q < RS_::BATCH; ++q) {
@@ -330,8 +321,10 @@ rwkv6_chunk_intra(const T* __restrict__ r, const T* __restrict__ k, const T* __r
           const float4 uu = load4(U + n);
 #pragma unroll
           for (int z = 0; z < 4; ++z) dg += lane4(rv[q], z) * (lane4(uu, z) * lane4(kv[q], z));
+          const float4 dx = make_float4(cl[q].x - cv[q].x, cl[q].y - cv[q].y, cl[q].z - cv[q].z,
+                                        cl[q].w - cv[q].w);
           *reinterpret_cast<float4*>(R + i * P + n) = mul4(rv[q], exp4(cx[q], 1.f));
-          *reinterpret_cast<float4*>(K + i * P + n) = mul4(kv[q], exp4(cv[q], -1.f));
+          *reinterpret_cast<float4*>(K + i * P + n) = mul4(kv[q], exp4(dx, 1.f));
         }
       }
     }
@@ -339,104 +332,96 @@ rwkv6_chunk_intra(const T* __restrict__ r, const T* __restrict__ k, const T* __r
     for (int off = RS_::TPR / 2; off > 0; off >>= 1) dg += __shfl_xor_sync(0xffffffffu, dg, off);
     if (i < LT && tid % RS_::TPR == 0) DG[i] = dg;
   }
-  if (tid < N) WL[tid] = C[(L - 1) * P + tid];
-  __syncthreads();  // cum is dead: its rows now hold A
+  if (tid < N) decay[((long long)bh * a.n_chunks + c) * N + tid] = expf(GX[n_sub * N + tid]);
 
   cp_async_wait<0>();  // v landed
   __syncthreads();
+  // r_dec = r~ e^{GX} against the chunk's start, to scratch for pass 2: a
+  // row's float4s from consecutive threads, so that the stores coalesce
+  // (stores of each thread's own row segment took 0.53 ms more of pass 1 at
+  // (4, 4096, 64, 64) on an H100)
+  {
+    float* const rdb = rd + ((long long)b * a.S + t0) * y_row + h * N;
+    for (int e = tid; e < rows_in * NQ; e += kThreads) {
+      const int i = e / NQ, n = 4 * (e % NQ);
+      *reinterpret_cast<float4*>(rdb + i * y_row + n) =
+          mul4(load4(R + i * P + n), exp4(load4(GX + (i / kSub) * N + n), 1.f));
+    }
+  }
   if constexpr (BF16) widen_rows<N>(V, LT, tid);
 
-  // The products, in two phases of four groups of 64 threads, each thread
-  // with an 8 x 8 (or 8 x 4) register tile.  Phase 1: A = strict_lower(r_dec
-  // k_dec^T) on its 64 x 64 blocks (i, j <= i), one a group (groups 0-2),
-  // and dS_c over s < 64 (group 3).  Phase 2: y_c = A v + diag v, rows 0-63
-  // (group 0) and rows 64-127 in two column halves (groups 1, 2), and dS_c
-  // over s >= 64 (group 3, the same registers).
-  const int g = tid / kGroup, lt = tid % kGroup, ty = lt / 8, tx = lt % 8;
-  const int nb = LT / kBlk;
-  // dS: thread (tn, tj) owns rows 4 tn + (N / 2) (x / 4) + x % 4 of the
-  // increment and the columns alike (x < RM)
-  constexpr int RM = cmin(8, N), GN = N / RM;
-  const int tn = lt / GN, tj = lt % GN;
-  const bool ds_thread = g == 3 && lt < GN * GN;
-  float ds[RM][RM] = {};
-  auto ds_rows = [&](int s0, int s1) {
-#pragma unroll 2
-    for (int s = s0; s < s1; ++s) {
-      float4 kv[RM / 4], vv[RM / 4];
-#pragma unroll
-      for (int c = 0; c < RM / 4; ++c) {
-        kv[c] = load4(K + s * P + 4 * tn + (N / 2) * c);
-        vv[c] = load4(V + s * P + 4 * tj + (N / 2) * c);
-      }
-#pragma unroll
-      for (int x = 0; x < RM; ++x)
-#pragma unroll
-        for (int z = 0; z < RM; ++z)
-          ds[x][z] = fmaf(lane4(kv[x / 4], x % 4), lane4(vv[z / 4], z % 4), ds[x][z]);
-    }
-  };
-  if (g < nb * (nb + 1) / 2) {  // A block (i, j): (0, 0), (1, 0), (1, 1)
-    const int i = g == 0 ? 0 : 1, j = g == 2 ? 1 : 0;
-    float acc[8][8] = {};
-    const float* const rr = R + (i * kBlk + ty) * P;
-    const float* const kk = K + (j * kBlk + tx) * P;
-#pragma unroll 2
-    for (int n = 0; n < N; n += 4) {
-      float4 ra[8], kb[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        ra[q] = load4(rr + 8 * q * P + n);
-        kb[q] = load4(kk + 8 * q * P + n);
-      }
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-#pragma unroll
-        for (int x = 0; x < 8; ++x)
-#pragma unroll
-          for (int z = 0; z < 8; ++z)
-            acc[x][z] = fmaf(lane4(ra[x], s), lane4(kb[z], s), acc[x][z]);
-    }
-#pragma unroll
-    for (int x = 0; x < 8; ++x)
-#pragma unroll
-      for (int z = 0; z < 8; ++z) {
-        const int row = i * kBlk + ty + 8 * x, col = j * kBlk + tx + 8 * z;
-        A[row * LT + col] = i > j || col < row ? acc[x][z] : 0.f;
-      }
-  } else if (ds_thread) {
-    ds_rows(0, cmin(kBlk, L));
-  }
-  __syncthreads();  // A is whole
-
+  // The walk over the sub-chunks, from a zero state D_0:
+  //   y_t = r~_t D_I + sum_{s < t in I} A_ts v_s + (sum_n r u k)_t v_t
+  //   D_{I+1} = diag(e^{cum_last}) D_I + k^_I^T v_I
+  // Thread (tn, tj) holds the 4 x 4 block of D at rows 4 tn, columns 4 tj
+  // in registers and writes it to D's buffer I % 2 for the read-out; thread
+  // (ty, tx) computes the float4 of y at row 16 I + ty, columns 4 tx.  One
+  // barrier a sub-chunk: buffer I % 2 is written again only two sub-chunks
+  // on, after every thread has passed the barrier between.
+  const bool owner = tid < NQ * NQ, reader = tid < kSub * NQ;
+  const int tn = tid / NQ, tj = tid % NQ, ty = tid / NQ, tx = tid % NQ;
+  float dreg[4][4] = {};
   float* const yb = y + ((long long)b * a.S + t0) * y_row + h * N;
-  if (g == 0) {  // rows 0-63: 8 columns a thread (4 at N = 4)
-    if (tx < N / cmin(8, N))
-      y_rows<N, cmin(8, N)>(A, V, DG, yb, y_row, LT, 0, 0, ty, tx, kBlk, rows_in);
-  } else if (g < 3) {  // rows 64-127, half the columns a group (all of them at N = 4)
-    if (nb == 2 && (N >= 8 ? tx < N / 8 : g == 1 && tx == 0))
-      y_rows<N, 4>(A, V, DG, yb, y_row, LT, kBlk, N >= 8 ? (g - 1) * (N / 2) : 0, ty, tx, LT,
-                   rows_in);
-  } else if (ds_thread) {
-    ds_rows(kBlk, L);
+  for (int I = 0; I < n_sub; ++I) {
+    float* const DI = D + (I & 1) * N * P;
+    if (owner)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        *reinterpret_cast<float4*>(DI + (4 * tn + x) * P + 4 * tj) =
+            make_float4(dreg[x][0], dreg[x][1], dreg[x][2], dreg[x][3]);
+    __syncthreads();
+    if (reader) {
+      const int row = kSub * I + ty;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float* const rr = R + row * P;
+#pragma unroll 8
+      for (int n = 0; n < N; ++n) {
+        const float rn = rr[n];
+        const float4 dv = load4(DI + n * P + 4 * tx);
+        acc = make_float4(fmaf(rn, dv.x, acc.x), fmaf(rn, dv.y, acc.y), fmaf(rn, dv.z, acc.z),
+                          fmaf(rn, dv.w, acc.w));
+      }
+      const float* const ar = A + row * kSub;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const float aj = ar[j];
+        const float4 vv = load4(V + (kSub * I + j) * P + 4 * tx);
+        acc = make_float4(fmaf(aj, vv.x, acc.x), fmaf(aj, vv.y, acc.y), fmaf(aj, vv.z, acc.z),
+                          fmaf(aj, vv.w, acc.w));
+      }
+      const float dg = DG[row];  // the u-bonus term
+      const float4 vr = load4(V + row * P + 4 * tx);
+      if (row < rows_in)
+        *reinterpret_cast<float4*>(yb + row * y_row + 4 * tx) =
+            make_float4(fmaf(dg, vr.x, acc.x), fmaf(dg, vr.y, acc.y), fmaf(dg, vr.z, acc.z),
+                        fmaf(dg, vr.w, acc.w));
+    }
+    if (owner) {
+      const float4 cl = load4(C + (kSub * I + kSub - 1) * P + 4 * tn);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const float e = expf(lane4(cl, x));
+#pragma unroll
+        for (int z = 0; z < 4; ++z) dreg[x][z] *= e;
+      }
+#pragma unroll 4
+      for (int s = kSub * I; s < kSub * I + kSub; ++s) {
+        const float4 kv = load4(K + s * P + 4 * tn), vv = load4(V + s * P + 4 * tj);
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+          for (int z = 0; z < 4; ++z)
+            dreg[x][z] = fmaf(lane4(kv, x), lane4(vv, z), dreg[x][z]);
+      }
+    }
+  }
+  // the chunk's increment, against its last row: sum_s diag(e^{cum_T - cum_s}) k_s^T v_s
+  if (owner) {
     float* const out = dS + ((long long)bh * a.n_chunks + c) * N * N;
 #pragma unroll
-    for (int x = 0; x < RM; ++x) {
-      const int n = 4 * tn + (N / 2) * (x / 4) + x % 4;
-      const float e = expf(WL[n]);
-#pragma unroll
-      for (int c4 = 0; c4 < RM / 4; ++c4)
-        *reinterpret_cast<float4*>(out + n * N + 4 * tj + (N / 2) * c4) =
-            make_float4(e * ds[x][4 * c4], e * ds[x][4 * c4 + 1], e * ds[x][4 * c4 + 2],
-                        e * ds[x][4 * c4 + 3]);
-    }
-  }
-  if (tid < N) decay[((long long)bh * a.n_chunks + c) * N + tid] = expf(WL[tid]);
-  // r_dec for pass 2
-  float* const rdb = rd + ((long long)b * a.S + t0) * y_row + h * N;
-  for (int e = tid; e < rows_in * (N / 4); e += kThreads) {
-    const int i = e / (N / 4), n = 4 * (e % (N / 4));
-    *reinterpret_cast<float4*>(rdb + i * y_row + n) = load4(R + i * P + n);
+    for (int x = 0; x < 4; ++x)
+      *reinterpret_cast<float4*>(out + (4 * tn + x) * N + 4 * tj) =
+          make_float4(dreg[x][0], dreg[x][1], dreg[x][2], dreg[x][3]);
   }
 }
 

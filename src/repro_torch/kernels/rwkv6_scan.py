@@ -7,7 +7,9 @@
 its two passes split the work: the chunks' own products in parallel, then a
 walk of the state over the chunks).  :func:`rwkv6_chunk_scan_plain` is the
 same function in plain torch ops, the TPU kernel's chunk loop batched over
-streams; the wrapper takes it only for CPU tensors.
+streams with each chunk taken in sub-chunks of 16 positions, so that no
+decay is the exponential of a positive number; the wrapper takes it only for
+CPU tensors.
 
 The wrapper takes the model's layout: r, k, v and logw ``(B, S, H, N)``
 with the head dim contiguous (the ``(B, S, D)`` projections viewed as heads,
@@ -37,9 +39,8 @@ import torch
 from . import _build
 
 MAX_CHUNK = 128  # the kernel's chunk tile (csrc/rwkv6_scan.cu kMaxL)
-BLOCK = 64  # row blocks of the intra-chunk products (kBlk)
+SUB = 16  # sub-chunk rows whose decays are taken pair by pair (kSub)
 SLICE_COLS = 32  # state columns a pass-2 CTA carries (kSliceCols)
-SCAN_THREADS = 256
 HEAD_DIMS = (4, 8, 16, 32, 64)  # the JAX kernel tests' and rwkv6-7b's
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -71,13 +72,14 @@ def launch_plan(s: int, chunk: int = 64, *, b: int = 1, h: int = 1, n: int = 64,
         raise ValueError(f"need s, chunk, b, h, n >= 1, got {(s, chunk, b, h, n)}")
     tile = min(chunk, s, MAX_CHUNK)
     n_chunks = -(-s // tile)
-    rows = BLOCK * -(-tile // BLOCK)  # the tile's rows, in whole 64-row blocks
+    rows = SUB * -(-tile // SUB)  # the tile's rows, in whole 16-row sub-chunks
     cols = min(n, SLICE_COLS)
-    # pass 1: r_dec, k_dec, v, then cum or A, the short vectors, and bf16 r
-    # and k as staged; pass 2: r_dec, the state's and the increment's
-    # slices, the decay, y's slice
-    pass1 = (3 * rows * (n + 4) + max(rows * (n + 4), rows * rows) + rows + 2 * n
-             + SCAN_THREADS + (rows * (n + 8) if dtype == torch.bfloat16 else 0))
+    # pass 1: r~, k^, v and cum, the sub-chunks' A, two state buffers, the
+    # sums at sub-chunk starts, the short vectors, and bf16 r and k as
+    # staged; pass 2: r_dec, the state's and the increment's slices, the
+    # decay, y's slice
+    pass1 = (4 * rows * (n + 4) + rows * SUB + 2 * n * (n + 4) + (MAX_CHUNK // SUB + 1) * n
+             + rows + n + (rows * (n + 8) if dtype == torch.bfloat16 else 0))
     pass2 = rows * (n + 4) + 2 * n * (cols + 4) + n + rows * (cols + 4)
     return {"chunk": tile, "n_chunks": n_chunks, "pass1_ctas": b * h * n_chunks,
             "pass2_ctas": b * h * (n // cols), "slice_cols": cols,
@@ -89,13 +91,24 @@ def rwkv6_chunk_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            logw: torch.Tensor, u: torch.Tensor, *, chunk: int = 64,
                            s0: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain torch ops, computed as the TPU kernel
-    computes it: r, k, v, logw ``(BH, S, N)`` widened to f32, u ``(BH, N)``,
-    chunks of ``min(chunk, S)`` with the tail zero-padded and masked (k = 0,
-    logw = 0), per chunk the decayed inter-chunk product, the strictly
-    lower-triangular intra-chunk product and the u-bonus diagonal, then the
-    state update.  ``s0 (BH, N, N)``: the state to start from (zeros when
-    None).  Returns (y (BH, S, N) f32, final state (BH, N, N) f32)."""
+    """The kernel's function in plain torch ops: r, k, v, logw ``(BH, S, N)``
+    widened to f32, u ``(BH, N)``, chunks of ``min(chunk, S)`` with the tail
+    zero-padded and masked (k = 0, logw = 0), and within each chunk
+    sub-chunks of :data:`SUB` positions.  For sub-chunk I of a chunk, with
+    c and c' the inclusive and exclusive sums of logw within the sub-chunk
+    and G the chunk's sum before it::
+
+        y_t = (r_t e^{G + c'_t}) S + (r_t e^{c'_t}) D
+              + sum_{s < t in I} (sum_n r_tn k_sn e^{c'_tn - c_sn}) v_s
+              + (sum_n r_tn u_n k_tn) v_t
+        D  <- diag(e^{c_last}) D + (k e^{c_last - c})^T v
+
+    where S is the state at the chunk's start and D the chunk's own state
+    from zero; then S <- diag(e^{G_end}) S + D.  Every exponent is a sum of
+    logw <= 0, so nothing overflows however fast the decay (the TPU
+    kernel's k e^{-cum} leaves f32 once a chunk sums past about -88).
+    ``s0 (BH, N, N)``: the state to start from (zeros when None).  Returns
+    (y (BH, S, N) f32, final state (BH, N, N) f32)."""
     bh, s, n = r.shape
     chunk = min(chunk, s)
     pad = -s % chunk
@@ -108,23 +121,27 @@ def rwkv6_chunk_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     u = u.float()[:, None, :]
     state = (torch.zeros(bh, n, n, dtype=torch.float32, device=r.device)
              if s0 is None else s0.float())
-    li = torch.arange(chunk, device=r.device)
-    strict = li[:, None] > li[None, :]
     ys = []
     for c0 in range(0, s + pad, chunk):
-        rb, kb, vb, wb = (t[:, c0:c0 + chunk] for t in (r, k, v, lw))
-        cum = torch.cumsum(wb, dim=1)                      # inclusive log-decay
-        cum_ex = cum - wb                                  # exclusive
-        r_dec = rb * torch.exp(cum_ex)
-        y = r_dec @ state                                  # inter-chunk
-        k_dec = kb * torch.exp(-cum)
-        att = torch.where(strict, r_dec @ k_dec.transpose(1, 2), 0.0)
-        diag = (rb * (u * kb)).sum(-1)                     # u-bonus, t == i
-        ys.append(y + att @ vb + diag[..., None] * vb)
-        w_last = cum[:, -1:, :]
-        k_carry = kb * torch.exp(w_last - cum)
-        state = (state * torch.exp(w_last[:, 0, :])[..., None]
-                 + k_carry.transpose(1, 2) @ vb)
+        g = torch.zeros(bh, 1, n, dtype=torch.float32, device=r.device)
+        d = torch.zeros(bh, n, n, dtype=torch.float32, device=r.device)
+        for i0 in range(c0, c0 + chunk, SUB):
+            rb, kb, vb, wb = (t[:, i0:min(i0 + SUB, c0 + chunk)] for t in (r, k, v, lw))
+            rows = rb.shape[1]
+            cum = torch.cumsum(wb, dim=1)                            # inclusive
+            cum_ex = torch.nn.functional.pad(cum, (0, 0, 1, 0))[:, :-1]  # the row before's
+            strict = torch.ones(rows, rows, dtype=torch.bool, device=r.device).tril(-1)
+            expo = (cum_ex[:, :, None] - cum[:, None]).masked_fill(~strict[..., None],
+                                                                   float("-inf"))
+            att = (rb[:, :, None] * kb[:, None] * torch.exp(expo)).sum(-1)  # (BH, T, T)
+            diag = (rb * (u * kb)).sum(-1)                           # u-bonus, t == s
+            ys.append((rb * torch.exp(g + cum_ex)) @ state + (rb * torch.exp(cum_ex)) @ d
+                      + att @ vb + diag[..., None] * vb)
+            last = cum[:, -1:]
+            d = (d * torch.exp(last[:, 0])[..., None]
+                 + (kb * torch.exp(last - cum)).transpose(1, 2) @ vb)
+            g = g + last
+        state = state * torch.exp(g[:, 0])[..., None] + d
     return torch.cat(ys, dim=1)[:, :s], state
 
 

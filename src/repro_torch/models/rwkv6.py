@@ -1,19 +1,49 @@
 """RWKV-6 "Finch" time-mix and channel-mix (arXiv:2404.05892), in torch.
 
 The JAX package's ``models/rwkv6.py`` with the same names, arguments and
-layouts.  The time-mix recurrence per head (head dim N)::
+layouts, and Finch's published block beside it.  The time-mix recurrence
+per head (head dim N)::
 
     S_t = diag(w_t) S_{t-1} + k_t^T v_t          (state: N x N, f32)
     y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 
 with data-dependent per-channel decay ``w_t = exp(-exp(w0 + lora(x_t)))``.
+The five streams' inputs come from the token shift ``x_prev`` (the previous
+position's input; the carried one, or zeros, at position 0).  The JAX
+package's form (``ModelConfig.rwkv_mix_lora == 0``) mixes each stream with a
+static coefficient, ``x_s = x + (x_prev - x) * mu_s``.  Finch's (section 4,
+``ddlerp``; rank ``r_mix > 0``) makes the five coefficients data-dependent
+through one shared LoRA::
+
+    xx  = x_prev - x
+    m   = tanh((x + xx * mu_x) A)                A (d, 5 r_mix)
+    x_s = x + xx * (mu_s + m_s B_s)              B (5, r_mix, d), s in w, k, v, r, g
+    logw = -exp(w0 + tanh(x_w D_a) D_b)          D_a (d, r_decay), D_b (r_decay, d), f32
+    r, k, v = x_r W_r, x_k W_k, x_v W_v;  g = silu(x_g W_g)
+    out = (groupnorm_H(wkv(r, k, v, logw, u)) * g) W_o
+
+with ``m_s`` the s-th rank-r_mix slice of ``m``.  RWKV-LM's
+``RWKV_Tmix_x060`` sets r_mix 64 and r_decay 128 at d_model 4096 (32 and 64
+below it); the JAX package's decay LoRA has rank 32.  The channel-mix::
+
+    k = relu(x_k W_k)^2;  out = sigmoid(x_r W_r) * (k W_v)
+
+with ``x_k``, ``x_r`` static mixes of its own token shift.
+
+The eight full-width products (time-mix r, k, v, g, o; channel-mix k, v,
+r) go through ``layers.dense``: the plain ``@`` unless a tuned-schedule
+registry is served, then ``tuned_einsum`` and, on the card, the tiled
+matmul.  The LoRAs stay on ``layers.matmul`` (the decay's in f32).
 Prefill (:func:`time_mix_chunked`) is one call of the hand-written chunked
 scan through ``kernels.ops.rwkv6_chunk_scan`` (the CUDA kernel on a CUDA
 tensor, its plain version on a CPU tensor) in place of the reference's
 ``lax.scan`` over chunks; decode (:func:`time_mix_decode`) is the plain
 single-token recurrence, as it is plain jnp in the reference.  The decay
 parameters, the bonus and the group-norm affine stay f32 in a bf16 model,
-as the JAX initialisers make them.
+as the JAX initialisers make them; ddlerp's ``mu_x`` is f32 and its LoRA
+is in the model's type.  Spans (``repro_torch.tracing``, device time):
+``rwkv6.mix`` around the token shift, the mixes and the decay, up to the
+projections, and ``rwkv6.scan`` around the scan.
 """
 from __future__ import annotations
 
@@ -24,21 +54,28 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as K
 from repro_torch.runtime import sharding as SH
+from repro_torch.tracing import span
 
-from .layers import dense_init, matmul, merge_heads, split_heads
+from .layers import dense, dense_init, matmul, merge_heads, split_heads
 
-LORA_RANK = 32
+LORA_RANK = 32  # the decay LoRA's rank by default (ModelConfig.rwkv_decay_lora)
+STREAMS = ("w", "k", "v", "r", "g")  # ddlerp's order of the streams (RWKV_Tmix_x060)
 
 
-def rwkv_time_mix_params(generator, d_model: int, head_dim: int, dtype, device
+def rwkv_time_mix_params(generator, d_model: int, head_dim: int, dtype, device,
+                         mix_lora: int = 0, decay_lora: int = LORA_RANK
                          ) -> Dict[str, torch.Tensor]:
+    """The time-mix's parameters; ``mix_lora > 0`` adds ddlerp's ``mu_x``
+    and its LoRA ``mix_lora_a`` (d, 5 r_mix) and ``mix_lora_b`` (5, r_mix,
+    d), drawn after the others (so the default ranks draw what the JAX
+    package's initialisers do)."""
     h = d_model // head_dim
     f32 = torch.float32
 
     def mu():  # token-shift interpolation coefficients per stream
         return dense_init(generator, (d_model,), f32, device, 0.2)
 
-    return {
+    p = {
         "mu_r": mu(), "mu_k": mu(), "mu_v": mu(), "mu_w": mu(), "mu_g": mu(),
         "w_r": dense_init(generator, (d_model, d_model), dtype, device),
         "w_k": dense_init(generator, (d_model, d_model), dtype, device),
@@ -47,12 +84,18 @@ def rwkv_time_mix_params(generator, d_model: int, head_dim: int, dtype, device
         "w_o": dense_init(generator, (d_model, d_model), dtype, device),
         # data-dependent decay: w0 + tanh(x A) B  (low-rank, Finch eq. 6)
         "w0": torch.full((d_model,), -6.0, dtype=f32, device=device),
-        "w_lora_a": dense_init(generator, (d_model, LORA_RANK), f32, device),
-        "w_lora_b": dense_init(generator, (LORA_RANK, d_model), f32, device),
+        "w_lora_a": dense_init(generator, (d_model, decay_lora), f32, device),
+        "w_lora_b": dense_init(generator, (decay_lora, d_model), f32, device),
         "u": dense_init(generator, (h, head_dim), f32, device, 0.5),
         "ln_w": torch.ones(d_model, dtype=f32, device=device),
         "ln_b": torch.zeros(d_model, dtype=f32, device=device),
     }
+    if mix_lora:
+        p["mu_x"] = mu()
+        p["mix_lora_a"] = dense_init(generator, (d_model, 5 * mix_lora), dtype, device)
+        p["mix_lora_b"] = dense_init(generator, (5, mix_lora, d_model), dtype, device,
+                                     mix_lora ** -0.5)
+    return p
 
 
 def _token_shift(x: torch.Tensor, x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -65,19 +108,29 @@ def _mix(x, xs, mu):
     return x + (xs - x) * mu.to(x.dtype)
 
 
-def _streams(p, x, x_shift):
-    xr = _mix(x, x_shift, p["mu_r"])
-    xk = _mix(x, x_shift, p["mu_k"])
-    xv = _mix(x, x_shift, p["mu_v"])
-    xw = _mix(x, x_shift, p["mu_w"])
-    xg = _mix(x, x_shift, p["mu_g"])
-    r = matmul(xr, p["w_r"])
-    k = matmul(xk, p["w_k"])
-    v = matmul(xv, p["w_v"])
-    g = F.silu(matmul(xg, p["w_g"]))
+def _mixed(p, x, x_shift):
+    """Each stream's input by name (r, k, v, g) and logw: Finch's ddlerp
+    where ``p`` holds its LoRA, else a static mu a stream."""
+    if "mix_lora_a" in p:
+        xx = x_shift - x
+        m = torch.tanh(matmul(x + xx * p["mu_x"].to(x.dtype), p["mix_lora_a"]))
+        lora_b = p["mix_lora_b"]
+        rank = lora_b.shape[1]
+        xs = {s: x + xx * (p[f"mu_{s}"] + matmul(m[..., i * rank:(i + 1) * rank],
+                                                 lora_b[i])).to(x.dtype)
+              for i, s in enumerate(STREAMS)}
+    else:
+        xs = {s: _mix(x, x_shift, p[f"mu_{s}"]) for s in STREAMS}
+    xw = xs.pop("w")
     logw = -torch.exp(p["w0"] + matmul(torch.tanh(matmul(xw.float(), p["w_lora_a"])),
                                          p["w_lora_b"]))
-    return r, k, v, g, logw  # logw (B, S, D) f32: log of the decay in (0, 1)
+    return xs, logw  # logw (B, S, D) f32: log of the decay in (0, 1)
+
+
+def _project(p, xs):
+    """r, k, v and g from the mixed streams: four full-width products."""
+    return (dense(xs["r"], p["w_r"]), dense(xs["k"], p["w_k"]), dense(xs["v"], p["w_v"]),
+            F.silu(dense(xs["g"], p["w_g"])))
 
 
 def _heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
@@ -122,8 +175,10 @@ def time_mix_chunked(p, x: torch.Tensor, head_dim: int, chunk: int = 128,
     if s % chunk != 0:
         x = _pad_seq(x, -s % chunk)
     sp = x.shape[1]
-    x_shift = _token_shift(x, x_prev)
-    r, k, v, g, logw = _streams(p, x, x_shift)
+    with span("rwkv6.mix", device=True):
+        xs, logw = _mixed(p, x, _token_shift(x, x_prev))
+    r, k, v, g = _project(p, xs)
+    del xs
     if sp != s:
         # padded positions must be state-neutral: no contribution (k = 0)
         # and no decay (logw = 0), so the carried state is exactly the
@@ -133,10 +188,11 @@ def time_mix_chunked(p, x: torch.Tensor, head_dim: int, chunk: int = 128,
             valid = SH.distribute(valid, x.device_mesh, ())
         k = torch.where(valid, k, torch.zeros((), dtype=k.dtype, device=k.device))
         logw = torch.where(valid, logw, 0.0)
-    y, final_state = K.rwkv6_chunk_scan(_heads(r, n), _heads(k, n), _heads(v, n),
-                                        _heads(logw, n), p["u"], chunk=chunk, s0=state)
+    with span("rwkv6.scan", device=True):
+        y, final_state = K.rwkv6_chunk_scan(_heads(r, n), _heads(k, n), _heads(v, n),
+                                            _heads(logw, n), p["u"], chunk=chunk, s0=state)
     y = _group_norm(y[:, :s], p["ln_w"], p["ln_b"])
-    out = matmul(y.to(x.dtype) * g[:, :s], p["w_o"])
+    out = dense(y.to(x.dtype) * g[:, :s], p["w_o"])
     return out, final_state, x[:, s - 1]
 
 
@@ -148,7 +204,9 @@ def time_mix_decode(p, x: torch.Tensor, head_dim: int, state: torch.Tensor,
     b, _, d = x.shape
     n = head_dim
     h = d // n
-    r, k, v, g, logw = _streams(p, x, x_prev[:, None])
+    with span("rwkv6.mix", device=True):
+        xs, logw = _mixed(p, x, x_prev[:, None])
+    r, k, v, g = _project(p, xs)
     rh = _heads(r, n)[:, 0].float()  # (B, H, N)
     kh = _heads(k, n)[:, 0].float()
     vh = _heads(v, n)[:, 0].float()
@@ -157,7 +215,7 @@ def time_mix_decode(p, x: torch.Tensor, head_dim: int, state: torch.Tensor,
     y = torch.einsum("bhn,bhnm->bhm", rh, state + p["u"][None, :, :, None] * kv)
     new_state = state * w[..., None] + kv
     y = _group_norm(y.reshape(b, 1, h, n), p["ln_w"], p["ln_b"])
-    out = matmul(y.to(x.dtype) * g, p["w_o"])
+    out = dense(y.to(x.dtype) * g, p["w_o"])
     return out, new_state, x[:, 0]
 
 
@@ -199,5 +257,5 @@ def channel_mix(p, x: torch.Tensor, x_prev: Optional[torch.Tensor] = None
     xs = _token_shift(x, x_prev)
     xk = _mix(x, xs, p["mu_k"])
     xr = _mix(x, xs, p["mu_r"])
-    k = torch.square(F.relu(matmul(xk, p["w_k"])))
-    return torch.sigmoid(matmul(xr, p["w_r"])) * matmul(k, p["w_v"]), x[:, -1]
+    k = torch.square(F.relu(dense(xk, p["w_k"])))
+    return torch.sigmoid(dense(xr, p["w_r"])) * dense(k, p["w_v"]), x[:, -1]

@@ -7,9 +7,10 @@ site looks its contraction up in the tuned-schedule table and a hit on the
 card launches the tiled-matmul kernel.  ``None`` leaves dense sites on the
 plain ``@``.  Either way every prefill attention is the flash-attention
 kernel, every prefill RWKV-6 time-mix the chunked-scan kernel and every
-prefill Mamba mixer the selective-scan kernel (the RWKV-6 and Mamba dense
-projections and the MoE experts stay on the plain ``@``, as in the
-reference).  Prefill and decode run under ``torch.no_grad()``.
+prefill Mamba mixer the selective-scan kernel.  The RWKV-6 time-mix's and
+channel-mix's eight full-width projections are dense sites too; its LoRAs,
+the Mamba projections and the MoE experts stay on the plain ``@``, as in
+the reference.  Prefill and decode run under ``torch.no_grad()``.
 
 Training (:func:`make_train_step`) is the reference's step: the loss is the
 seq-chunked cross-entropy (+ z-loss 1e-4) of :func:`hidden_states` under

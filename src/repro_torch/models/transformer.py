@@ -131,7 +131,8 @@ def _block_init(generator, spec: LayerSpec, cfg: ModelConfig, device) -> Dict[st
         p["post_attn"] = torch.ones(d, dtype=dt, device=device)
         p["post_ffn"] = torch.ones(d, dtype=dt, device=device)
     if spec.mixer == RWKV6:
-        p["rwkv"] = R.rwkv_time_mix_params(generator, d, cfg.rwkv_head_dim, dt, device)
+        p["rwkv"] = R.rwkv_time_mix_params(generator, d, cfg.rwkv_head_dim, dt, device,
+                                           cfg.rwkv_mix_lora, cfg.rwkv_decay_lora)
     elif spec.mixer == MAMBA:
         p["mamba"] = M.mamba_params(generator, d, cfg.ssm_d_state, cfg.ssm_d_conv,
                                     cfg.ssm_expand, dt, device)

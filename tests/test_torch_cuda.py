@@ -347,6 +347,40 @@ def test_rwkv_scan_kernel_at_the_model_shape_on_the_card(with_s0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv_scan_kernel_holds_at_trained_decay_speeds_on_the_card(dtype):
+    """logw = -e^{2z}, z standard normal, so that 128-token chunks sum logw
+    below -300 (trained decays pass -88 within a few dozen tokens): the
+    kernel stays finite and equals the token-by-token recurrence at 2e-4,
+    at chunks 128 and 64 and from a carried state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from repro_torch.kernels.ref import rwkv6_ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_chunk_scan, to_streams
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, s, h, n = 2, 300, 2, 64
+    r, k, v = ((0.5 * torch.randn(b, s, h, n, generator=g, device="cuda")).to(dt)
+               for _ in range(3))
+    logw = -torch.exp(2.0 * torch.randn(b, s, h, n, generator=g, device="cuda"))
+    u = 0.3 * torch.randn(h, n, generator=g, device="cuda")
+    streams = [to_streams(t).float() for t in (r, k, v, logw)]
+    assert streams[3][:, :256].reshape(b * h, 2, 128, n).sum(2).min() < -300
+    want_y, want_s = rwkv6_ref(*streams, u.repeat(b, 1))
+    for chunk in (128, 64):
+        y, st = rwkv6_chunk_scan(r, k, v, logw, u, chunk=chunk)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y).all() and torch.isfinite(st).all()
+        torch.testing.assert_close(to_streams(y), want_y, rtol=2e-4, atol=2e-4)
+        torch.testing.assert_close(st.reshape(b * h, n, n), want_s, rtol=2e-4, atol=2e-4)
+    y1, s1 = rwkv6_chunk_scan(*(t[:, :100] for t in (r, k, v, logw)), u, chunk=128)
+    y2, s2 = rwkv6_chunk_scan(*(t[:, 100:] for t in (r, k, v, logw)), u, chunk=128, s0=s1)
+    torch.testing.assert_close(to_streams(torch.cat([y1, y2], 1)), want_y, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s2.reshape(b * h, n, n), want_s, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
 def test_two_layer_rwkv_model_step_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")

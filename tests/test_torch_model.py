@@ -33,6 +33,9 @@ from repro_torch.models import steps as TS
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_jax
 
+#: ModelConfig fields the JAX package lacks, at their defaults
+PORT_ONLY_FIELDS = {"rwkv_mix_lora": 0, "rwkv_decay_lora": 32}
+
 B, PROMPT, MAX_LEN, DECODES = 2, 12, 24, 4
 
 
@@ -175,7 +178,10 @@ def test_every_reference_arch_resolves_with_equal_fields():
 
     assert sorted(ARCHS) == sorted(R_ARCHS) and len(ARCHS) == 10
     for name, r_cfg in R_ARCHS.items():
-        assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(r_cfg), name
+        # the port's own fields (Finch's LoRA ranks) at the defaults that
+        # keep the JAX package's block
+        assert dataclasses.asdict(get_config(name)) == {**dataclasses.asdict(r_cfg),
+                                                        **PORT_ONLY_FIELDS}, name
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
     with pytest.raises(ValueError, match="unknown layer kind"):

@@ -92,6 +92,37 @@ def test_plain_scan_matches_pallas_and_ref(case):
         np.testing.assert_allclose(st.numpy(), want_s, rtol=TOL, atol=TOL)
 
 
+def _fast_decay_inputs(bh, s, n, seed):
+    """r, k, v and u as :func:`_scan_inputs` draws them, with logw = -e^{2z},
+    z standard normal: decays from about 1 to e^-1000 a token, so that
+    128-token chunks sum logw far below -88 (where e^{-cum} leaves f32)."""
+    r, k, v, _, u = _scan_inputs(bh, s, n, seed)
+    z = np.random.default_rng(seed + 1).standard_normal((bh, s, n))
+    return r, k, v, (-np.exp(2.0 * z)).astype(np.float32), u
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+def test_plain_scan_holds_at_trained_decay_speeds(chunk):
+    """Chunk sums of logw below -300 (a trained checkpoint's decays pass -88
+    within a few dozen tokens): the plain version, and the wrapper at its
+    tile, stay finite and equal the token-by-token recurrence at 2e-4."""
+    bh, s, n = 3, 200, 16
+    r, k, v, logw, u = _t(*_fast_decay_inputs(bh, s, n, seed=chunk))
+    tile = min(chunk, s)
+    sums = torch.nn.functional.pad(logw, (0, 0, 0, -s % tile)).reshape(bh, -1, tile, n).sum(2)
+    assert sums.min() < -300
+    want_y, want_s = tref.rwkv6_ref(r, k, v, logw, u)
+    y, st = rwkv6_chunk_scan_plain(r, k, v, logw, u, chunk=chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(y, want_y, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(st, want_s, rtol=TOL, atol=TOL)
+    heads = [t.reshape(1, bh, s, n).transpose(1, 2) for t in (r, k, v, logw)]
+    y, st = rwkv6_chunk_scan(*heads, u[:1].expand(bh, n).contiguous(), chunk=chunk)
+    want_y, want_s = tref.rwkv6_ref(r, k, v, logw, u[:1].expand(bh, n))
+    torch.testing.assert_close(to_streams(y), want_y, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(st[0], want_s, rtol=TOL, atol=TOL)
+
+
 def test_port_ref_matches_jax_ref():
     arrs = _scan_inputs(3, 29, 8, seed=5)
     y, st = tref.rwkv6_ref(*_t(*arrs))
@@ -169,9 +200,9 @@ def test_launch_plan_reports_the_passes_at_the_model_shape():
         "chunk": 128, "n_chunks": 8, "pass1_ctas": 2048, "pass2_ctas": 512,
         "slice_cols": 32,
         "scratch_bytes": 4 * (4 * 64 * 8 * (64 * 64 + 64) + 4 * 1024 * 64 * 64),
-        "smem_bytes": (208896, 71936)}
+        "smem_bytes": (222208, 71936)}
     # f32 r, k and v are staged in place
-    assert launch_plan(1024, 128, b=4, h=64, n=64)["smem_bytes"] == (172032, 71936)
+    assert launch_plan(1024, 128, b=4, h=64, n=64)["smem_bytes"] == (185344, 71936)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -194,28 +225,47 @@ def test_launch_plan_fits_every_head_dim_and_tile(n, s, chunk, dtype):
 
 def _chunk_parallel(r, k, v, logw, u, chunk, s0=None):
     """The kernel's two passes in plain torch, f32.  Pass 1, every chunk at
-    once: cum, r_dec, k_dec, the intra-chunk output strict_lower(r_dec
-    k_dec^T) v + (sum r u k) v, the chunk's state increment e^{w_last}
-    k_dec^T v and decay e^{w_last}.  Pass 2, in chunk order from s0: the
-    inter-chunk term r_dec S_{c-1}, then S_c = diag(decay) S_{c-1} + dS_c."""
+    once, in sub-chunks of 16 rows (zero-padded): c, the cumsum of logw
+    within each sub-chunk, c' the row before's, G the chunk's sum before the
+    sub-chunk; the pairs' products A_ts = sum_n r k e^{c'_t - c_s}; r_dec =
+    r e^{G + c'}; then a walk over the sub-chunks from a zero state D: y =
+    r e^{c'} D + A v + (sum r u k) v, D = diag(e^{c_last}) D + (k
+    e^{c_last - c})^T v.  The chunk's increment is the last D and its decay
+    e^{G_end}.  Pass 2, in chunk order from s0: the inter-chunk term r_dec
+    S_{c-1}, then S_c = diag(decay) S_{c-1} + dS_c."""
     bh, s, n = r.shape
     L = min(chunk, s)
     nc = -(-s // L)
-    r, k, v, lw = (torch.nn.functional.pad(t.float(), (0, 0, 0, nc * L - s))
-                   .reshape(bh, nc, L, n) for t in (r, k, v, logw))
-    cum = torch.cumsum(lw, dim=2)
-    cum_ex = torch.cat([torch.zeros_like(cum[:, :, :1]), cum[:, :, :-1]], dim=2)
-    r_dec, k_dec = r * torch.exp(cum_ex), k * torch.exp(-cum)
-    strict = torch.ones(L, L, dtype=torch.bool).tril(-1)
-    att = torch.where(strict, r_dec @ k_dec.transpose(-1, -2), 0.0)
-    diag = (r * u.float()[:, None, None, :] * k).sum(-1, keepdim=True)
-    y = att @ v + diag * v                                   # pass 1: y_c
-    decay = torch.exp(cum[:, :, -1, :])                      # (BH, C, N)
-    d_state = decay[..., None] * (k_dec.transpose(-1, -2) @ v)
+    lt = 16 * -(-L // 16)
+    streams = []
+    for t in (r, k, v, logw):
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, nc * L - s)).reshape(bh, nc, L, n)
+        streams.append(torch.nn.functional.pad(t, (0, 0, 0, lt - L))
+                       .reshape(bh, nc, lt // 16, 16, n))
+    r, k, v, lw = streams                                    # (BH, C, I, 16, N)
+    cum = torch.cumsum(lw, dim=3)
+    cum_ex = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]], dim=3)
+    last = cum[..., -1:, :]
+    g = torch.cumsum(last, dim=2) - last                     # the chunk's sum before I
+    strict = torch.ones(16, 16, dtype=torch.bool).tril(-1)
+    expo = (cum_ex[..., :, None, :] - cum[..., None, :, :]).masked_fill(
+        ~strict[..., None], float("-inf"))
+    att = (r[..., :, None, :] * k[..., None, :, :] * torch.exp(expo)).sum(-1)
+    diag = (r * u.float()[:, None, None, None, :] * k).sum(-1, keepdim=True)
+    r_dec = r * torch.exp(g + cum_ex)
+    y = att @ v + diag * v                                   # pass 1
+    d = torch.zeros(bh, nc, n, n)
+    for i in range(lt // 16):
+        y[:, :, i] += (r[:, :, i] * torch.exp(cum_ex[:, :, i])) @ d
+        d = (torch.exp(last[:, :, i, 0])[..., None] * d
+             + (k[:, :, i] * torch.exp(last[:, :, i] - cum[:, :, i])).transpose(-1, -2)
+             @ v[:, :, i])
+    decay = torch.exp(g[:, :, -1, 0] + last[:, :, -1, 0])    # (BH, C, N)
+    y, r_dec = (t.reshape(bh, nc, lt, n)[:, :, :L] for t in (y, r_dec))
     state = torch.zeros(bh, n, n) if s0 is None else s0.float()
     for c in range(nc):                                      # pass 2
         y[:, c] += r_dec[:, c] @ state
-        state = decay[:, c, :, None] * state + d_state[:, c]
+        state = decay[:, c, :, None] * state + d[:, c]
     return y.reshape(bh, nc * L, n)[:, :s], state
 
 

@@ -34,6 +34,7 @@ from repro_torch.launch import tune as TTUNE
 from repro_torch.models import steps as TS
 from repro_torch.models import transformer as TT
 from repro_torch.models.convert import params_from_jax
+from test_torch_model import PORT_ONLY_FIELDS
 
 B, PROMPT, MAX_LEN, DECODES = 2, 12, 24, 4
 
@@ -85,9 +86,12 @@ def _encoder(cfg):
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_config_fields_equal_the_reference(arch):
-    assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(r_get_config(arch))
-    assert dataclasses.asdict(get_config(arch).smoke()) == dataclasses.asdict(
-        r_get_config(arch).smoke())
+    # the port's own fields (Finch's LoRA ranks) at the defaults that keep
+    # the JAX package's block
+    assert dataclasses.asdict(get_config(arch)) == {
+        **dataclasses.asdict(r_get_config(arch)), **PORT_ONLY_FIELDS}
+    assert dataclasses.asdict(get_config(arch).smoke()) == {
+        **dataclasses.asdict(r_get_config(arch).smoke()), **PORT_ONLY_FIELDS}
 
 
 @pytest.mark.parametrize("size", ["smoke", "full"])
